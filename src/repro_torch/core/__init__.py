@@ -1,0 +1,17 @@
+"""repro_torch.core — the XBOF mechanism as substrate-agnostic PyTorch
+modules (port of `repro.core`).
+
+  descriptors  idle-resource descriptor tables (paper §4.3)
+  harvest      trigger conditions + the harvest state machine (§4.4/§4.5)
+  manager      the unified management round every substrate runs
+  loadbalance  holistic load-balance formula (paper §4.4)
+  wal          log-page crash consistency (paper §4.5)
+  topology     the exchange-tree spec (DESIGN.md §11)
+  costs        per-op §4.6 remote-assist price table
+
+`shards_mrc` and `events` move with later slices.
+"""
+from . import costs, descriptors, harvest, loadbalance, manager, topology, wal
+
+__all__ = ["costs", "descriptors", "harvest", "loadbalance", "manager",
+           "topology", "wal"]

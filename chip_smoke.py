@@ -118,10 +118,12 @@ def plain(ref, args, kw):
 
 
 def max_err(got, want, tol):
+    """(max abs error, max abs error / max |want|, whether every element is
+    within tol + tol * |want| and finite)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     ok = bool((err <= tol + tol * want.abs()).all()) and bool(torch.isfinite(got).all())
-    return float(err.max()), ok
+    return float(err.max()), float(err.max() / want.abs().max().clamp(min=1e-30)), ok
 
 
 def timed_ms(fn, iters, flush):
@@ -145,31 +147,39 @@ def timed_ms(fn, iters, flush):
 def work(args, kw):
     """Bytes the call must move (each input read once, each output written
     once) and fp32 operations it must do, for THESE inputs. A row with a
-    valid slot reads the K and V of its mapped pages below its length and
-    does 4 * H * D operations per valid token; a row with none (an
-    inactive engine slot) averages V over every gathered row (holes read
-    page 0): V only, and KV * D additions per gathered row."""
+    valid slot reads its q, the table columns below its length and the K
+    and V of their mapped pages, and does 4 * H * D operations per valid
+    token; a row with none (an inactive engine slot) does not depend on q:
+    it averages V over every gathered row (holes read page 0), reading its
+    whole table row and V only, with KV * D additions per gathered row.
+    Every row writes its out and reads its length."""
     q, k, v, table, lengths = args
     b, h, d = q.shape
     n_pages, page, kv, _ = k.shape
+    mp = table.shape[1]
     tab = table.cpu().numpy()
     lens = lengths.cpu().numpy()
-    k_pages, v_pages, tokens, mean_rows = set(), set(), 0, 0
+    k_pages, v_pages = set(), set()
+    tokens = mean_rows = q_rows = table_reads = 0
     for i in range(b):
-        live = min(tab.shape[1], -(-max(int(lens[i]), 0) // page))
+        live = min(mp, -(-max(int(lens[i]), 0) // page))
         cols = [j for j in range(live) if tab[i, j] >= 0]
         if cols:
             k_pages.update(int(tab[i, j]) for j in cols)
             v_pages.update(int(tab[i, j]) for j in cols)
             tokens += sum(min(page, int(lens[i]) - j * page) for j in cols)
+            q_rows += 1
+            table_reads += live
         else:
             v_pages.update(int(max(p, 0)) for p in tab[i])
             mean_rows += 1
+            table_reads += mp
     plane_bytes = page * kv * d * k.element_size() + (4 if kw else 0)
+    row_bytes = h * d * q.element_size()
     nbytes = ((len(k_pages) + len(v_pages)) * plane_bytes
-              + 2 * q.numel() * q.element_size()
-              + table.numel() * 4 + lengths.numel() * 4)
-    flops = 4 * h * d * tokens + mean_rows * kv * d * tab.shape[1] * page
+              + (q_rows + b) * row_bytes          # q of valid rows, every out
+              + table_reads * 4 + lengths.numel() * 4)
+    flops = 4 * h * d * tokens + mean_rows * kv * d * mp * page
     return nbytes, flops
 
 
@@ -207,10 +217,11 @@ def main() -> None:
                                      seed=len(checks), dev=dev)
             got = pa.paged_attention(*args, **kw)
             torch.cuda.synchronize()
-            err, ok = max_err(got, plain(ref, args, kw), TOL[form])
+            err, rel, ok = max_err(got, plain(ref, args, kw), TOL[form])
             checks.append(dict(form=form, shape=label,
                                q=[b, h, d], pool=[n_pages, page, kv, d],
-                               max_abs_err=err, tol=TOL[form], ok=ok))
+                               max_abs_err=err, max_rel_err=rel,
+                               tol=TOL[form], ok=ok))
     bad = [c for c in checks if not c["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
@@ -289,10 +300,16 @@ def main() -> None:
         got = pa.paged_attention(*args, **kw)
         want = plain(ref, args, kw)
         torch.cuda.synchronize()
-        err, ok = max_err(got, want, TOL[form])
+        err, rel, ok = max_err(got, want, TOL[form])
+        if form == "bf16":
+            # the main path's outputs are small (rms about 0.04), so bf16's
+            # absolute gate there is near a typical value: gate the error
+            # relative to the largest output instead (the random-input
+            # checks of step 1, with O(1) outputs, keep the absolute gate)
+            ok = rel <= TOL[form] and bool(torch.isfinite(got).all())
         if not ok:
             fail(f"{form}: kernel disagrees with its plain version on the "
-                 f"main path's inputs (max abs err {err})")
+                 f"main path's inputs (max abs err {err}, relative {rel})")
         ms = timed_ms(lambda: pa.paged_attention(*args, **kw), 20, flush)
         plain_ms = timed_ms(lambda: plain(ref, args, kw), 5, flush)
         nbytes, flops = work(args, kw)
@@ -306,7 +323,9 @@ def main() -> None:
             "on_main_path": form != "bf16",
             "shape": {"q": list(args[0].shape), "pool": list(args[1].shape),
                       "dtype": str(args[1].dtype).replace("torch.", "")},
-            "max_abs_err": err, "tol": TOL[form],
+            "max_abs_err": err, "max_rel_err": rel, "tol": TOL[form],
+            "gate": ("max_abs_err / max|want| <= tol" if form == "bf16"
+                     else "|err| <= tol * (1 + |want|) per element"),
             # random tables with holes and a row of length 0, both widths
             "checks": [c for c in checks if c["form"] == form],
             "ms": ms, "plain_ms": plain_ms,

@@ -4,16 +4,21 @@
     python3 scripts/torch_engine_profile.py [--quant int8 --link-pages 4]
 
 Runs `repro_torch.serving.engine.step` at the configuration `chip_smoke.py`
-drives (qwen3-14b attention width, 8 replicas, arrivals [16, 4, 0, ...]).
-It reports:
+drives (its FULL_WIDTH and ARRIVALS: qwen3-14b attention width, 8
+replicas, arrivals [16, 4, 0, ...]). After 6 steps of warm-up and sync
+checks it profiles steps 7 .. 6 + N (N = --steps) and reports, all from
+that one window:
 
-- wall ms per step: host clock around the steps, ending in a synchronize;
-- device-busy ms per step and the idle share: the summed duration of the
-  CUDA kernels `torch.profiler` records over the same steps, on the one
-  stream the step uses;
+- wall ms per step: host clock around the window, from a synchronize to a
+  synchronize, with the profiler recording device activity only;
+- device-busy ms per step and the idle share (1 - busy / wall): the summed
+  duration of the CUDA kernels `torch.profiler` records in the window, on
+  the one stream the step uses;
 - kernels launched per step, and the kernels that take most device time;
 - host syncs inside the step: the warnings `torch.cuda.set_sync_debug_mode`
-  raises over a few steps (the step is meant to have none).
+  raises over 2 steps (the step is meant to have none);
+- for comparison, the wall ms per step of the next N steps run without the
+  profiler.
 
 Prints the card's name and power limit, then one JSON line. Needs a CUDA
 device.
@@ -43,21 +48,19 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_engine_profile: needs a CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import ARRIVALS, FULL_WIDTH
     from repro_torch.serving import engine as E
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
-    cfg = E.EngineConfig(n_replicas=8, seq_slots=64, shadow_slots=16,
-                         pages_per_replica=48, page=16, max_pages=16,
-                         n_heads=40, kv_heads=8, head_dim=128,
-                         kv_quant=args.quant,
+    cfg = E.EngineConfig(**FULL_WIDTH, kv_quant=args.quant,
                          link_pages_per_step=args.link_pages)
     state = E.init(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    arrivals = torch.tensor([16, 4, 0, 0, 0, 0, 0, 0], dtype=torch.int32,
-                            device=dev)
+    arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
 
     def run(n):
         nonlocal state
@@ -78,16 +81,17 @@ def main() -> None:
     syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
              if "called a synchronizing" in str(w.message)]
 
-    t0 = time.perf_counter()
-    run(args.steps)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run(args.steps)
+    def timed(n):
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_ms = timed(args.steps)
+    wall_unprofiled_ms = timed(args.steps)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = collections.defaultdict(lambda: [0.0, 0])
@@ -99,7 +103,9 @@ def main() -> None:
     out = {
         "config": {"kv_quant": args.quant, "link_pages_per_step": args.link_pages,
                    "steps": args.steps},
+        "window": f"steps 7..{6 + args.steps}",
         "wall_ms_per_step": wall_ms,
+        "wall_ms_per_step_unprofiled": wall_unprofiled_ms,
         "device_busy_ms_per_step": busy_ms if kernels else "not measured",
         "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else "not measured",
         "kernels_per_step": len(kernels) / args.steps,

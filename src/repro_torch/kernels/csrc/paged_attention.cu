@@ -32,7 +32,7 @@
 // exp(NEG_INF - m) = 0 once a row has any valid slot, so the loop skips
 // them. A row with no valid slot (length 0: every inactive engine slot)
 // gives the plain version's uniform average of V over all gathered rows,
-// summed directly without K or scores.
+// summed directly without q, K or scores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,9 +44,11 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-// accumulators per thread: group * D <= kMaxAcc * kThreads (the wrapper
-// checks this bound before launching)
+// accumulators per thread: group * D <= kMaxAcc * kThreads (the C entry
+// refuses larger shapes)
 constexpr int kMaxAcc = 32;
+// returned by the C entry for a shape beyond the kernel's limits
+constexpr int kErrShape = -1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -105,20 +107,11 @@ paged_attention_kernel(const Q_T* __restrict__ q,
   float* l_s = m_s + group;          // [group] running sum
   float* a_s = l_s + group;          // [group] this page's rescale factor
 
-  // the block's query rows: heads kvh*group .. kvh*group + group - 1
-  const Q_T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * group) * D;
-  for (int e = tid; e < n_out; e += kThreads) q_s[e] = to_f32(qb[e]);
-  for (int g = tid; g < group; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-
   const int len = lengths[b];
   const int* row = page_table + static_cast<size_t>(b) * mp;
   const int live_cols = min(mp, (max(len, 0) + page - 1) / page);
   int mapped = 0;
   for (int j = tid; j < live_cols; j += kThreads) mapped |= row[j] >= 0;
-  // also orders the q_s / m_s / l_s writes above before their first use
   const bool any_valid = __syncthreads_or(mapped) != 0;
   const size_t page_stride = static_cast<size_t>(page) * KV * D;
   Q_T* ob = out + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * group) * D;
@@ -126,7 +119,7 @@ paged_attention_kernel(const Q_T* __restrict__ q,
   if (!any_valid) {
     // Every slot is masked, so every weight is exp(NEG_INF - NEG_INF) = 1:
     // the walk reduces to l = mp * page and acc = the sum of V over every
-    // gathered row (holes read page 0). Sum it directly — no K, no scores —
+    // gathered row (holes read page 0). Sum it directly — no q, K or scores —
     // in the walk's order (a page's rows, then across pages), which gives
     // the walk's result bit for bit. Inactive engine slots take this path.
     for (int d = tid; d < D; d += kThreads) {
@@ -149,6 +142,16 @@ paged_attention_kernel(const Q_T* __restrict__ q,
     }
     return;
   }
+
+  // the block's query rows: heads kvh*group .. kvh*group + group - 1 (a
+  // row with no valid slot returned above without reading them)
+  const Q_T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * group) * D;
+  for (int e = tid; e < n_out; e += kThreads) q_s[e] = to_f32(qb[e]);
+  for (int g = tid; g < group; g += kThreads) {
+    m_s[g] = kNegInf;
+    l_s[g] = 0.f;
+  }
+  __syncthreads();
 
   float acc[kMaxAcc];
 #pragma unroll
@@ -255,8 +258,10 @@ void launch(const void* q, const void* k, const void* v, const float* k_scale,
 
 // kind: 0 = fp32 pool and q, 1 = bf16 pool and q, 2 = int8 pool + fp32
 // scales with fp32 q. Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue for an unknown kind or for more
-// shared memory than a Hopper block may use (227 KB).
+// success), cudaErrorInvalidValue for an unknown kind, or kErrShape when
+// group * D exceeds kThreads * kMaxAcc or the block's shared memory exceeds
+// what the device lets one block opt in to. These are the kernel's only
+// limits; the Python wrapper turns kErrShape into a ValueError.
 extern "C" int xbof_paged_attention(int kind, const void* q, const void* k,
                                     const void* v, const float* k_scale,
                                     const float* v_scale,
@@ -265,10 +270,16 @@ extern "C" int xbof_paged_attention(int kind, const void* q, const void* k,
                                     int P, int page, int mp, float scale,
                                     void* stream) {
   const int group = H / KV;
+  if (group * D > kThreads * kMaxAcc) return kErrShape;
+  // fp32 q rows, one page of K and V, the page's scores, and the running
+  // max / sum / rescale per query row
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(group) * D + 2 * static_cast<size_t>(page) * D +
        static_cast<size_t>(group) * page + 3 * static_cast<size_t>(group));
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (smem > static_cast<size_t>(optin)) return kErrShape;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
@@ -289,4 +300,3 @@ extern "C" int xbof_paged_attention(int kind, const void* q, const void* k,
   }
   return static_cast<int>(cudaGetLastError());
 }
-

@@ -19,18 +19,9 @@ import torch
 
 from . import _build
 
-THREADS = 128       # threads per block in the kernel
-MAX_ACC = 32        # fp32 accumulators per thread: group * D <= THREADS * MAX_ACC
-SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2
-
-
-def smem_bytes(h: int, kv: int, d: int, page: int) -> int:
-    """Shared memory of one block: fp32 q rows, one page of K and V, the
-    page's scores, and the running max / sum / rescale per query row."""
-    group = h // kv
-    return 4 * (group * d + 2 * page * d + group * page + 3 * group)
+_ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
 
 
 def _lib() -> ctypes.CDLL:
@@ -88,11 +79,6 @@ def _check(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale):
                 f"fp pools take float32 or bfloat16 q and pools of the same "
                 f"dtype; got q {q.dtype}, pools {k_pool.dtype}/{v_pool.dtype}")
         kind = _KIND[q.dtype]
-    if (h // kv) * d > THREADS * MAX_ACC:
-        raise ValueError(f"group * head_dim = {(h // kv) * d} exceeds "
-                         f"{THREADS * MAX_ACC}")
-    if smem_bytes(h, kv, d, page) > SMEM_LIMIT:
-        raise ValueError("page * head_dim too large for one block's shared memory")
     if p < 1 or page_table.shape[1] < 1:
         raise ValueError("need at least one pool page and one table column")
     return kind
@@ -119,6 +105,10 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         None if v_scale is None else v_scale.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, h, kv, d, p, page, page_table.shape[1], d ** -0.5, stream)
+    if err == _ERR_SHAPE:
+        raise ValueError(
+            f"shape beyond the kernel's limits (csrc/paged_attention.cu): "
+            f"group * head_dim = {(h // kv) * d}, page = {page}")
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
     paged_attention.launches += 1

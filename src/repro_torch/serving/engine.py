@@ -208,9 +208,14 @@ def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
             for f in fields or fresh._fields})
 
     pool = state.pool
-    # the K/V planes are filled in place: they carry make_pool's scratch page
-    pool.k.copy_(_copy(arrays.pool.k, pool.k.dtype, dev))
-    pool.v.copy_(_copy(arrays.pool.v, pool.v.dtype, dev))
+    # the reference's K/V planes are [R, P, page, KV, Dh]; the port's are
+    # flat by global page id, with the scratch page after them
+    planes = {}
+    for f in ("k", "v"):
+        fresh = getattr(pool, f)
+        src = _copy(getattr(arrays.pool, f), fresh.dtype, dev)
+        planes[f] = torch.cat([src.reshape(fresh[:-1].shape), fresh[-1:]])
+    pool = pool._replace(**planes)
     pool = like(pool, arrays.pool, ("k_scale", "v_scale", "used", "owner_seq",
                                     "page_table", "seq_len", "seq_active"))
     pool = pool._replace(logs=like(pool.logs, arrays.pool.logs))
@@ -335,8 +340,7 @@ def _decode_all(cfg: EngineConfig, state: EngineState, dram_lenders,
                                           spill_budget=spill_budget)
 
     p = cfg.pages_per_replica
-    k_flat = pool.k.reshape(r * p, cfg.page, cfg.kv_heads, cfg.head_dim)
-    v_flat = pool.v.reshape(r * p, cfg.page, cfg.kv_heads, cfg.head_dim)
+    k_flat, v_flat = pool.k[: r * p], pool.v[: r * p]   # without the scratch page
     scales = {}
     if kvp.quantized(pool):
         # int8 pool: codes + per-page scales go to the fused-dequant kernel

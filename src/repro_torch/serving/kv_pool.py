@@ -14,12 +14,13 @@ page in one multiply-round pass.
 Unlike the reference, `append_tokens` writes the K/V planes IN PLACE: the
 input pool's ``k``/``v`` tensors are updated, so callers rebind the
 returned pool and do not reuse the old one (the reference's step donates
-its state for the same reason). `make_pool` allocates one scratch page
-past the end of each plane; rows that must not write (inactive slots,
-denied allocations) write there instead, so the step needs neither a
-filter (a host sync) nor a rebuilt pool, and no two live writes ever meet.
-The small metadata arrays are rebuilt functionally the same way, through
-a temporary one-slot tail.
+its state for the same reason). The K/V planes are indexed by global page
+id, flat ([R*P + 1, page, KV, Dh], where the reference keeps [R, P, page,
+KV, Dh]), and their last page is scratch: rows that must not write
+(inactive slots, denied allocations) write there instead, so the step
+needs neither a filter (a host sync) nor a rebuilt pool, and no two live
+writes ever meet. Readers take ``k[:R*P]``. The small metadata arrays are
+rebuilt functionally the same way, through a temporary one-slot tail.
 """
 from __future__ import annotations
 
@@ -42,8 +43,8 @@ _INV_QMAX = float(np.float32(1.0) / np.float32(QMAX))
 
 
 class PagedPool(NamedTuple):
-    k: torch.Tensor           # [R, P, page, KV, Dh] fp storage or int8 codes
-    v: torch.Tensor           # [R, P, page, KV, Dh]
+    k: torch.Tensor           # [R*P + 1, page, KV, Dh] fp storage or int8
+    v: torch.Tensor           #   codes by global page id; the last is scratch
     k_scale: torch.Tensor     # [R, P] fp32 per-page dequant scale (0 = empty;
     v_scale: torch.Tensor     #        inert all-zeros when not quantized)
     used: torch.Tensor        # [R, P] bool — physical page allocated
@@ -52,26 +53,6 @@ class PagedPool(NamedTuple):
     seq_len: torch.Tensor     # [R, S_slots] int32 tokens per sequence slot
     seq_active: torch.Tensor  # [R, S_slots] bool
     logs: wal.LogPages        # borrower-side redo logs for OFFSITE pages
-
-
-def _plane(r: int, p: int, page: int, kv: int, dh: int, dtype, dev):
-    """[R, P, page, KV, Dh] zeros, viewed out of storage one page longer:
-    the scratch page that masked writes land on (see module doc)."""
-    store = torch.zeros((r * p + 1, page, kv, dh), dtype=dtype, device=dev)
-    return store[: r * p].view(r, p, page, kv, dh)
-
-
-def _with_scratch(plane: torch.Tensor) -> torch.Tensor:
-    """[R*P + 1, page, KV, Dh] view of a K/V plane including its scratch
-    page. Raises for a plane that was not built by `make_pool`."""
-    r, p, page, kv, dh = plane.shape
-    row = page * kv * dh
-    end = (plane.storage_offset() + (r * p + 1) * row) * plane.element_size()
-    if not plane.is_contiguous() or plane.untyped_storage().nbytes() < end:
-        raise ValueError(
-            "KV planes must come from make_pool (contiguous, with the "
-            "scratch page past the end that masked writes land on)")
-    return plane.as_strided((r * p + 1, page, kv, dh), (row, kv * dh, dh, 1))
 
 
 def make_pool(n_replicas: int, pages_per_replica: int, page: int, kv: int,
@@ -83,9 +64,10 @@ def make_pool(n_replicas: int, pages_per_replica: int, page: int, kv: int,
     dev = resolve_device(device)
     r, p = n_replicas, pages_per_replica
     store = torch.int8 if quant == "int8" else dtype
+    plane = (r * p + 1, page, kv, dh)   # + the scratch page
     return PagedPool(
-        k=_plane(r, p, page, kv, dh, store, dev),
-        v=_plane(r, p, page, kv, dh, store, dev),
+        k=torch.zeros(plane, dtype=store, device=dev),
+        v=torch.zeros(plane, dtype=store, device=dev),
         k_scale=torch.zeros((r, p), dtype=torch.float32, device=dev),
         v_scale=torch.zeros((r, p), dtype=torch.float32, device=dev),
         used=torch.zeros((r, p), dtype=torch.bool, device=dev),
@@ -113,7 +95,7 @@ def page_nbytes(pool: PagedPool) -> int:
     page_len x kv_heads x head_dim x (K and V) at the STORED dtype, plus
     the two fp32 page scales of a quantized pool. A Python int derived from
     shapes — the unit the engine's LINK_BW byte account debits."""
-    page_sz, kv, dh = pool.k.shape[2:]
+    page_sz, kv, dh = pool.k.shape[1:]
     payload = page_sz * kv * dh * 2 * pool.k.element_size()
     if quantized(pool):
         payload += 2 * 4
@@ -197,9 +179,14 @@ def append_tokens(pool: PagedPool, k_toks: torch.Tensor, v_toks: torch.Tensor,
     """
     r, p = pool.used.shape
     s_slots = pool.seq_len.shape[1]
-    page_sz = pool.k.shape[2]
+    page_sz = pool.k.shape[1]
     mp = pool.page_table.shape[2]
     dev = pool.used.device
+    if pool.k.shape[0] != r * p + 1 or pool.v.shape != pool.k.shape:
+        raise ValueError(
+            f"K/V planes must be [R*P + 1, page, KV, Dh] = [{r * p + 1}, ...] "
+            f"(make_pool's, with the scratch page); got {tuple(pool.k.shape)}, "
+            f"{tuple(pool.v.shape)}")
     length = pool.seq_len.long()                        # [R, S]
     need = active & (length % page_sz == 0)
     need_i = need.long()
@@ -272,8 +259,8 @@ def append_tokens(pool: PagedPool, k_toks: torch.Tensor, v_toks: torch.Tensor,
         torch.div(tphys, p, rounding_mode="floor").clamp(0, r - 1) * p
         + (tphys % p).clamp(0, p - 1), r * p).reshape(-1)
     t_slot = (length % page_sz).reshape(-1)
-    kd = pool.k.shape[3:]
-    kx, vx = _with_scratch(pool.k), _with_scratch(pool.v)
+    kd = pool.k.shape[2:]
+    kx, vx = pool.k, pool.v
     k_rows = k_toks.reshape(r * s_slots, *kd)
     v_rows = v_toks.reshape(r * s_slots, *kd)
     k_scale, v_scale = pool.k_scale, pool.v_scale
@@ -325,11 +312,10 @@ def gather_kv(pool: PagedPool, home: int, seq_slot: int):
     k/v [max_pages*page, KV, Dh] (fp32 when the pool is quantized),
     valid bool[max_pages*page]."""
     r, p = pool.used.shape
-    page_sz = pool.k.shape[2]
+    page_sz = pool.k.shape[1]
     table = pool.page_table[home, seq_slot]            # [mp]
     safe = table.long().clamp(0, r * p - 1)
-    kg = pool.k.reshape(r * p, page_sz, *pool.k.shape[3:])[safe]
-    vg = pool.v.reshape(r * p, page_sz, *pool.v.shape[3:])[safe]
+    kg, vg = pool.k[safe], pool.v[safe]
     if quantized(pool):
         kg = kg.float() * pool.k_scale.reshape(-1)[safe][:, None, None, None]
         vg = vg.float() * pool.v_scale.reshape(-1)[safe][:, None, None, None]

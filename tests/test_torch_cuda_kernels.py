@@ -104,3 +104,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                            k, v, table, lengths)                 # layout
     with pytest.raises(ValueError):
         pa.paged_attention(q, k, v, table, lengths.cpu())        # device
+    with pytest.raises(ValueError, match="limits"):               # group * D
+        pa.paged_attention(torch.zeros((1, 64, 128), device=dev),
+                           k[:, :, :1].contiguous(), v[:, :, :1].contiguous(),
+                           table[:1], lengths[:1])

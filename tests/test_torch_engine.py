@@ -86,6 +86,10 @@ def _compare_leaves(jtree, ttree, where, int8_codes=False):
             _compare_leaves(b, a, f"{where}.{name}", int8_codes)
             continue
         b, a = np.asarray(b), a.numpy()
+        if name in ("k", "v"):
+            # the port's K/V planes are flat by global page id, plus a
+            # scratch page
+            a = a[:-1].reshape(b.shape)
         assert a.dtype == b.dtype, (where, name, a.dtype, b.dtype)
         if a.dtype.kind in "biu":
             if int8_codes and name in ("k", "v"):

@@ -44,10 +44,13 @@ def _assert_pool_matches(jpool, tpool, quant):
         np.testing.assert_array_equal(np.asarray(getattr(jpool.logs, name)),
                                       getattr(tpool.logs, name).numpy(),
                                       err_msg=f"logs.{name}")
+    # the port's planes are flat by global page id, plus a scratch page
+    planes = {name: getattr(tpool, name)[:-1].reshape(getattr(jpool, name).shape)
+              for name in ("k", "v")}
     if quant == "int8":
         for plane in ("k", "v"):
             a = np.asarray(getattr(jpool, plane)).astype(np.int32)
-            b = getattr(tpool, plane).numpy().astype(np.int32)
+            b = planes[plane].numpy().astype(np.int32)
             assert np.abs(a - b).max() <= 1, plane
         for s in ("k_scale", "v_scale"):
             np.testing.assert_allclose(np.asarray(getattr(jpool, s)),
@@ -55,7 +58,7 @@ def _assert_pool_matches(jpool, tpool, quant):
     else:
         for plane in ("k", "v"):
             np.testing.assert_allclose(np.asarray(getattr(jpool, plane)),
-                                       getattr(tpool, plane).numpy(), atol=1e-6)
+                                       planes[plane].numpy(), atol=1e-6)
 
 
 @pytest.mark.parametrize("metered", [False, True], ids=["unmetered", "budget"])
@@ -114,17 +117,20 @@ def test_gather_kv_and_page_nbytes_match_reference(quant):
 
 
 def test_append_writes_in_place_and_needs_pool_planes():
-    """K/V planes are updated in place (the scratch page past their end
-    takes the masked writes); planes not built by make_pool are refused."""
+    """K/V planes are updated in place (their last page, the scratch page,
+    takes the masked writes); planes without the scratch page are refused."""
     pool = tkvp.make_pool(2, 4, 4, 1, 4, 2, 3, dtype=torch.float32,
                           device="cpu")
+    assert tuple(pool.k.shape) == (2 * 4 + 1, 4, 1, 4)
     k_before = pool.k
     tok = torch.ones((2, 2, 1, 4))
-    out, _ = tkvp.append_tokens(pool, tok, tok, torch.ones((2, 2), dtype=torch.bool),
+    # slot 1 of replica 1 is inactive: its row goes to the scratch page
+    active = torch.tensor([[True, True], [True, False]])
+    out, _ = tkvp.append_tokens(pool, tok, tok, active,
                                 torch.zeros(2, dtype=torch.bool))
-    assert out.k is k_before and float(out.k.sum()) == 16.0
+    assert out.k is k_before and float(out.k[:-1].sum()) == 12.0
     with pytest.raises(ValueError, match="make_pool"):
-        tkvp.append_tokens(pool._replace(k=torch.zeros_like(pool.k)), tok, tok,
+        tkvp.append_tokens(pool._replace(k=pool.k[:-1], v=pool.v[:-1]), tok, tok,
                            torch.ones((2, 2), dtype=torch.bool),
                            torch.zeros(2, dtype=torch.bool))
 

@@ -6,10 +6,14 @@
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc` (one
 nvcc per source, all at once), then:
 
-1. holds every kernel form (fp32, bf16, int8) against its plain PyTorch
-   version on random tables with holes and a row of length 0, at the
-   serving engine's default attention width (4 heads, 2 KV heads,
+1. holds every paged-attention form (fp32, bf16, int8) against its plain
+   PyTorch version on random tables with holes and a row of length 0, at
+   the serving engine's default attention width (4 heads, 2 KV heads,
    head_dim 32) and at qwen3-14b's (40 heads, 8 KV heads, head_dim 128);
+   and the flash-attention kernel (fp32, bf16) against its plain version
+   on the sweep of tests/test_kernels.py under its three masks, head_dim
+   80 and 16, a ragged non-causal length, queries offset against a longer
+   key sequence, and rows with no valid key;
 2. drives the serving engine's main path — `serving.engine.step` at
    qwen3-14b's attention width, 8 replicas, 32 steps — twice: fp32 pages
    unmetered, and int8 pages under a LINK_BW budget of 4 pages per step.
@@ -18,18 +22,29 @@ nvcc per source, all at once), then:
    (its launch count is zeroed just before each run and read just after),
    and no step may synchronize with the host (`torch.cuda`'s sync debug
    mode raises on one);
-3. times each kernel form on the inputs the main path gave it, beside its
-   plain version and the least time the card could take (bytes over the
-   memory rate or operations over the fp32 rate, whichever is larger);
-4. checks the engine on the GPU against the same engine on the CPU (the
-   plain path) on a small configuration.
+3. drives the model zoo's serve path through `launch.serve.run_model`:
+   qwen3-14b at its full published width and depth (bf16, batch 4, prompt
+   2048, 32 greedy tokens) and h2o-danube-1.8b at its full config (batch
+   1, prompt 8192 past its 4096 sliding window, 16 tokens, so the window
+   masks and the ring cache wraps). The flash kernel must run once per
+   layer of the prefill (launch count zeroed just before, read just
+   after), the logits must be finite, and decode must not synchronize
+   with the host. The kernel is held against its plain version on the
+   q/k/v the first and last layers gave it;
+4. times each kernel form on the inputs the main path gave it, beside its
+   plain version, one PyTorch library call computing the same function
+   where there is one, and the least time the card could take (bytes over
+   the memory rate or operations over the peak rate of their type,
+   whichever is larger);
+5. checks the engine, and a narrow fp32 model (prefill + 8 decode steps),
+   on the GPU against the same code on the CPU (the plain path).
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
-`engine`, `gpu_vs_cpu_engine`), the `kernels` JSON line — per kernel form
-its checks of step 1 and its numbers of step 3 — and last
-`{"ok": true, "device": {...}}`. Any failure
-exits non-zero before the last line. Needs one CUDA device; exits non-zero
-without one, or when run outside a checkout.
+`flash_checks`, `engine`, `model`, `model_window`, `gpu_vs_cpu_engine`,
+`gpu_vs_cpu_model`), the `kernels` JSON line — per kernel form its checks
+and its numbers of step 4 — and last `{"ok": true, "device": {...}}`. Any
+failure exits non-zero before the last line. Needs one CUDA device; exits
+non-zero without one, or when run outside a checkout.
 """
 from __future__ import annotations
 
@@ -58,10 +73,32 @@ PHASES = {
 }
 # kernel vs plain version (the gates of tests/test_kernels.py)
 TOL = {"fp32": 3e-5, "bf16": 3e-2, "int8": 1e-5}
-# published H100 SXM rates (NVIDIA data sheet): HBM3 bytes/s and fp32
-# FLOP/s outside the tensor cores (the kernel's math is fp32 throughout)
+# published H100 SXM rates (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
+# outside the tensor cores and dense bf16 FLOP/s on the tensor cores
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+# the model zoo's serve path: (arch, batch, prompt, generated tokens)
+MODEL = ("qwen3-14b", 4, 2048, 32)
+MODEL_WINDOW = ("h2o-danube-1.8b", 1, 8192, 16)
+# flash kernel vs plain version, random inputs: (b, s, t, h, kv, d,
+# causal, window) — the sweep of tests/test_kernels.py under its three
+# masks, then head_dim 80 and 16, a ragged non-causal length, queries
+# offset against a longer key sequence (S < T), and rows with no valid
+# key (causal with S > T)
+FLASH_SWEEP = [(2, 256, 4, 2, 128), (1, 384, 6, 6, 128), (2, 128, 8, 1, 128),
+               (1, 512, 2, 2, 256)]
+FLASH_SHAPES = [(b, s, s, h, kv, d, c, w) for b, s, h, kv, d in FLASH_SWEEP
+                for c, w in ((True, 0), (True, 128), (False, 0))] + [
+    (2, 256, 256, 32, 8, 80, True, 0), (1, 300, 300, 32, 8, 80, True, 96),
+    (3, 70, 70, 4, 2, 16, True, 0), (1, 200, 200, 4, 2, 128, False, 0),
+    (2, 64, 256, 8, 2, 128, True, 0), (1, 256, 64, 4, 2, 128, True, 0)]
+# the narrow fp32 config of gpu_vs_cpu_model: head_dim 128 with a prompt
+# of 128, the shape at which the JAX prefill reaches its Pallas kernel
+NARROW = dict(name="narrow-d128", family="dense", n_layers=2, d_model=256,
+              n_heads=4, n_kv_heads=2, d_head=128, d_ff=512, vocab=512,
+              dtype="float32")
 
 
 def fail(msg: str) -> None:
@@ -183,6 +220,239 @@ def work(args, kw):
     return nbytes, flops
 
 
+def flash_inputs(shape, dtype, seed, dev):
+    b, s, t, h, kv, d, _, _ = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(sh, generator=g).to(dtype).to(dev)
+            for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+
+def flash_checks(dev) -> list[dict]:
+    """The flash kernel against its plain version on random inputs, per
+    element within tol * (1 + |want|)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    checks = []
+    for form, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for shape in FLASH_SHAPES:
+            q, k, v = flash_inputs(shape, dtype, len(checks), dev)
+            causal, window = shape[6], shape[7]
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err, rel, ok = max_err(got, ref.attention(q, k, v, causal=causal,
+                                                      window=window), TOL[form])
+            checks.append(dict(form=form, shape=list(shape[:6]), causal=causal,
+                               window=window, max_abs_err=err, max_rel_err=rel,
+                               tol=TOL[form], ok=ok))
+    return checks
+
+
+def flash_work(q, k, causal, window):
+    """Bytes the call must move (q, k and v read once, out written once)
+    and operations it must do for THESE shapes: 4 * D per unmasked
+    (query, key) pair and query head (the q.k and p.v products); a row
+    with no valid key (causal, S > T) averages V over all T keys instead,
+    D additions per key and head."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    pos = torch.arange(s) + (t - s)            # key position of each row
+    if causal:
+        lo = (pos - window + 1).clamp(min=0) if window else torch.zeros_like(pos)
+        pairs = int((pos.clamp(max=t - 1) - lo + 1).clamp(min=0).sum())
+        no_key_rows = int((pos < 0).sum())
+    else:
+        pairs, no_key_rows = s * t, 0
+    flops = 4 * d * b * h * pairs + no_key_rows * b * h * t * d
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, flops
+
+
+def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
+    """Drive `launch.serve.run_model` at the arch's full config; return its
+    JSON line and the (q, k, v, causal, window) the flash kernel got in the
+    first and last layers of the prefill."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    cfg = configs.get(arch)
+    dispatch, decode_step, captured, calls = ops.attention, D.decode_step, {}, [0]
+
+    def capture(q, k, v, causal=True, window=0, scale=None):
+        if calls[0] in (0, cfg.n_layers - 1):
+            captured[calls[0]] = (q, k, v, causal, window)
+        calls[0] += 1
+        return dispatch(q, k, v, causal=causal, window=window, scale=scale)
+
+    def checked_step(*args, **kw):
+        # the decode step reads nothing back to the host: any
+        # synchronizing CUDA call inside it raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return decode_step(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.attention, D.decode_step = capture, checked_step
+    fa.flash_attention.launches = 0
+    try:
+        out = serve.run_model(arch, batch, prompt, gen, seed=0, device=dev)
+    finally:
+        ops.attention, D.decode_step = dispatch, decode_step
+    launches = fa.flash_attention.launches
+    logits = out["logits"]
+    line = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+                heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+                d_ff=cfg.d_ff, vocab=cfg.vocab, window=cfg.sliding_window,
+                dtype=cfg.dtype, n_params=cfg.n_params(), batch=batch,
+                prompt=prompt, gen=gen, flash_launches=launches,
+                prefill_ms=out["prefill_ms"],
+                decode_ms_per_token=out["decode_ms_per_token"],
+                tok_per_s=out["tok_per_s"],
+                logits_shape=list(logits.shape),
+                logits_finite=bool(torch.isfinite(logits).all()),
+                logits_max_abs=float(logits.float().abs().max()),
+                tokens_shape=list(out["tokens"].shape),
+                sample=out["tokens"][0, :8].tolist(),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                decode_host_syncs="none (sync debug mode 'error')")
+    if launches != cfg.n_layers:
+        fail(f"{arch}: flash_attention launched {launches} times in a prefill "
+             f"of {cfg.n_layers} layers")
+    if not line["logits_finite"]:
+        fail(f"{arch}: logits not finite")
+    if list(out["tokens"].shape) != [batch, gen]:
+        fail(f"{arch}: greedy tokens {list(out['tokens'].shape)} != {[batch, gen]}")
+    # the kernel against its plain version on the main path's inputs; its
+    # outputs are small, so bf16 is gated by max abs error / max |want|
+    line["checks"] = []
+    for layer, (q, k, v, causal, window) in sorted(captured.items()):
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention(q, k, v, causal=causal, window=window)
+        err, rel, _ = max_err(got, want, TOL["bf16"])
+        ok = rel <= TOL["bf16"] and bool(torch.isfinite(got).all())
+        line["checks"].append(dict(layer=layer, q=list(q.shape), k=list(k.shape),
+                                   causal=causal, window=window, max_abs_err=err,
+                                   max_rel_err=rel, tol=TOL["bf16"], ok=ok))
+        if not ok:
+            fail(f"{arch} layer {layer}: kernel disagrees with its plain version "
+                 f"(max abs err {err}, relative {rel})")
+    return line, captured[0]
+
+
+def gpu_vs_cpu_model(dev) -> dict:
+    """A narrow fp32 model, the same weights on both devices: prefill a
+    prompt of 128, then 8 greedy decode steps. The CUDA run (flash kernel)
+    and the CPU run (plain version) must give equal tokens, and logits
+    within 1e-4 * (1 + |want|)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ArchConfig
+    cfg = ArchConfig(**NARROW)
+    cpu_params = T.init_params(cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(3))
+
+    def to_dev(node):
+        return ({k: to_dev(x) for k, x in node.items()} if isinstance(node, dict)
+                else node.to(dev))
+
+    tokens = torch.randint(0, cfg.vocab, (2, 128),
+                           generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for name, params, toks in (("cuda", to_dev(cpu_params), tokens.to(dev)),
+                               ("cpu", cpu_params, tokens)):
+        fa.flash_attention.launches = 0
+        logits, cache = D.prefill(cfg, params, toks, max_len=136)
+        steps = [logits.cpu()]
+        greedy = []
+        for _ in range(8):
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            greedy.append(tok.cpu())
+            logits, cache = D.decode_step(cfg, params, cache, tok)
+            steps.append(logits.cpu())
+        runs[name] = (steps, torch.stack(greedy, 1), fa.flash_attention.launches)
+    (g_logits, g_tok, g_launch), (c_logits, c_tok, _) = runs["cuda"], runs["cpu"]
+    if g_launch != cfg.n_layers:
+        fail(f"gpu_vs_cpu_model: flash_attention launched {g_launch} times "
+             f"in a prefill of {cfg.n_layers} layers")
+    if not torch.equal(g_tok, c_tok):
+        fail(f"gpu_vs_cpu_model: greedy tokens {g_tok.tolist()} != CPU {c_tok.tolist()}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_logits, c_logits)):
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()))
+        if not bool((err <= 1e-4 * (1 + b.abs())).all()):
+            fail(f"gpu_vs_cpu_model: logits of step {i} differ by up to "
+                 f"{float(err.max())} from the CPU plain path")
+    return {"config": NARROW, "batch": 2, "prompt": 128, "decode_steps": 8,
+            "flash_launches": g_launch, "tokens_equal": True,
+            "max_abs_logit_err": worst, "tol": "1e-4 * (1 + |want|)", "ok": True}
+
+
+def flash_row(name, form, q, k, v, causal, window, launches, flush, checks,
+              extra) -> dict:
+    """One `kernels` entry for the flash kernel on the inputs the main path
+    gave it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err, rel, _ = max_err(got, want, TOL[form])
+    ok = rel <= TOL[form] and bool(torch.isfinite(got).all())
+    if not ok:
+        fail(f"{name}: kernel disagrees with its plain version on the main "
+             f"path's inputs (max abs err {err}, relative {rel})")
+    # the library yardstick: one scaled_dot_product_attention call over the
+    # same inputs in its [B, H, S, D] layout (views, not copies). The
+    # windowed shape passes its band as an explicit boolean mask.
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    s, t = q.shape[1], k.shape[1]
+    if window:
+        pos = torch.arange(s, device=q.device)[:, None] + (t - s)
+        cols = torch.arange(t, device=q.device)[None, :]
+        mask = (cols <= pos) & (cols > pos - window)
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        library_call = "scaled_dot_product_attention(attn_mask=band, enable_gqa=True)"
+    else:
+        library = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        library_call = f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)"
+    lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
+    ms = timed_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+                  5, flush)
+    plain_ms = timed_ms(lambda: ref.attention(q, k, v, causal=causal, window=window),
+                        3, flush)
+    library_ms = timed_ms(library, 10, flush)
+    nbytes, flops = flash_work(q, k, causal, window)
+    peak = BF16_FLOPS if form == "bf16" else FP32_FLOPS
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / peak
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:76",
+        "launches": launches,
+        "shape": {"q": list(q.shape), "k": list(k.shape), "causal": causal,
+                  "window": window, "dtype": str(q.dtype).replace("torch.", "")},
+        "max_abs_err": err, "max_rel_err": rel, "tol": TOL[form],
+        "gate": "max_abs_err / max|want| <= tol",
+        "checks": [c for c in checks if c["form"] == form],
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+        "peak_flops": peak,
+        "library_ms": library_ms, "library_call": library_call,
+        "library_max_abs_err": lib_err,
+        **extra,
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
@@ -225,6 +495,14 @@ def main() -> None:
     bad = [c for c in checks if not c["ok"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    fchecks = flash_checks(dev)
+    print(json.dumps({"flash_checks": {
+        "n": len(fchecks), "ok": all(c["ok"] for c in fchecks),
+        "max_abs_err": {f: max(c["max_abs_err"] for c in fchecks if c["form"] == f)
+                        for f in ("fp32", "bf16")}}}), flush=True)
+    bad = [c for c in fchecks if not c["ok"]]
+    if bad:
+        fail(f"flash kernel disagrees with its plain version: {bad}")
 
     # ---- 2. the main path: the engine at full width, two phases
     captured = {}
@@ -284,6 +562,13 @@ def main() -> None:
         del state
     E.kops.paged_attention = dispatch
     print(json.dumps({"engine": engine_out}), flush=True)
+
+    # ---- 2b. the model zoo's serve path at full width, then a sliding
+    # window past its size
+    model_line, model_in = model_phase(*MODEL, dev)
+    print(json.dumps({"model": model_line}), flush=True)
+    window_line, window_in = model_phase(*MODEL_WINDOW, dev)
+    print(json.dumps({"model_window": window_line}), flush=True)
 
     # ---- 3. each kernel form on the inputs the main path gave it
     fp_args, _ = main_inputs["fp32"]
@@ -357,6 +642,28 @@ def main() -> None:
                 fail(f"GPU engine step {i} stat {key} {a} != CPU plain path {b}")
     print(json.dumps({"gpu_vs_cpu_engine": {"config": "4 replicas, int8",
                                             "steps": 6, "ok": True}}), flush=True)
+    model_check = gpu_vs_cpu_model(dev)
+    print(json.dumps({"gpu_vs_cpu_model": model_check}), flush=True)
+
+    # ---- 5. the flash kernel on the inputs the model runs gave its first
+    # layer: qwen3-14b (bf16, and the same inputs in fp32, a form the main
+    # path does not run) and h2o-danube's sliding window
+    q, k, v, causal, window = model_in
+    kernels.append(flash_row(
+        "flash_attention[bf16]", "bf16", q, k, v, causal, window,
+        model_line["flash_launches"], flush, fchecks,
+        {"on_main_path": True, "phase": "model"}))
+    kernels.append(flash_row(
+        "flash_attention[fp32]", "fp32", q.float(), k.float(), v.float(), causal,
+        window, 0, flush, fchecks,
+        {"on_main_path": False, "phase": "model (inputs cast to fp32)",
+         "launches_gpu_vs_cpu_model": model_check["flash_launches"]}))
+    del model_in, q, k, v
+    q, k, v, causal, window = window_in
+    kernels.append(flash_row(
+        "flash_attention[bf16,window]", "bf16", q, k, v, causal, window,
+        window_line["flash_launches"], flush, fchecks,
+        {"on_main_path": True, "phase": "model_window"}))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,206 @@
+#!/usr/bin/env python3
+"""Where a prefill and a decode step of the port's model zoo spend their
+time, on one GPU.
+
+    python3 scripts/torch_model_profile.py [--arch qwen3-14b --batch 4 \\
+        --prompt-len 2048 --decode-steps 8]
+
+Runs `repro_torch.models.decode.prefill` and `decode_step` at the arch's
+full published config (random weights from seed 0, as
+`launch.serve.run_model` draws them). After one warm-up prefill and
+decode step it profiles one prefill, then ``--decode-steps`` decode steps,
+and reports for each window:
+
+- wall ms: host clock from a synchronize to a synchronize, with the
+  profiler recording host and device activity, and the same work again
+  without the profiler;
+- device-busy ms and the idle share (1 - busy / wall): the summed
+  duration of the CUDA kernels `torch.profiler` records in the window;
+- device ms and host ms per layer of the model, from
+  `torch.profiler.record_function` ranges this script wraps around the
+  serve path's functions: embed, norm, the attention block's projections
+  with qk-norm and RoPE (`attention_proj`), the attention itself (the
+  flash kernel in prefill, the plain decode attention in decode), the
+  KV-cache writes, the MLP and the unembedding. A layer's device ms is
+  the summed duration of the kernels that ran inside its range and in no
+  labelled range nested in it; `other` is the kernels outside every range
+  (the residual adds). Its host ms is the host time inside its range,
+  likewise exclusive;
+- the kernels that take most device time.
+
+Prints the card's name and power limit, then one JSON line. Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import bisect
+import collections
+import functools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+CUDA = torch.autograd.DeviceType.CUDA
+
+
+def _label(module, attr: str, label: str) -> None:
+    """Wrap ``module.attr`` in a profiler range named ``label``."""
+    fn = getattr(module, attr)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+
+    setattr(module, attr, wrapped)
+
+
+def _split(prof, labels) -> tuple[dict, dict, float, int, list]:
+    """Per label: device ms of the kernels that ran inside it (and in no
+    labelled range nested in it), and host ms spent inside it (likewise
+    exclusive); then total busy ms, the number of kernels, and the top
+    kernels by device time.
+
+    A kernel belongs to the innermost labelled range whose span on the
+    device timeline (the profiler's GPU-side copy of each
+    `record_function` range) contains it; this holds for kernels launched
+    through ctypes too, which the profiler does not link to a host op."""
+    events = prof.events()
+    device = [e for e in events if e.device_type == CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in device if e.name in labels)
+    starts = [a for a, _, _ in spans]
+    kernel_ms = collections.defaultdict(float)
+    kernels = collections.defaultdict(lambda: [0.0, 0])
+    n = 0
+    for e in device:
+        if e.name in labels:
+            continue
+        n += 1
+        k0, k1 = e.time_range.start, e.time_range.end
+        owner = "other"
+        for j in range(bisect.bisect_right(starts, k0) - 1, -1, -1):
+            if k1 <= spans[j][1]:  # spans nest: the latest-starting cover is innermost
+                owner = spans[j][2]
+                break
+        ms = e.time_range.elapsed_us() / 1e3
+        kernel_ms[owner] += ms
+        kernels[e.name][0] += ms
+        kernels[e.name][1] += 1
+
+    def labelled_below(e):
+        for c in e.cpu_children:
+            if c.name in labels:
+                yield c
+            else:
+                yield from labelled_below(c)
+
+    host_ms = collections.defaultdict(float)
+    for e in events:
+        if e.name in labels and e.device_type != CUDA:
+            inner = sum(c.cpu_time_total for c in labelled_below(e))
+            host_ms[e.name] += (e.cpu_time_total - inner) / 1e3
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(kernel_ms), dict(host_ms), busy, n, top
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=2048)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_model_profile: needs a CUDA device")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    dev = torch.device("cuda", 0)
+    cfg = configs.get(args.arch)
+    params = T.init_params(cfg, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    max_len = args.prompt_len + 2 * args.decode_steps + 2
+
+    labels = {"embed", "norm", "attention_proj", "attention", "cache_write",
+              "mlp", "unembed"}
+    for module, attr, label in (
+            (D, "embed", "embed"), (D, "norm", "norm"),
+            (A, "gqa_train", "attention_proj"), (D, "_decode_gqa", "attention_proj"),
+            (ops, "attention", "attention"), (ops, "decode_attention", "attention"),
+            (D, "_write_kv", "cache_write"), (D, "_ring_update", "cache_write"),
+            (D, "mlp", "mlp"), (D, "unembed", "unembed")):
+        _label(module, attr, label)
+
+    state = {}
+
+    def do_prefill():
+        state["logits"], state["cache"] = D.prefill(cfg, params, tokens,
+                                                    max_len=max_len)
+
+    def do_decode():
+        for _ in range(args.decode_steps):
+            tok = torch.argmax(state["logits"], -1).to(torch.int32)
+            state["logits"], state["cache"] = D.decode_step(
+                cfg, params, state["cache"], tok)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    timed(do_prefill)   # warm-up: kernel build and load, cuBLAS handles
+    timed(do_decode)
+    out = {"config": {"arch": args.arch, "batch": args.batch,
+                      "prompt_len": args.prompt_len,
+                      "decode_steps": args.decode_steps, "dtype": cfg.dtype,
+                      "layers": cfg.n_layers}}
+    for phase, fn, per in (("prefill", do_prefill, 1),
+                           ("decode", do_decode, args.decode_steps)):
+        if phase == "decode":
+            do_prefill()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            wall = timed(fn)
+        if phase == "decode":
+            do_prefill()
+        wall_unprofiled = timed(fn)
+        device_ms, host_ms, busy, n_kernels, top = _split(prof, labels)
+        out[phase] = {
+            "per": "prefill" if per == 1 else "decode step",
+            "wall_ms": wall / per,
+            "wall_ms_unprofiled": wall_unprofiled / per,
+            "device_busy_ms": busy / per if busy else "not measured",
+            "device_idle_share": 1.0 - busy / wall if busy else "not measured",
+            "kernels": n_kernels / per,
+            "device_ms_by_layer": {k: v / per for k, v in sorted(device_ms.items())},
+            "host_ms_by_layer": {k: v / per for k, v in sorted(host_ms.items())},
+            "top_kernels": [{"name": name[:90], "ms": ms / per, "launches": n / per}
+                            for name, (ms, n) in top],
+        }
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,12 +4,23 @@ The port mirrors `repro`'s module layout (``repro_torch.core.manager`` is
 the port of ``repro.core.manager``) and imports neither JAX nor anything of
 `repro`. State is NamedTuples of tensors threaded through plain functions;
 every entry point takes an explicit ``device`` and runs on CUDA when it is
-None. The paged-attention decode runs a hand-written CUDA kernel for
-Hopper (`kernels/csrc/paged_attention.cu`) on CUDA tensors and its plain
-PyTorch version (`kernels/ref.py`) on CPU tensors.
+None. Each TPU kernel on a ported path is a hand-written CUDA kernel for
+Hopper (`kernels/csrc/*.cu`) that CUDA tensors launch; CPU tensors take
+its plain PyTorch version (`kernels/ref.py`).
 
-This slice covers the single-shard serving-engine step (fp32 and int8 KV
-pages); configurations outside it raise ``NotImplementedError``.
+Ported so far:
+
+- the single-shard serving-engine step (`serving.engine.step`, fp32 and
+  int8 KV pages), with the paged-attention kernel
+  (`kernels/csrc/paged_attention.cu`);
+- the dense model zoo's serve path (`models.transformer.init_params`,
+  `models.decode.prefill` and `decode_step`, driven by
+  `launch.serve.run_model`) for qwen3-14b, granite-8b, internlm2-20b and
+  h2o-danube-1.8b, with the prefill flash-attention kernel
+  (`kernels/csrc/flash_attention.cu`).
+
+Configurations and architectures outside these raise
+``NotImplementedError("later slice")``.
 """
 from __future__ import annotations
 

@@ -1,0 +1,47 @@
+"""Architecture registry: one module per architecture, each with its exact
+published config (``CONFIG``) and a reduced same-family config
+(``smoke()``), copied from `repro.configs`.
+
+All ten architectures are named; the six whose blocks the port does not
+run yet raise ``NotImplementedError("later slice")`` from `get` and
+`smoke`.
+"""
+from __future__ import annotations
+
+from importlib import import_module
+
+_MODULES = {
+    "whisper-tiny": "whisper_tiny",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "granite-8b": "granite_8b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "internlm2-20b": "internlm2_20b",
+    "qwen3-14b": "qwen3_14b",
+    "rwkv6-3b": "rwkv6_3b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+}
+# the dense family, which this port runs
+PORTED = ("granite-8b", "h2o-danube-1.8b", "internlm2-20b", "qwen3-14b")
+
+ARCH_NAMES = list(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"later slice: {name} is not ported yet (ported: {list(PORTED)})")
+    return import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get(name: str):
+    """Full published config for ``--arch <name>``."""
+    return _module(name).CONFIG
+
+
+def smoke(name: str):
+    """Reduced same-family config for CPU smoke tests."""
+    return _module(name).smoke()

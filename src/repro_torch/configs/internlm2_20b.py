@@ -1,0 +1,24 @@
+"""internlm2-20b [dense]: 48L d_model=6144 48H (GQA kv=8) d_ff=16384
+vocab=92544. [arXiv:2403.17297; hf]"""
+import dataclasses
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-20b",
+    family="dense",
+    n_layers=48,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=16384,
+    vocab=92544,
+    rope_theta=1000000.0,
+)
+
+
+def smoke() -> ArchConfig:
+    return dataclasses.replace(
+        CONFIG, name="internlm2-smoke", n_layers=2, d_model=96, n_heads=6,
+        n_kv_heads=2, d_ff=192, vocab=256, dtype="float32",
+    )

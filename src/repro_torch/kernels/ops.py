@@ -8,8 +8,26 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
 from . import paged_attention as _pa
 from . import ref
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0,
+              scale: float | None = None) -> torch.Tensor:
+    """Prefill attention: q [B, S, H, D] over k, v [B, T, KV, D]."""
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """One-token attention against a KV cache. No TPU kernel backs it (the
+    reference runs its jnp oracle on every backend), so it is the plain
+    version on every device."""
+    return ref.decode_attention(q, k, v, valid)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,

@@ -1,16 +1,121 @@
 """Plain PyTorch versions of the port's kernels — the semantics contract.
 
-Port of the paged-attention part of `repro.kernels.ref`. The CPU path runs
-these; on the GPU `chip_smoke.py` and the CUDA tests hold each kernel
-against them on the same inputs. The remaining oracles (flash attention,
-MoE router, RG-LRU, RWKV6, FTL lookup) come with the slices whose kernels
-need them.
+Port of the attention part of `repro.kernels.ref`: prefill attention
+(dense and chunked forms), decode attention and paged attention. The CPU
+path runs these; on the GPU `chip_smoke.py` and the CUDA tests hold each
+kernel against them on the same inputs. The remaining oracles (MoE
+router, RG-LRU, RWKV6, FTL lookup) come with the slices whose kernels need
+them.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+# ------------------------------------------------------------- attention
+# Above this key length the plain version switches to the chunked
+# online-softmax form: O(S * CHUNK) live bytes instead of O(S * T).
+CHUNKED_THRESHOLD = 4096
+CHUNK = 1024
+
+
+def check_mask_args(causal: bool, window: int) -> None:
+    """The reference applies a sliding window only under ``causal`` in its
+    dense form and regardless of it in its chunked form and its Pallas
+    kernel; no caller asks for a window without causality, so the port
+    refuses that combination instead of picking one reading."""
+    if window and not causal:
+        raise ValueError(
+            "a sliding window needs causal=True (the reference's dense and "
+            "chunked forms disagree on causal=False with window > 0)")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: int = 0,
+              scale: float | None = None) -> torch.Tensor:
+    """Grouped-query prefill attention; optional causal mask and sliding
+    window. q [B, S, H, Dh]; k, v [B, T, KV, Dh]; query row i sits at key
+    position i + T - S. Masked scores take the finite NEG_INF, so a row
+    with no valid key (causal, S > T) averages V over all T keys. Returns
+    [B, S, H, Dh] in q's dtype."""
+    t = k.shape[1]
+    if t >= CHUNKED_THRESHOLD and t % CHUNK == 0:
+        return attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
+    return attention_dense(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def _band(rows: torch.Tensor, cols: torch.Tensor, causal: bool, window: int):
+    """Valid (query position, key position) pairs of the causal band."""
+    mask = torch.ones(rows.shape[0], cols.shape[0], dtype=torch.bool,
+                      device=rows.device)
+    if causal:
+        mask &= cols[None, :] <= rows[:, None]
+    if window:
+        mask &= cols[None, :] > rows[:, None] - window
+    return mask
+
+
+def attention_dense(q, k, v, causal=True, window=0, scale=None):
+    check_mask_args(causal, window)
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.reshape(b, s, kv, group, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) * scale
+    if causal:
+        qpos = torch.arange(s, device=q.device) + (t - s)
+        mask = _band(qpos, torch.arange(t, device=q.device), causal, window)
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(b, s, h, dh)
+
+
+def attention_chunked(q, k, v, causal=True, window=0, scale=None):
+    """Online softmax over key chunks of CHUNK: never holds the [S, T]
+    scores (peak [S, CHUNK]). Needs T % CHUNK == 0."""
+    check_mask_args(causal, window)
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.reshape(b, s, kv, group, dh)
+    qpos = torch.arange(s, device=q.device) + (t - s)
+    m = torch.full((b, kv, group, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kv, group, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, group, s, dh), dtype=torch.float32, device=q.device)
+    for start in range(0, t, CHUNK):
+        kb, vb = k[:, start:start + CHUNK], v[:, start:start + CHUNK]
+        sc = (torch.einsum("bskgd,btkd->bkgst", qg, kb) * scale).float()
+        kpos = torch.arange(start, start + CHUNK, device=q.device)
+        sc = torch.where(_band(qpos, kpos, causal, window), sc, NEG_INF)
+        m_cur = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(sc - m_cur[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vb.dtype), vb)
+        acc = acc * alpha[..., None] + pv.float()
+        m = m_cur
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """One decode token per sequence against a KV cache: q [B, 1, H, Dh];
+    k, v [B, S_max, KV, Dh]; valid [S_max] bool. Returns [B, 1, H, Dh]."""
+    b, _, h, dh = q.shape
+    kv = k.shape[2]
+    group = h // kv
+    qg = q.reshape(b, kv, group, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) * dh ** -0.5
+    scores = torch.where(valid, scores, NEG_INF)
+    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", w, v)
+    return out.reshape(b, 1, h, dh)
 
 
 def _gather(page_table: torch.Tensor, lengths: torch.Tensor, n_pages: int,

@@ -1,2 +1,3 @@
-"""repro_torch.launch — launchers. This slice carries the serving
-engine's runtime-layer driver (`serve.run_runtime_layer`)."""
+"""repro_torch.launch — launchers. `serve.run_model` drives the model
+zoo's prefill + decode path; `serve.run_runtime_layer` the serving
+engine's harvesting runtime layer."""

@@ -1,11 +1,17 @@
-"""Serving launcher: the XBOF harvesting runtime layer.
+"""Serving launcher: prefill + batched greedy decode for ``--arch <id>``,
+and the XBOF harvesting runtime layer.
 
-Port of `run_runtime_layer` of `repro.launch.serve`: N data-parallel
-replicas under skewed arrivals, redirecting overload through the unified
-`core.manager` round. The model-zoo prefill/decode part of the reference
-launcher comes with the model-zoo slice.
+Port of `repro.launch.serve`. `run_model` drives the model zoo's serve
+path (`models.transformer.init_params`, `models.decode.prefill`, then
+`models.decode.decode_step` per token) for the dense family;
+`run_runtime_layer` runs N data-parallel engine replicas under skewed
+arrivals, redirecting overload through the unified `core.manager` round.
+Both run on CUDA unless given ``--device``.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --replicas 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+      --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
+      --device cpu --batch 2 --prompt-len 16 --gen 4 --replicas 4
 """
 from __future__ import annotations
 
@@ -14,8 +20,59 @@ import time
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import configs, resolve_device
+from repro_torch.models import decode as D
+from repro_torch.models import transformer as T
+from repro_torch.models.config import require_in_slice
 from repro_torch.serving import engine as E
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_model(arch: str, batch: int, prompt_len: int, gen: int, *,
+              smoke: bool = False, seed: int = 0, device=None) -> dict:
+    """Prefill a random prompt of ``batch`` x ``prompt_len`` tokens, then
+    decode ``gen`` tokens greedily, on ``device`` (CUDA when None), with
+    weights drawn by `init_params` from ``seed``. Prints the prefill time
+    and the decode rate. Returns the greedy tokens [B, gen], the last
+    logits [B, V] and the times (prefill ms, decode ms per token, decoded
+    tokens per second)."""
+    cfg = configs.smoke(arch) if smoke else configs.get(arch)
+    require_in_slice(cfg)
+    dev = resolve_device(device)
+    params = T.init_params(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    tokens = torch.randint(
+        0, cfg.vocab, (batch, prompt_len), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed + 1))
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = D.prefill(cfg, params, tokens, max_len=prompt_len + gen)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    print(f"prefill {batch}x{prompt_len}: {prefill_s:.3f}s")
+
+    out = []
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        out.append(tok)
+        logits, cache = D.decode_step(cfg, params, cache, tok)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    greedy = torch.stack(out, dim=1) if out else tok.new_zeros((batch, 0))
+    tok_per_s = batch * gen / decode_s if gen else 0.0
+    print(f"decoded {gen} tokens/seq in {decode_s:.3f}s ({tok_per_s:.1f} tok/s)")
+    print("sample:", greedy[0][:12].tolist())
+    return {"tokens": greedy, "logits": logits,
+            "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_token": 1e3 * decode_s / gen if gen else 0.0,
+            "tok_per_s": tok_per_s}
 
 
 def run_runtime_layer(n_replicas: int, steps: int = 12, device=None) -> dict:
@@ -36,8 +93,7 @@ def run_runtime_layer(n_replicas: int, steps: int = 12, device=None) -> dict:
     for _ in range(steps):
         state, stats = E.step(cfg, state, arrivals, generator=gen)
         redirected += stats["redirected"]
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     dt = time.perf_counter() - t0
     out = dict(redirected=int(redirected),
                offsite_pages=int(stats["offsite_pages"]),
@@ -53,12 +109,27 @@ def run_runtime_layer(n_replicas: int, steps: int = 12, device=None) -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--replicas", type=int, default=4)
-    ap.add_argument("--steps", type=int, default=12)
+    ap.add_argument("--arch", choices=configs.ARCH_NAMES, default=None,
+                    help="run the model's prefill + greedy decode")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="also run the XBOF harvesting runtime layer")
+    ap.add_argument("--steps", type=int, default=12,
+                    help="runtime-layer steps")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args()
-    run_runtime_layer(args.replicas, args.steps, device=args.device)
+    if args.arch is None and args.replicas <= 0:
+        ap.error("give --arch, --replicas N, or both")
+    if args.arch is not None:
+        run_model(args.arch, args.batch, args.prompt_len, args.gen,
+                  smoke=args.smoke, seed=args.seed, device=args.device)
+    if args.replicas > 0:
+        run_runtime_layer(args.replicas, args.steps, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,20 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card. Marked ``cuda``: they skip where there is no CUDA
-device, and import neither JAX nor `repro`, so the card's machine runs
-them as they are:
+"""The port's hand-written CUDA kernels (paged attention and prefill flash
+attention) against their plain PyTorch versions, on the card. Marked
+``cuda``: they skip where there is no CUDA device, and import neither JAX
+nor `repro`, so the card's machine runs them as they are:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
-Shapes: the sweeps of tests/test_kernels.py plus the serving engine's
-default layer (H4/KV2/D32) and qwen3-14b's attention width (H40/KV8/D128),
-pages of 4, 8 and 16 slots, tables with holes and a row of length 0."""
+Paged attention: the sweeps of tests/test_kernels.py plus the serving
+engine's default layer (H4/KV2/D32) and qwen3-14b's attention width
+(H40/KV8/D128), pages of 4, 8 and 16 slots, tables with holes and a row of
+length 0. Flash attention: the sweep of tests/test_kernels.py under its
+three masks, head_dim 80 and 16, ragged lengths and rows with no valid
+key."""
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
@@ -108,3 +112,75 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         pa.paged_attention(torch.zeros((1, 64, 128), device=dev),
                            k[:, :, :1].contiguous(), v[:, :, :1].contiguous(),
                            table[:1], lengths[:1])
+
+
+# ---------------------------------------------------------------- flash
+# (b, s, t, h, kv, d, causal, window): the sweep of tests/test_kernels.py
+# under its three masks, head_dim 80 (h2o-danube) and 16 (the smoke
+# configs), a ragged non-causal length, queries offset against a longer
+# key sequence, and rows with no valid key (causal, S > T)
+FLASH_SWEEP = [(2, 256, 4, 2, 128), (1, 384, 6, 6, 128), (2, 128, 8, 1, 128),
+               (1, 512, 2, 2, 256)]
+FLASH_SHAPES = {
+    f"sweep{i}-{'causal' if c else 'full'}-w{w}": (b, s, s, h, kv, d, c, w)
+    for i, (b, s, h, kv, d) in enumerate(FLASH_SWEEP)
+    for c, w in ((True, 0), (True, 128), (False, 0))
+}
+FLASH_SHAPES.update({
+    "d80-causal": (2, 256, 256, 32, 8, 80, True, 0),
+    "d80-window": (1, 300, 300, 32, 8, 80, True, 96),
+    "d16-causal": (3, 70, 70, 4, 2, 16, True, 0),
+    "ragged-200-full": (1, 200, 200, 4, 2, 128, False, 0),
+    "s64-t256-causal": (2, 64, 256, 8, 2, 128, True, 0),
+    "s256-t64-no-valid-key-rows": (1, 256, 64, 4, 2, 128, True, 0),
+    "s256-t64-window": (1, 256, 64, 4, 2, 80, True, 32),
+})
+
+
+def _flash_inputs(shape, dtype, seed, dev):
+    b, s, t, h, kv, d, _, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(sh, generator=g).to(getattr(torch, dtype)).to(dev)
+            for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(FLASH_SHAPES))
+def test_flash_kernel_matches_plain(dev, name, dtype):
+    shape = FLASH_SHAPES[name]
+    causal, window = shape[6], shape[7]
+    q, k, v = _flash_inputs(shape, dtype, seed=len(name), dev=dev)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_dispatcher_launches_for_cuda_tensors(dev):
+    q, k, v = _flash_inputs(FLASH_SHAPES["d16-causal"], "float32", 1, dev)
+    before = fa.flash_attention.launches
+    ops.attention(q, k, v)
+    assert fa.flash_attention.launches == before + 1
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v = _flash_inputs(FLASH_SHAPES["d16-causal"], "float32", 2, dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.bfloat16(), v)                      # dtype
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.half(), k.half(), v.half())            # dtype
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)                                    # layout
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.cpu(), v)                           # device
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, v, causal=False, window=8)         # mask
+    with pytest.raises(ValueError, match="limits"):                 # head_dim
+        fa.flash_attention(torch.zeros((1, 8, 2, 24), device=dev),
+                           torch.zeros((1, 8, 1, 24), device=dev),
+                           torch.zeros((1, 8, 1, 24), device=dev))

@@ -210,7 +210,7 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_engine_profile.py"]
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

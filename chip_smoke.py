@@ -13,7 +13,10 @@ nvcc per source, all at once), then:
    and the flash-attention kernel (fp32, bf16) against its plain version
    on the sweep of tests/test_kernels.py under its three masks, head_dim
    80 and 16, a ragged non-causal length, queries offset against a longer
-   key sequence, and rows with no valid key;
+   key sequence, and rows with no valid key; and the RG-LRU and RWKV6 scan
+   kernels (fp32, bf16) against theirs on the sweeps of
+   tests/test_kernels.py, a ragged length, and an initial state (h0; s0
+   with the final state);
 2. drives the serving engine's main path — `serving.engine.step` at
    qwen3-14b's attention width, 8 replicas, 32 steps — twice: fp32 pages
    unmetered, and int8 pages under a LINK_BW budget of 4 pages per step.
@@ -26,22 +29,29 @@ nvcc per source, all at once), then:
    qwen3-14b at its full published width and depth (bf16, batch 4, prompt
    2048, 32 greedy tokens) and h2o-danube-1.8b at its full config (batch
    1, prompt 8192 past its 4096 sliding window, 16 tokens, so the window
-   masks and the ring cache wraps). The flash kernel must run once per
-   layer of the prefill (launch count zeroed just before, read just
-   after), the logits must be finite, and decode must not synchronize
-   with the host. The kernel is held against its plain version on the
-   q/k/v the first and last layers gave it;
+   masks and the ring cache wraps), then the recurrent families at their
+   full published configs (bf16, batch 4, prompt 2048, 32 greedy tokens):
+   recurrentgemma-9b (26 RG-LRU layers and 12 local-attention layers of
+   window 2048, whose ring wraps in decode) and rwkv6-3b (32 RWKV6
+   layers). Each kernel must run once per layer of its kind in the prefill
+   (every launch count zeroed just before the run, read just after), the
+   logits must be finite, and decode must not synchronize with the host.
+   Each kernel is held against its plain version on the inputs the first
+   and last layers of its kind gave it. Each model is freed before the
+   next starts;
 4. times each kernel form on the inputs the main path gave it, beside its
    plain version, one PyTorch library call computing the same function
    where there is one, and the least time the card could take (bytes over
    the memory rate or operations over the peak rate of their type,
    whichever is larger);
-5. checks the engine, and a narrow fp32 model (prefill + 8 decode steps),
+5. checks the engine, and three narrow fp32 models (a dense one,
+   recurrentgemma-smoke and rwkv6-smoke; prefill of 128 + 8 decode steps),
    on the GPU against the same code on the CPU (the plain path).
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
-`flash_checks`, `engine`, `model`, `model_window`, `gpu_vs_cpu_engine`,
-`gpu_vs_cpu_model`), the `kernels` JSON line — per kernel form its checks
+`flash_checks`, `scan_checks`, `engine`, `model`, `model_window`,
+`model_hybrid`, `model_rwkv`, `gpu_vs_cpu_engine`, `gpu_vs_cpu_model`),
+the `kernels` JSON line — per kernel form its checks
 and its numbers of step 4 — and last `{"ok": true, "device": {...}}`. Any
 failure exits non-zero before the last line. Needs one CUDA device; exits
 non-zero without one, or when run outside a checkout.
@@ -82,6 +92,19 @@ BF16_FLOPS = 989e12
 # the model zoo's serve path: (arch, batch, prompt, generated tokens)
 MODEL = ("qwen3-14b", 4, 2048, 32)
 MODEL_WINDOW = ("h2o-danube-1.8b", 1, 8192, 16)
+MODEL_HYBRID = ("recurrentgemma-9b", 4, 2048, 32)
+MODEL_RWKV = ("rwkv6-3b", 4, 2048, 32)
+# scan kernels vs plain versions: the RG-LRU kernel repeats the plain
+# version's IEEE operations in fp32, the RWKV6 kernel sums K terms in
+# another order; bf16 outputs may differ by one rounding of the fp32 result
+SCAN_TOL = {"rglru": {"fp32": 1e-5, "bf16": 3e-2},
+            "rwkv6_wkv": {"fp32": 1e-4, "bf16": 3e-2}}
+# random inputs: the sweeps of tests/test_kernels.py, then a ragged T from
+# an initial state; rwkv6 also at the smoke configs' width (16)
+RGLRU_CHECKS = [(2, 256, 64, False), (1, 512, 128, False), (3, 128, 256, False),
+                (2, 200, 96, True)]                  # (b, t, w, h0)
+RWKV6_CHECKS = [(1, 256, 2, 64, False), (2, 128, 4, 128, False),
+                (2, 200, 3, 32, True), (3, 70, 4, 16, True)]   # (b, t, h, k, s0)
 # flash kernel vs plain version, random inputs: (b, s, t, h, kv, d,
 # causal, window) — the sweep of tests/test_kernels.py under its three
 # masks, then head_dim 80 and 16, a ragged non-causal length, queries
@@ -267,23 +290,63 @@ def flash_work(q, k, causal, window):
     return nbytes, flops
 
 
+def kernel_table() -> dict:
+    """Per kernel of the model zoo's path: the dispatcher in
+    `kernels.ops` that the models call, the kernel's wrapper (which counts
+    its launches) and its plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as wkv
+    return {"flash_attention": ("attention", fa.flash_attention, ref.attention),
+            "rglru": ("rglru", rg.rglru, ref.rglru),
+            "rwkv6_wkv": ("rwkv6_wkv", wkv.rwkv6_wkv, ref.rwkv6_wkv)}
+
+
+def expected_launches(cfg) -> dict:
+    """Launches of each kernel in one prefill: one per layer of its kind
+    (decode runs the plain single-step forms, no kernel)."""
+    kinds = cfg.layer_kinds()
+    n_rec = kinds.count("rec")
+    return {"flash_attention": kinds.count("attn"),
+            "rglru": n_rec if cfg.recurrent == "rglru" else 0,
+            "rwkv6_wkv": n_rec if cfg.recurrent == "rwkv6" else 0}
+
+
+def compare(got, want, tol):
+    """max_err over a kernel's outputs (a tensor or a tuple of them): the
+    worst (max abs error, max abs error / max |want|) and whether every
+    element of every output passed."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = [max_err(g, w, tol) for g, w in zip(got, want)]
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs))
+
+
 def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
     """Drive `launch.serve.run_model` at the arch's full config; return its
-    JSON line and the (q, k, v, causal, window) the flash kernel got in the
-    first and last layers of the prefill."""
+    JSON line and, per kernel, the (args, kwargs) its dispatcher got from
+    the first and last layers of its kind in the prefill."""
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import decode as D
     cfg = configs.get(arch)
-    dispatch, decode_step, captured, calls = ops.attention, D.decode_step, {}, [0]
+    table, expect = kernel_table(), expected_launches(cfg)
+    saved = {name: getattr(ops, attr) for name, (attr, _, _) in table.items()}
+    captured = {name: {} for name in table}
+    decode_step = D.decode_step
 
-    def capture(q, k, v, causal=True, window=0, scale=None):
-        if calls[0] in (0, cfg.n_layers - 1):
-            captured[calls[0]] = (q, k, v, causal, window)
-        calls[0] += 1
-        return dispatch(q, k, v, causal=causal, window=window, scale=scale)
+    def capture(name):
+        dispatch, calls, keep = saved[name], [0], (0, expect[name] - 1)
+
+        def wrapper(*args, **kw):
+            if calls[0] in keep:
+                captured[name][calls[0]] = (args, kw)
+            calls[0] += 1
+            return dispatch(*args, **kw)
+        return wrapper
 
     def checked_step(*args, **kw):
         # the decode step reads nothing back to the host: any
@@ -294,20 +357,28 @@ def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ops.attention, D.decode_step = capture, checked_step
-    fa.flash_attention.launches = 0
+    for name, (attr, kernel, _) in table.items():
+        setattr(ops, attr, capture(name))
+        kernel.launches = 0
+    D.decode_step = checked_step
     try:
         out = serve.run_model(arch, batch, prompt, gen, seed=0, device=dev)
     finally:
-        ops.attention, D.decode_step = dispatch, decode_step
-    launches = fa.flash_attention.launches
+        for name, (attr, _, _) in table.items():
+            setattr(ops, attr, saved[name])
+        D.decode_step = decode_step
+    launches = {name: kernel.launches for name, (_, kernel, _) in table.items()}
     logits = out["logits"]
-    line = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
-                heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
-                d_ff=cfg.d_ff, vocab=cfg.vocab, window=cfg.sliding_window,
-                dtype=cfg.dtype, n_params=cfg.n_params(), batch=batch,
-                prompt=prompt, gen=gen, flash_launches=launches,
+    line = dict(arch=arch, layers=cfg.n_layers, kinds=cfg.layer_kinds(),
+                d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+                head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                window=cfg.sliding_window or cfg.local_window,
+                recurrent=cfg.recurrent, dtype=cfg.dtype,
+                n_params=cfg.n_params(), n_params_tensors=out["n_params"],
+                batch=batch, prompt=prompt, gen=gen, launches=launches,
+                expected_launches=expect,
                 prefill_ms=out["prefill_ms"],
                 decode_ms_per_token=out["decode_ms_per_token"],
                 tok_per_s=out["tok_per_s"],
@@ -318,53 +389,70 @@ def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
                 sample=out["tokens"][0, :8].tolist(),
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 decode_host_syncs="none (sync debug mode 'error')")
-    if launches != cfg.n_layers:
-        fail(f"{arch}: flash_attention launched {launches} times in a prefill "
-             f"of {cfg.n_layers} layers")
+    del out, logits
+    if launches != expect:
+        fail(f"{arch}: kernel launches in one prefill {launches} != one per "
+             f"layer of each kind {expect}")
     if not line["logits_finite"]:
         fail(f"{arch}: logits not finite")
-    if list(out["tokens"].shape) != [batch, gen]:
-        fail(f"{arch}: greedy tokens {list(out['tokens'].shape)} != {[batch, gen]}")
-    # the kernel against its plain version on the main path's inputs; its
-    # outputs are small, so bf16 is gated by max abs error / max |want|
+    if line["tokens_shape"] != [batch, gen]:
+        fail(f"{arch}: greedy tokens {line['tokens_shape']} != {[batch, gen]}")
+    # each kernel against its plain version on the main path's inputs.
+    # Attention's outputs are small, so bf16 is gated there by max abs
+    # error / max |want|; the scans' by element, at tol * (1 + |want|)
     line["checks"] = []
-    for layer, (q, k, v, causal, window) in sorted(captured.items()):
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.attention(q, k, v, causal=causal, window=window)
-        err, rel, _ = max_err(got, want, TOL["bf16"])
-        ok = rel <= TOL["bf16"] and bool(torch.isfinite(got).all())
-        line["checks"].append(dict(layer=layer, q=list(q.shape), k=list(k.shape),
-                                   causal=causal, window=window, max_abs_err=err,
-                                   max_rel_err=rel, tol=TOL["bf16"], ok=ok))
-        if not ok:
-            fail(f"{arch} layer {layer}: kernel disagrees with its plain version "
-                 f"(max abs err {err}, relative {rel})")
-    return line, captured[0]
+    for name, calls in captured.items():
+        _, kernel, plain_fn = table[name]
+        for layer, (args, kw) in sorted(calls.items()):
+            got, want = kernel(*args, **kw), plain_fn(*args, **kw)
+            torch.cuda.synchronize()
+            if name == "flash_attention":
+                tol = TOL["bf16"]
+                err, rel, _ = compare(got, want, tol)
+                ok = rel <= tol and bool(torch.isfinite(got).all())
+            else:
+                tol = SCAN_TOL[name]["bf16"]
+                err, rel, ok = compare(got, want, tol)
+            line["checks"].append(dict(kernel=name, layer_of_kind=layer,
+                                       shapes=[list(a.shape) for a in args
+                                               if torch.is_tensor(a)],
+                                       kw={k: v for k, v in kw.items()
+                                           if not torch.is_tensor(v)},
+                                       max_abs_err=err, max_rel_err=rel,
+                                       tol=tol, ok=ok))
+            if not ok:
+                fail(f"{arch} {name} layer {layer} of its kind: kernel disagrees "
+                     f"with its plain version (max abs err {err}, relative {rel})")
+            del got, want
+    # only the first layer's inputs are kept, for the kernels line
+    captured = {name: calls[0] for name, calls in captured.items() if calls}
+    torch.cuda.empty_cache()
+    return line, captured
 
 
-def gpu_vs_cpu_model(dev) -> dict:
+def gpu_vs_cpu_model(dev, cfg, seed) -> dict:
     """A narrow fp32 model, the same weights on both devices: prefill a
-    prompt of 128, then 8 greedy decode steps. The CUDA run (flash kernel)
-    and the CPU run (plain version) must give equal tokens, and logits
-    within 1e-4 * (1 + |want|)."""
-    from repro_torch.kernels import flash_attention as fa
+    prompt of 128, then 8 greedy decode steps. The CUDA run (kernels) and
+    the CPU run (plain versions) must give equal tokens, and logits within
+    1e-4 * (1 + |want|); the CUDA prefill must launch each kernel once per
+    layer of its kind."""
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
-    from repro_torch.models.config import ArchConfig
-    cfg = ArchConfig(**NARROW)
+    table, expect = kernel_table(), expected_launches(cfg)
     cpu_params = T.init_params(cfg, device="cpu",
-                               generator=torch.Generator().manual_seed(3))
+                               generator=torch.Generator().manual_seed(seed))
 
     def to_dev(node):
         return ({k: to_dev(x) for k, x in node.items()} if isinstance(node, dict)
                 else node.to(dev))
 
     tokens = torch.randint(0, cfg.vocab, (2, 128),
-                           generator=torch.Generator().manual_seed(4))
+                           generator=torch.Generator().manual_seed(seed + 1))
     runs = {}
     for name, params, toks in (("cuda", to_dev(cpu_params), tokens.to(dev)),
                                ("cpu", cpu_params, tokens)):
-        fa.flash_attention.launches = 0
+        for _, kernel, _ in table.values():
+            kernel.launches = 0
         logits, cache = D.prefill(cfg, params, toks, max_len=136)
         steps = [logits.cpu()]
         greedy = []
@@ -373,23 +461,131 @@ def gpu_vs_cpu_model(dev) -> dict:
             greedy.append(tok.cpu())
             logits, cache = D.decode_step(cfg, params, cache, tok)
             steps.append(logits.cpu())
-        runs[name] = (steps, torch.stack(greedy, 1), fa.flash_attention.launches)
-    (g_logits, g_tok, g_launch), (c_logits, c_tok, _) = runs["cuda"], runs["cpu"]
-    if g_launch != cfg.n_layers:
-        fail(f"gpu_vs_cpu_model: flash_attention launched {g_launch} times "
-             f"in a prefill of {cfg.n_layers} layers")
+        runs[name] = (steps, torch.stack(greedy, 1),
+                      {k: kern.launches for k, (_, kern, _) in table.items()})
+    (g_logits, g_tok, g_launch), (c_logits, c_tok, c_launch) = runs["cuda"], runs["cpu"]
+    if g_launch != expect or any(c_launch.values()):
+        fail(f"gpu_vs_cpu_model {cfg.name}: launches {g_launch} (CUDA), "
+             f"{c_launch} (CPU); want {expect} and none")
     if not torch.equal(g_tok, c_tok):
-        fail(f"gpu_vs_cpu_model: greedy tokens {g_tok.tolist()} != CPU {c_tok.tolist()}")
+        fail(f"gpu_vs_cpu_model {cfg.name}: greedy tokens {g_tok.tolist()} != "
+             f"CPU {c_tok.tolist()}")
     worst = 0.0
     for i, (a, b) in enumerate(zip(g_logits, c_logits)):
         err = (a - b).abs()
         worst = max(worst, float(err.max()))
         if not bool((err <= 1e-4 * (1 + b.abs())).all()):
-            fail(f"gpu_vs_cpu_model: logits of step {i} differ by up to "
-                 f"{float(err.max())} from the CPU plain path")
-    return {"config": NARROW, "batch": 2, "prompt": 128, "decode_steps": 8,
-            "flash_launches": g_launch, "tokens_equal": True,
+            fail(f"gpu_vs_cpu_model {cfg.name}: logits of step {i} differ by up "
+                 f"to {float(err.max())} from the CPU plain path")
+    return {"config": cfg.name, "batch": 2, "prompt": 128, "decode_steps": 8,
+            "launches": g_launch, "tokens_equal": True,
             "max_abs_logit_err": worst, "tol": "1e-4 * (1 + |want|)", "ok": True}
+
+
+def scan_inputs(name, shape, dtype, seed, dev):
+    """Random (args, kwargs) of a scan kernel: rglru (b, t, w, h0) or
+    rwkv6_wkv (b, t, h, k, s0), the latter with the final state."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g)
+    if name == "rglru":
+        b, t, w, h0 = shape
+        args = [rnd(b, t, w).to(dtype), torch.sigmoid(rnd(b, t, w)).to(dtype)]
+        kw = {"h0": rnd(b, w)} if h0 else {}
+    else:
+        b, t, h, k, s0 = shape
+        args = [(rnd(b, t, h, k) * 0.5).to(dtype) for _ in range(3)]
+        args += [torch.sigmoid(rnd(b, t, h, k) + 2).to(dtype), rnd(h, k) * 0.1]
+        kw = {"return_state": True}
+        if s0:
+            kw["s0"] = rnd(b, h, k, k) * 0.5
+    return ([a.to(dev) for a in args],
+            {k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()})
+
+
+def scan_checks(dev) -> list[dict]:
+    """The scan kernels against their plain versions on random inputs, per
+    element within tol * (1 + |want|)."""
+    table = kernel_table()
+    checks = []
+    for name, shapes in (("rglru", RGLRU_CHECKS), ("rwkv6_wkv", RWKV6_CHECKS)):
+        _, kernel, plain_fn = table[name]
+        for form, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for shape in shapes:
+                args, kw = scan_inputs(name, shape, dtype, len(checks), dev)
+                got = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                tol = SCAN_TOL[name][form]
+                err, rel, ok = compare(got, plain_fn(*args, **kw), tol)
+                checks.append(dict(kernel=name, form=form, shape=list(shape),
+                                   max_abs_err=err, max_rel_err=rel, tol=tol,
+                                   ok=ok))
+    return checks
+
+
+def scan_work(name, args, kw):
+    """Bytes a scan must move (each input read once, each output written
+    once) and the fp32 operations it must do, for THESE inputs. rglru: x
+    and a in, out written, h0 if given; 7 operations per element (a * a,
+    1 - that, the clamp, sqrt, times x, a * h, the sum). rwkv6_wkv: r, k, v,
+    w and u in, out written, s0 and the final state if there; per step and
+    head 5 per (K, V) pair (r . S, a multiply-add; w * S + k * v, a multiply
+    and a multiply-add) and 3 K + 2 V for the bonus, which factors as
+    (sum_i r_i u_i k_i) * v_j."""
+    if name == "rglru":
+        x, _ = args
+        nbytes = 3 * x.numel() * x.element_size()
+        if kw.get("h0") is not None:
+            nbytes += kw["h0"].numel() * kw["h0"].element_size()
+        return nbytes, 7 * x.numel()
+    r, k, v, w, u = args
+    b, t, h, dk = r.shape
+    dv = v.shape[-1]
+    es = r.element_size()
+    nbytes = (3 * r.numel() + 2 * v.numel()) * es + u.numel() * u.element_size()
+    if kw.get("s0") is not None:
+        nbytes += kw["s0"].numel() * kw["s0"].element_size()
+    if kw.get("return_state"):
+        nbytes += b * h * dk * dv * es
+    return nbytes, (5 * dk * dv + 3 * dk + 2 * dv) * b * t * h
+
+
+def scan_row(name, form, args, kw, launches, flush, checks, extra) -> dict:
+    """One `kernels` entry for a scan kernel on the inputs the main path
+    gave it (cast to ``form``'s dtype)."""
+    _, kernel, plain_fn = kernel_table()[name]
+    got, want = kernel(*args, **kw), plain_fn(*args, **kw)
+    torch.cuda.synchronize()
+    tol = SCAN_TOL[name][form]
+    err, rel, ok = compare(got, want, tol)
+    if not ok:
+        fail(f"{name}[{form}]: kernel disagrees with its plain version on the "
+             f"main path's inputs (max abs err {err}, relative {rel})")
+    del got, want
+    ms = timed_ms(lambda: kernel(*args, **kw), 10, flush)
+    plain_ms = timed_ms(lambda: plain_fn(*args, **kw), 2, flush)
+    nbytes, flops = scan_work(name, args, kw)
+    # the math is fp32 on the CUDA cores whatever the inputs' dtype
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / FP32_FLOPS
+    source = "rglru_scan" if name == "rglru" else "rwkv6_scan"
+    return {
+        "name": f"{name}[{form}]", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+        "replaces": ("src/repro/kernels/rglru_scan.py:47" if name == "rglru"
+                     else "src/repro/kernels/rwkv6_scan.py:50"),
+        "launches": launches,
+        "shape": {"args": [list(a.shape) for a in args],
+                  "kw": sorted(kw), "dtype": str(args[0].dtype).replace("torch.", "")},
+        "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+        "gate": "|err| <= tol * (1 + |want|) per element",
+        "checks": [c for c in checks if c["kernel"] == name and c["form"] == form],
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops, "peak_flops": FP32_FLOPS,
+        # no single PyTorch call computes this linear recurrence
+        "library_ms": None,
+        **extra,
+    }
 
 
 def flash_row(name, form, q, k, v, causal, window, launches, flush, checks,
@@ -472,7 +668,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     ptxas = [ln.strip() for log in _build.LOG.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
     print(json.dumps({"build": {"seconds": round(time.perf_counter() - t0, 3),
                                 "sources": list(_build.SOURCES), "ptxas": ptxas}}),
           flush=True)
@@ -503,6 +699,15 @@ def main() -> None:
     bad = [c for c in fchecks if not c["ok"]]
     if bad:
         fail(f"flash kernel disagrees with its plain version: {bad}")
+    schecks = scan_checks(dev)
+    print(json.dumps({"scan_checks": {
+        "n": len(schecks), "ok": all(c["ok"] for c in schecks),
+        "max_abs_err": {f"{n}[{f}]": max(c["max_abs_err"] for c in schecks
+                                         if c["kernel"] == n and c["form"] == f)
+                        for n in SCAN_TOL for f in ("fp32", "bf16")}}}), flush=True)
+    bad = [c for c in schecks if not c["ok"]]
+    if bad:
+        fail(f"scan kernel disagrees with its plain version: {bad}")
 
     # ---- 2. the main path: the engine at full width, two phases
     captured = {}
@@ -563,12 +768,17 @@ def main() -> None:
     E.kops.paged_attention = dispatch
     print(json.dumps({"engine": engine_out}), flush=True)
 
-    # ---- 2b. the model zoo's serve path at full width, then a sliding
-    # window past its size
+    # ---- 2b. the model zoo's serve path at full width, a sliding window
+    # past its size, then the recurrent families (each model is freed
+    # when its run returns)
     model_line, model_in = model_phase(*MODEL, dev)
     print(json.dumps({"model": model_line}), flush=True)
     window_line, window_in = model_phase(*MODEL_WINDOW, dev)
     print(json.dumps({"model_window": window_line}), flush=True)
+    hybrid_line, hybrid_in = model_phase(*MODEL_HYBRID, dev)
+    print(json.dumps({"model_hybrid": hybrid_line}), flush=True)
+    rwkv_line, rwkv_in = model_phase(*MODEL_RWKV, dev)
+    print(json.dumps({"model_rwkv": rwkv_line}), flush=True)
 
     # ---- 3. each kernel form on the inputs the main path gave it
     fp_args, _ = main_inputs["fp32"]
@@ -642,28 +852,62 @@ def main() -> None:
                 fail(f"GPU engine step {i} stat {key} {a} != CPU plain path {b}")
     print(json.dumps({"gpu_vs_cpu_engine": {"config": "4 replicas, int8",
                                             "steps": 6, "ok": True}}), flush=True)
-    model_check = gpu_vs_cpu_model(dev)
-    print(json.dumps({"gpu_vs_cpu_model": model_check}), flush=True)
+    from repro_torch import configs
+    from repro_torch.models.config import ArchConfig
+    model_checks = {cfg.name: gpu_vs_cpu_model(dev, cfg, seed)
+                    for seed, cfg in ((3, ArchConfig(**NARROW)),
+                                      (5, configs.smoke("recurrentgemma-9b")),
+                                      (7, configs.smoke("rwkv6-3b")))}
+    print(json.dumps({"gpu_vs_cpu_model": model_checks}), flush=True)
+    gpu_cpu_launches = {name: sum(c["launches"][name] for c in model_checks.values())
+                        for name in kernel_table()}
 
     # ---- 5. the flash kernel on the inputs the model runs gave its first
     # layer: qwen3-14b (bf16, and the same inputs in fp32, a form the main
-    # path does not run) and h2o-danube's sliding window
-    q, k, v, causal, window = model_in
+    # path does not run), h2o-danube's sliding window and recurrentgemma's
+    # local attention (head_dim 256, one KV head)
+    def flash_in(captured):
+        (q, k, v), kw = captured["flash_attention"]
+        return q, k, v, kw["causal"], kw["window"]
+
+    q, k, v, causal, window = flash_in(model_in)
     kernels.append(flash_row(
         "flash_attention[bf16]", "bf16", q, k, v, causal, window,
-        model_line["flash_launches"], flush, fchecks,
+        model_line["launches"]["flash_attention"], flush, fchecks,
         {"on_main_path": True, "phase": "model"}))
     kernels.append(flash_row(
         "flash_attention[fp32]", "fp32", q.float(), k.float(), v.float(), causal,
         window, 0, flush, fchecks,
         {"on_main_path": False, "phase": "model (inputs cast to fp32)",
-         "launches_gpu_vs_cpu_model": model_check["flash_launches"]}))
+         "launches_gpu_vs_cpu_model": gpu_cpu_launches["flash_attention"]}))
     del model_in, q, k, v
-    q, k, v, causal, window = window_in
+    q, k, v, causal, window = flash_in(window_in)
     kernels.append(flash_row(
         "flash_attention[bf16,window]", "bf16", q, k, v, causal, window,
-        window_line["flash_launches"], flush, fchecks,
+        window_line["launches"]["flash_attention"], flush, fchecks,
         {"on_main_path": True, "phase": "model_window"}))
+    del window_in, q, k, v
+    q, k, v, causal, window = flash_in(hybrid_in)
+    kernels.append(flash_row(
+        "flash_attention[bf16,hybrid]", "bf16", q, k, v, causal, window,
+        hybrid_line["launches"]["flash_attention"], flush, fchecks,
+        {"on_main_path": True, "phase": "model_hybrid"}))
+    del q, k, v
+
+    # ---- 6. the scan kernels on the inputs the recurrent models gave their
+    # first layer (bf16), and the same inputs in fp32 (a form the main path
+    # does not run; the narrow fp32 models of step 4 launch it)
+    for name, line, captured, phase in (("rglru", hybrid_line, hybrid_in, "model_hybrid"),
+                                        ("rwkv6_wkv", rwkv_line, rwkv_in, "model_rwkv")):
+        args, kw = captured[name]
+        kernels.append(scan_row(name, "bf16", args, kw, line["launches"][name],
+                                flush, schecks, {"on_main_path": True, "phase": phase}))
+        args32 = [a.float() for a in args]
+        kernels.append(scan_row(name, "fp32", args32, kw, 0, flush, schecks, {
+            "on_main_path": False, "phase": f"{phase} (inputs cast to fp32)",
+            "launches_gpu_vs_cpu_model": gpu_cpu_launches[name]}))
+        del args, args32
+    del hybrid_in, rwkv_in
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

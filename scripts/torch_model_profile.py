@@ -21,7 +21,12 @@ and reports for each window:
   serve path's functions: embed, norm, the attention block's projections
   with qk-norm and RoPE (`attention_proj`), the attention itself (the
   flash kernel in prefill, the plain decode attention in decode), the
-  KV-cache writes, the MLP and the unembedding. A layer's device ms is
+  KV-cache writes, the MLP and the unembedding; for the recurrent
+  families also the RG-LRU block around its scan (`rec_block`: the
+  projections, the temporal conv and the gates), RWKV6's time mix around
+  its scan (`time_mix`: token shift, interpolation, projections, decay,
+  group norm) and channel mix, and the scans themselves (`recurrence`:
+  the scan kernel in prefill, the plain single step in decode). A layer's device ms is
   the summed duration of the kernels that ran inside its range and in no
   labelled range nested in it; `other` is the kernels outside every range
   (the residual adds). Its host ms is the host time inside its range,
@@ -125,6 +130,8 @@ def main() -> None:
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     from repro_torch.models import decode as D
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import rwkv6 as RW
     from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -141,9 +148,14 @@ def main() -> None:
     max_len = args.prompt_len + 2 * args.decode_steps + 2
 
     labels = {"embed", "norm", "attention_proj", "attention", "cache_write",
-              "mlp", "unembed"}
+              "mlp", "unembed", "rec_block", "time_mix", "channel_mix",
+              "recurrence"}
     for module, attr, label in (
-            (D, "embed", "embed"), (D, "norm", "norm"),
+            (D, "embed_tokens", "embed"), (D, "norm", "norm"), (T, "norm", "norm"),
+            (T, "mlp", "mlp"), (RG, "rglru_block", "rec_block"),
+            (RW, "time_mix", "time_mix"), (RW, "channel_mix", "channel_mix"),
+            (ops, "rglru", "recurrence"), (ops, "rglru_step", "recurrence"),
+            (ops, "rwkv6_wkv", "recurrence"), (ops, "rwkv6_wkv_step", "recurrence"),
             (A, "gqa_train", "attention_proj"), (D, "_decode_gqa", "attention_proj"),
             (ops, "attention", "attention"), (ops, "decode_attention", "attention"),
             (D, "_write_kv", "cache_write"), (D, "_ring_update", "cache_write"),

@@ -11,6 +11,8 @@ import torch
 from . import flash_attention as _fa
 from . import paged_attention as _pa
 from . import ref
+from . import rglru_scan as _rg
+from . import rwkv6_scan as _wkv
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,3 +45,29 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return ref.paged_attention(q, k_pool, v_pool, page_table, lengths)
     return _pa.paged_attention(q, k_pool, v_pool, page_table, lengths,
                                k_scale=k_scale, v_scale=v_scale)
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
+    """RG-LRU recurrence over x, a [B, T, W] from h0 [B, W] (zeros when
+    None) -> (out [B, T, W], h_T)."""
+    if x.device.type == "cpu":
+        return ref.rglru(x, a, h0=h0)
+    return _rg.rglru(x, a, h0=h0)
+
+
+# the decode step: no TPU kernel backs it (the reference runs its jnp
+# oracle on every backend), so it is the plain version on every device
+rglru_step = ref.rglru_step
+
+
+def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
+    """RWKV6 WKV over r, k, w [B, T, H, K], v [B, T, H, V] with bonus u
+    [H, K], from s0 [B, H, K, V] (zeros when None); with ``return_state``
+    also the final state."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=return_state)
+    return _wkv.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=return_state)
+
+
+# the decode step, like `rglru_step`: the plain version on every device
+rwkv6_wkv_step = ref.rwkv6_wkv_step

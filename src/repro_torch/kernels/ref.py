@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the port's kernels — the semantics contract.
 
-Port of the attention part of `repro.kernels.ref`: prefill attention
-(dense and chunked forms), decode attention and paged attention. The CPU
-path runs these; on the GPU `chip_smoke.py` and the CUDA tests hold each
-kernel against them on the same inputs. The remaining oracles (MoE
-router, RG-LRU, RWKV6, FTL lookup) come with the slices whose kernels need
-them.
+Port of `repro.kernels.ref` for the ported paths: prefill attention
+(dense and chunked forms), decode attention, paged attention, and the
+RG-LRU and RWKV6 recurrences with their single decode steps. The CPU path
+runs these; on the GPU `chip_smoke.py` and the CUDA tests hold each kernel
+against them on the same inputs. The remaining oracles (MoE router, FTL
+lookup) come with the slices whose kernels need them.
 """
 from __future__ import annotations
 
@@ -188,3 +188,64 @@ def paged_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.einsum("bkgt,btkd->bkgd", w * vs[:, None, None, :],
                        vg.float())
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+# ------------------------------------------------------------ rg-lru
+def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
+    """RG-LRU linear recurrence h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0))
+    * x_t over x, a [B, T, W], from h0 [B, W] (zeros when None). Walks t in
+    fp32 in the order of the TPU kernel (`repro.kernels.rglru_scan`; the
+    reference's oracle takes an associative scan, equal up to rounding).
+    Returns (out [B, T, W] in x's dtype, h_T = out[:, -1])."""
+    b, t, w = x.shape
+    h = (torch.zeros((b, w), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    xf, af = x.float(), a.float()
+    out = torch.empty_like(x)
+    for i in range(t):
+        a_t = af[:, i]
+        h = a_t * h + torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=0.0)) * xf[:, i]
+        out[:, i] = h
+    return out, out[:, -1]
+
+
+def rglru_step(h: torch.Tensor, x_t: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
+    """One decode step of `rglru`: h [B, W] -> h' [B, W] in h's dtype."""
+    a32 = a_t.float()
+    h_new = a32 * h.float() + torch.sqrt(torch.clamp(1.0 - a32 * a32, min=0.0)) * x_t.float()
+    return h_new.to(h.dtype)
+
+
+# ------------------------------------------------------------ rwkv6 wkv
+def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
+    """RWKV6 "Finch" WKV with data-dependent decay (exact recurrence, fp32).
+
+    r, k, w [B, T, H, K]; v [B, T, H, V]; u [H, K]; state S [B, H, K, V]
+    from s0 (zeros when None). Per step: out_t = r_t . (S + diag(u) k_t
+    v_t^T), then S <- diag(w_t) S + k_t v_t^T. Returns out [B, T, H, V] in
+    r's dtype, and with ``return_state`` also the final S in r's dtype."""
+    b, t, h, dk = r.shape
+    dv = v.shape[-1]
+    S = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    rf, kf, vf, wf = r.float(), k.float(), v.float(), w.float()
+    uf = u.float()[None, :, :, None]
+    out = torch.empty((b, t, h, dv), dtype=r.dtype, device=r.device)
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]           # [B,H,K,V]
+        out[:, i] = torch.einsum("bhk,bhkv->bhv", rf[:, i], S + uf * kv)
+        S = wf[:, i, :, :, None] * S + kv
+    if return_state:
+        return out, S.to(r.dtype)
+    return out
+
+
+def rwkv6_wkv_step(S, r_t, k_t, v_t, w_t, u):
+    """One decode step of `rwkv6_wkv`: S [B, H, K, V] in the cache's dtype,
+    r_t, k_t, w_t [B, H, K], v_t [B, H, V] -> (S' in S's dtype, out [B, H,
+    V] in r_t's dtype). The math is fp32; S' is rounded to S's dtype."""
+    S32 = S.float()
+    kv = k_t.float()[..., :, None] * v_t.float()[..., None, :]
+    out = torch.einsum("bhk,bhkv->bhv", r_t.float(), S32 + u.float()[None, :, :, None] * kv)
+    S_new = w_t.float()[..., :, None] * S32 + kv
+    return S_new.to(S.dtype), out.to(r_t.dtype)

@@ -1,0 +1,79 @@
+"""RG-LRU linear recurrence on Hopper — wrapper of `csrc/rglru_scan.cu`.
+
+Replaces the TPU Pallas kernel `repro.kernels.rglru_scan.rglru`:
+h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0)) * x_t over [B, T, W], the
+state carried in fp32, from an optional h0 (which the TPU kernel does not
+take). It is bound by bytes, and by the latency of its walk along T; see
+the source's note for its design. Plain version: `kernels.ref.rglru`.
+
+`rglru` launches the kernel on PyTorch's current stream for CUDA tensors
+only and raises on anything it does not take; the dispatcher
+`kernels.ops.rglru` sends CPU tensors to the plain version.
+``rglru.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_KIND = {torch.float32: 0, torch.bfloat16: 1}
+_ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rglru_scan")
+    fn = lib.xbof_rglru
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(x, a, h0):
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"rglru launches a CUDA kernel; got a tensor on {x.device} "
+            "(kernels.ops.rglru runs the plain version for CPU tensors)")
+    for t in (a, h0):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"all inputs must be on {x.device}; got one on {t.device}")
+    if not (x.is_contiguous() and a.is_contiguous()):
+        raise ValueError("rglru needs contiguous x and a")
+    if x.dtype not in _KIND or a.dtype != x.dtype:
+        raise ValueError(f"rglru takes float32 or bfloat16 x and a of one dtype; "
+                         f"got {x.dtype}, {a.dtype}")
+    if x.dim() != 3 or a.shape != x.shape:
+        raise ValueError(f"need x and a [B, T, W] of one shape; got "
+                         f"{tuple(x.shape)}, {tuple(a.shape)}")
+    if h0 is not None and tuple(h0.shape) != (x.shape[0], x.shape[2]):
+        raise ValueError(f"h0 must be [B, W] = {(x.shape[0], x.shape[2])}; "
+                         f"got {tuple(h0.shape)}")
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
+    """Launch the CUDA kernel. x, a [B, T, W], both float32 or both
+    bfloat16; h0 [B, W] of any float dtype or None (zeros). Returns (out
+    [B, T, W] in x's dtype, h_T = out[:, -1])."""
+    _check(x, a, h0)
+    b, t, w = x.shape
+    out = torch.empty_like(x)
+    if h0 is not None:
+        h0 = h0.to(torch.float32).contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().xbof_rglru(_KIND[x.dtype], x.data_ptr(), a.data_ptr(),
+                            None if h0 is None else h0.data_ptr(),
+                            out.data_ptr(), b, t, w, stream)
+    if err == _ERR_SHAPE:
+        raise ValueError(f"shape beyond the kernel's limits (csrc/rglru_scan.cu): "
+                         f"x {tuple(x.shape)}")
+    if err != 0:
+        raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
+    rglru.launches += 1
+    return out, out[:, -1]
+
+
+rglru.launches = 0

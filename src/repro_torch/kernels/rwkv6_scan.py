@@ -1,0 +1,93 @@
+"""RWKV6 WKV recurrence on Hopper — wrapper of `csrc/rwkv6_scan.cu`.
+
+Replaces the TPU Pallas kernel `repro.kernels.rwkv6_scan.rwkv6_wkv` and
+computes the whole of the reference oracle's signature: an optional
+initial state ``s0`` and, with ``return_state``, the final state, so the
+prefill runs it too. Per (batch, head) a [K, V] fp32 state S:
+out_t = r_t . (S + diag(u) k_t v_t^T), then S <- diag(w_t) S + k_t v_t^T.
+It is bound by operations, and by the latency of its walk along T; see
+the source's note for its design. Plain version: `kernels.ref.rwkv6_wkv`.
+
+`rwkv6_wkv` launches the kernel on PyTorch's current stream for CUDA
+tensors only and raises on anything it does not take; the dispatcher
+`kernels.ops.rwkv6_wkv` sends CPU tensors to the plain version.
+``rwkv6_wkv.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_KIND = {torch.float32: 0, torch.bfloat16: 1}
+_ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rwkv6_scan")
+    fn = lib.xbof_rwkv6_wkv
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(r, k, v, w, u, s0):
+    if r.device.type != "cuda":
+        raise ValueError(
+            f"rwkv6_wkv launches a CUDA kernel; got a tensor on {r.device} "
+            "(kernels.ops.rwkv6_wkv runs the plain version for CPU tensors)")
+    for t in (k, v, w, u, s0):
+        if t is not None and t.device != r.device:
+            raise ValueError(f"all inputs must be on {r.device}; got one on {t.device}")
+    if not all(t.is_contiguous() for t in (r, k, v, w)):
+        raise ValueError("rwkv6_wkv needs contiguous r, k, v and w")
+    if r.dtype not in _KIND or any(t.dtype != r.dtype for t in (k, v, w)):
+        raise ValueError(f"rwkv6_wkv takes float32 or bfloat16 r, k, v and w of "
+                         f"one dtype; got {r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}")
+    if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape or v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"need r, k, w [B, T, H, K] and v [B, T, H, V]; got "
+                         f"{tuple(r.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(w.shape)}")
+    b, _, h, dk = r.shape
+    if tuple(u.shape) != (h, dk):
+        raise ValueError(f"u must be [H, K] = {(h, dk)}; got {tuple(u.shape)}")
+    if s0 is not None and tuple(s0.shape) != (b, h, dk, v.shape[-1]):
+        raise ValueError(f"s0 must be [B, H, K, V] = {(b, h, dk, v.shape[-1])}; "
+                         f"got {tuple(s0.shape)}")
+
+
+def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
+    """Launch the CUDA kernel. r, k, w [B, T, H, K] and v [B, T, H, V], all
+    float32 or all bfloat16, with K = V in {16, 32, 64, 128}; u [H, K] and
+    s0 [B, H, K, V] (or None: zeros) of any float dtype. Returns out [B, T,
+    H, V] in r's dtype and, with ``return_state``, the final state [B, H,
+    K, V] in r's dtype."""
+    _check(r, k, v, w, u, s0)
+    b, t, h, dk = r.shape
+    dv = v.shape[-1]
+    u = u.to(torch.float32).contiguous()
+    if s0 is not None:
+        s0 = s0.to(torch.float32).contiguous()
+    out = torch.empty((b, t, h, dv), dtype=r.dtype, device=r.device)
+    s_out = (torch.empty((b, h, dk, dv), dtype=r.dtype, device=r.device)
+             if return_state else None)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _lib().xbof_rwkv6_wkv(
+        _KIND[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None if s0 is None else s0.data_ptr(), out.data_ptr(),
+        None if s_out is None else s_out.data_ptr(), b, t, h, dk, dv, stream)
+    if err == _ERR_SHAPE:
+        raise ValueError(f"shape beyond the kernel's limits (csrc/rwkv6_scan.cu: "
+                         f"K = V in 16, 32, 64, 128): r {tuple(r.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if err != 0:
+        raise RuntimeError(f"rwkv6_wkv kernel launch failed: CUDA error {err}")
+    rwkv6_wkv.launches += 1
+    return (out, s_out) if return_state else out
+
+
+rwkv6_wkv.launches = 0

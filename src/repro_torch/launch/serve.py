@@ -3,13 +3,16 @@ and the XBOF harvesting runtime layer.
 
 Port of `repro.launch.serve`. `run_model` drives the model zoo's serve
 path (`models.transformer.init_params`, `models.decode.prefill`, then
-`models.decode.decode_step` per token) for the dense family;
+`models.decode.decode_step` per token) for the dense family, rwkv6 and
+the RG-LRU hybrid (recurrentgemma);
 `run_runtime_layer` runs N data-parallel engine replicas under skewed
 arrivals, redirecting overload through the unified `core.manager` round.
 Both run on CUDA unless given ``--device``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke \
+      --device cpu --batch 2 --prompt-len 16 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
       --device cpu --batch 2 --prompt-len 16 --gen 4 --replicas 4
 """
@@ -38,13 +41,14 @@ def run_model(arch: str, batch: int, prompt_len: int, gen: int, *,
     decode ``gen`` tokens greedily, on ``device`` (CUDA when None), with
     weights drawn by `init_params` from ``seed``. Prints the prefill time
     and the decode rate. Returns the greedy tokens [B, gen], the last
-    logits [B, V] and the times (prefill ms, decode ms per token, decoded
-    tokens per second)."""
+    logits [B, V], the times (prefill ms, decode ms per token, decoded
+    tokens per second) and the parameter count summed over the tensors."""
     cfg = configs.smoke(arch) if smoke else configs.get(arch)
     require_in_slice(cfg)
     dev = resolve_device(device)
     params = T.init_params(
         cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(t.numel() for t in T.leaves(params))
     tokens = torch.randint(
         0, cfg.vocab, (batch, prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(seed + 1))
@@ -72,7 +76,7 @@ def run_model(arch: str, batch: int, prompt_len: int, gen: int, *,
     return {"tokens": greedy, "logits": logits,
             "prefill_ms": 1e3 * prefill_s,
             "decode_ms_per_token": 1e3 * decode_s / gen if gen else 0.0,
-            "tok_per_s": tok_per_s}
+            "tok_per_s": tok_per_s, "n_params": n_params}
 
 
 def run_runtime_layer(n_replicas: int, steps: int = 12, device=None) -> dict:

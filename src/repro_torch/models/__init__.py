@@ -1,3 +1,4 @@
-"""repro_torch.models — the model zoo's dense serving path: configs,
-shared layers, GQA attention, the stacked transformer and its
-prefill / decode step. Port of `repro.models` (dense family)."""
+"""repro_torch.models — the model zoo's serving path: configs, shared
+layers, GQA attention, the RG-LRU and RWKV6 blocks, the stacked
+transformer and its prefill / decode step. Port of `repro.models` (the
+dense family, rwkv6 and the RG-LRU hybrid)."""

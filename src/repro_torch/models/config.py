@@ -93,6 +93,22 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.recurrent != "" and not self.attn_layers_exist
+
+    @property
+    def attn_layers_exist(self) -> bool:
+        if self.recurrent == "":
+            return True
+        # hybrid: attention appears in the period pattern
+        return self.pattern_period > 1 and len(self.attn_in_period) > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k: SSM/hybrid/sliding-window attention."""
+        return (self.recurrent != "") or (self.sliding_window > 0)
+
     def layer_kinds(self) -> list[str]:
         """Per-layer block kind: 'attn' | 'rec'."""
         if self.recurrent == "":
@@ -155,16 +171,17 @@ class ArchConfig:
 
 def require_in_slice(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError("later slice")`` for an architecture the
-    port does not run yet: MoE, MLA, recurrent or hybrid blocks, enc-dec,
-    M-RoPE or a modality frontend. The port runs the uniform dense
-    attention stack (GQA, RoPE, optional qk-norm and sliding window)."""
+    port does not run yet: MoE, MLA, enc-dec, M-RoPE or a modality
+    frontend. The port runs the uniform attention stack (GQA, RoPE,
+    optional qk-norm and sliding window), the RWKV6 stack and the RG-LRU
+    hybrid (recurrent blocks and local attention in a period pattern)."""
     later = [name for name, on in (
         ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        (f"recurrent={cfg.recurrent}", cfg.recurrent != ""),
-        ("hybrid pattern", cfg.pattern_period > 1),
+        (f"recurrent={cfg.recurrent}",
+         cfg.recurrent not in ("", "rglru", "rwkv6")),
         ("enc-dec", cfg.is_encdec), ("m-rope", bool(cfg.mrope_sections)),
         (f"frontend={cfg.frontend}", cfg.frontend != "")) if on]
     if later:
         raise NotImplementedError(
             f"later slice: {cfg.name} needs {', '.join(later)}; the port "
-            "runs the dense attention stack so far")
+            "runs the dense attention stack, RWKV6 and the RG-LRU hybrid so far")

@@ -1,15 +1,22 @@
-"""Serving path for the dense family: cache construction, prefill, and
-single-token decode.
+"""Serving path: cache construction, prefill, and single-token decode.
 
-Port of the uniform-attention branch of `repro.models.decode`. The cache
-is a dict with the reference's keys and shapes: ``k`` and ``v``
-[L, B, S, KV, Dh] and ``length``, a 0-d int32 tensor. Sliding-window caches
-are ring buffers sized to the window. Unlike the reference's pure
-functions, `prefill` writes each layer's keys into the cache as it goes
-and `decode_step` writes the new token's K/V into the cache tensors in
-place (it returns a new dict holding the same tensors), so no second copy
-of the cache is ever held. `decode_step` reads nothing back to the host:
-`length` stays on the device.
+Port of `repro.models.decode` for the dense family, rwkv6 and the RG-LRU
+hybrid. The cache is a dict with the reference's keys and shapes:
+
+- dense: ``k`` and ``v`` [L, B, S, KV, Dh];
+- rwkv6: ``wkv`` [L, B, H, Dh, Dh] (the WKV state, in the params' dtype,
+  so each decode step rounds it as the reference does), ``shift_t`` and
+  ``shift_c`` [L, B, D];
+- hybrid: ``attn_k`` and ``attn_v`` [n_attn, B, S, KV, Dh], ``rec_h``
+  [n_rec, B, W] and ``rec_conv`` [n_rec, B, conv_width - 1, W];
+
+and ``length``, a 0-d int32 tensor. Sliding-window and local-attention
+caches are ring buffers sized to the window. Unlike the reference's pure
+functions, `prefill` writes each layer's state into the cache as it goes
+and `decode_step` writes the new token's K/V and recurrent state into the
+cache tensors in place (it returns a new dict holding the same tensors),
+so no second copy of the cache is ever held. `decode_step` reads nothing
+back to the host: `length` stays on the device.
 """
 from __future__ import annotations
 
@@ -19,9 +26,11 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from . import attention as attn
-from .common import embed, mlp, norm, rmsnorm, unembed
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
+from .common import mlp, norm, rmsnorm, unembed
 from .config import ArchConfig, require_in_slice
-from .transformer import Params, layer_params
+from .transformer import Params, _rec_block, embed_tokens, kind_layers, layer_params
 
 
 def _nf(cfg):
@@ -37,11 +46,28 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Any:
     require_in_slice(cfg)
     dt = dtype or cfg.param_dtype
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=device)
+    cache: dict = {"length": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.recurrent == "rwkv6":
+        cache["wkv"] = zeros(cfg.n_layers, batch, cfg.n_heads, dh, dh)
+        cache["shift_t"] = zeros(cfg.n_layers, batch, cfg.d_model)
+        cache["shift_c"] = zeros(cfg.n_layers, batch, cfg.d_model)
+        return cache
+    if cfg.pattern_period > 1:  # hybrid
+        n_attn = cfg.layer_kinds().count("attn")
+        n_rec = cfg.n_layers - n_attn
+        w = cfg.lru_width or cfg.d_model
+        s = _kv_len(cfg, max_len, cfg.local_window)
+        cache["attn_k"] = zeros(n_attn, batch, s, kv, dh)
+        cache["attn_v"] = zeros(n_attn, batch, s, kv, dh)
+        cache["rec_h"] = zeros(n_rec, batch, w)
+        cache["rec_conv"] = zeros(n_rec, batch, cfg.conv_width - 1, w)
+        return cache
     s = _kv_len(cfg, max_len, cfg.sliding_window)
-    shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
-    return {"length": torch.zeros((), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    cache["k"] = zeros(cfg.n_layers, batch, s, kv, dh)
+    cache["v"] = zeros(cfg.n_layers, batch, s, kv, dh)
+    return cache
 
 
 # ========================================================== decode blocks
@@ -78,15 +104,44 @@ def _decode_attn_layer(cfg, lp, x, kb, vb, length):
     return x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
 
 
+def _decode_hybrid(cfg, params, cache, x, length):
+    for kind, i in kind_layers(cfg):
+        if kind == "attn":
+            x = _decode_attn_layer(cfg, layer_params(params["attn_layers"], i), x,
+                                   cache["attn_k"][i], cache["attn_v"][i], length)
+        else:
+            state = rglru_mod.RGLRUState(cache["rec_h"][i], cache["rec_conv"][i])
+            x, st = _rec_block(cfg, layer_params(params["rec_layers"], i), x, state)
+            cache["rec_h"][i].copy_(st.h)
+            cache["rec_conv"][i].copy_(st.conv)
+    return x
+
+
+def _decode_rwkv(cfg, params, cache, x):
+    for i in range(cfg.n_layers):
+        state = rwkv_mod.RWKVState(cache["wkv"][i], cache["shift_t"][i],
+                                   cache["shift_c"][i])
+        x, new = _rec_block(cfg, layer_params(params["layers"], i), x, state)
+        cache["wkv"][i].copy_(new.wkv)
+        cache["shift_t"][i].copy_(new.shift_t)
+        cache["shift_c"][i].copy_(new.shift_c)
+    return x
+
+
 def decode_step(cfg: ArchConfig, params: Params, cache: Any, token: torch.Tensor):
     """token: [B] int -> (logits [B, V], cache'). Writes the token's K/V
-    into ``cache["k"]`` / ``cache["v"]`` in place."""
+    and the layers' recurrent state into the cache's tensors in place."""
     require_in_slice(cfg)
-    x = embed(token, params["embed"])[:, None, :]   # [B, 1, D]
+    x = embed_tokens(cfg, params, token)[:, None, :]   # [B, 1, D]
     length = cache["length"]
-    for i in range(cfg.n_layers):
-        x = _decode_attn_layer(cfg, layer_params(params["layers"], i), x,
-                               cache["k"][i], cache["v"][i], length)
+    if cfg.recurrent == "rwkv6":
+        x = _decode_rwkv(cfg, params, cache, x)
+    elif cfg.pattern_period > 1:
+        x = _decode_hybrid(cfg, params, cache, x, length)
+    else:
+        for i in range(cfg.n_layers):
+            x = _decode_attn_layer(cfg, layer_params(params["layers"], i), x,
+                                   cache["k"][i], cache["v"][i], length)
     cache = dict(cache, length=length + 1)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = unembed(x[:, 0], params.get("lm_head", params["embed"]),
@@ -108,23 +163,67 @@ def _write_kv(buf: torch.Tensor, kv_seq: torch.Tensor, window: int):
     return buf.index_copy_(1, idx, kv_seq.to(buf.dtype))
 
 
+def _prefill_attn_layer(cfg, lp, x, k_buf, v_buf, window):
+    nf = _nf(cfg)
+    y, (k, v) = attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]),
+                               window=window, return_kv=True)
+    x = x + y
+    x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+    _write_kv(k_buf, k, window)
+    _write_kv(v_buf, v, window)
+    return x
+
+
+def _prefill_hybrid(cfg, params, cache, x):
+    for kind, i in kind_layers(cfg):
+        if kind == "attn":
+            x = _prefill_attn_layer(cfg, layer_params(params["attn_layers"], i), x,
+                                    cache["attn_k"][i], cache["attn_v"][i],
+                                    cfg.local_window)
+        else:
+            x, st = _rec_block(cfg, layer_params(params["rec_layers"], i), x)
+            cache["rec_h"][i].copy_(st.h)
+            cache["rec_conv"][i].copy_(st.conv)
+    return x
+
+
+def _prefill_rwkv(cfg, params, cache, x):
+    # the WKV scan kernel gives the final state (the reference's
+    # `_rwkv_time_mix_prefill` calls its oracle for it)
+    for i in range(cfg.n_layers):
+        x, st = _rec_block(cfg, layer_params(params["layers"], i), x)
+        cache["wkv"][i].copy_(st.wkv)
+        cache["shift_t"][i].copy_(st.shift_t)
+        cache["shift_c"][i].copy_(st.shift_c)
+    return x
+
+
 def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             max_len: int | None = None):
     """Full-sequence prefill: tokens [B, S] -> (last-token logits [B, V],
-    filled cache of ``max_len`` slots (S when None), or of the window)."""
+    filled cache of ``max_len`` slots (S when None), or of the window).
+
+    The hybrid needs S >= conv_width - 1: the conv tail it leaves for
+    decode is the last conv_width - 1 rows of the prompt's conv input. The
+    reference stores a shorter tail for a shorter prompt, which its decode
+    then misreads; the port refuses such a prompt with ``ValueError``."""
     require_in_slice(cfg)
-    x = embed(tokens, params["embed"])
     b, s = tokens.shape
+    if cfg.recurrent == "rglru" and cfg.pattern_period > 1 and s < cfg.conv_width - 1:
+        raise ValueError(
+            f"{cfg.name}: a prompt of {s} tokens is shorter than the temporal "
+            f"conv's tail of conv_width - 1 = {cfg.conv_width - 1}")
+    x = embed_tokens(cfg, params, tokens)
     cache = init_cache(cfg, b, max_len or s, device=x.device)
-    nf = _nf(cfg)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        y, (k, v) = attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]),
-                                   window=cfg.sliding_window, return_kv=True)
-        x = x + y
-        x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
-        _write_kv(cache["k"][i], k, cfg.sliding_window)
-        _write_kv(cache["v"][i], v, cfg.sliding_window)
+    if cfg.recurrent == "rwkv6":
+        x = _prefill_rwkv(cfg, params, cache, x)
+    elif cfg.pattern_period > 1:
+        x = _prefill_hybrid(cfg, params, cache, x)
+    else:
+        for i in range(cfg.n_layers):
+            x = _prefill_attn_layer(cfg, layer_params(params["layers"], i), x,
+                                    cache["k"][i], cache["v"][i],
+                                    cfg.sliding_window)
     cache["length"] = torch.full((), s, dtype=torch.int32, device=x.device)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = unembed(x[:, -1], params.get("lm_head", params["embed"]),

@@ -1,11 +1,13 @@
-"""Model assembly for the dense family: parameter init, carrying the
-reference's weights across, and the full-sequence forward.
+"""Model assembly: parameter init, carrying the reference's weights
+across, and the full-sequence forward.
 
-Port of the uniform-attention branch of `repro.models.transformer`.
+Port of `repro.models.transformer` for the dense family, rwkv6 (one stack
+of RWKV6 blocks) and the RG-LRU hybrid (a stack of local-attention layers
+and a stack of recurrent layers, dispatched by the period pattern).
 Params are a dict of tensors with the reference tree's keys and layouts:
 the layer parameters are STACKED along a leading layer axis
 (``params["layers"]["attn"]["wq"]`` is [L, D, H * Dh]) and the forward
-walks the stack in a Python loop where the reference scans it. Other
+walks the stacks in a Python loop where the reference scans them. Other
 families raise ``NotImplementedError("later slice")``.
 """
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 
 from repro_torch import resolve_device
 from . import attention as attn
+from . import rglru as rglru_mod
+from . import rwkv6 as rwkv_mod
 from .common import dense_init, embed, mlp, norm, unembed
 from .config import ArchConfig, require_in_slice
 
@@ -25,81 +29,134 @@ Params = Any
 
 # ======================================================== parameter init
 class _Init:
-    """Draws a dense model's parameters one tensor (or one layer slice) at
-    a time, each in fp32 and then cast, so the peak stays near the size of
-    the weights in their own dtype."""
+    """Draws a model's parameters one tensor (or one layer slice) at a
+    time, each in fp32 and then cast, so the peak stays near the size of
+    the weights in their own dtype. ``n`` > 0 stacks a tensor along a
+    leading axis of ``n`` layers, each drawn on its own."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device,
                  generator: torch.Generator):
         self.cfg, self.device, self.gen = cfg, device, generator
-        self.layers = cfg.n_layers
 
-    def dense(self, shape, in_axis=-2, stacked=False):
+    def dense(self, shape, in_axis=-2, n=0):
         dt = self.cfg.param_dtype
-        if not stacked:
+        if not n:
             return dense_init(shape, in_axis, dt, generator=self.gen,
                               device=self.device)
-        out = torch.empty((self.layers, *shape), dtype=dt, device=self.device)
-        for i in range(self.layers):
+        out = torch.empty((n, *shape), dtype=dt, device=self.device)
+        for i in range(n):
             dense_init(shape, in_axis, dt, generator=self.gen,
                        device=self.device, out=out[i])
         return out
 
-    def ones(self, shape, stacked=False):
-        lead = (self.layers,) if stacked else ()
-        return torch.ones((*lead, *shape), dtype=self.cfg.param_dtype,
+    def full(self, shape, value, n=0):
+        lead = (n,) if n else ()
+        return torch.full((*lead, *shape), value, dtype=self.cfg.param_dtype,
                           device=self.device)
 
-    def zeros(self, shape, stacked=False):
-        lead = (self.layers,) if stacked else ()
-        return torch.zeros((*lead, *shape), dtype=self.cfg.param_dtype,
-                           device=self.device)
+    def ones(self, shape, n=0):
+        return self.full(shape, 1.0, n)
+
+    def zeros(self, shape, n=0):
+        return self.full(shape, 0.0, n)
 
 
-def _norm_p(init: _Init, stacked=False):
+def _norm_p(init: _Init, n=0):
     cfg = init.cfg
-    p = {"scale": init.ones((cfg.d_model,), stacked)}
+    p = {"scale": init.ones((cfg.d_model,), n)}
     if cfg.norm == "layernorm":
-        p["bias"] = init.zeros((cfg.d_model,), stacked)
+        p["bias"] = init.zeros((cfg.d_model,), n)
     return p
 
 
-def _attn_p(init: _Init, stacked=False):
+def _attn_p(init: _Init, n=0):
     cfg = init.cfg
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": init.dense((d, h * dh), stacked=stacked),
-        "wk": init.dense((d, kv * dh), stacked=stacked),
-        "wv": init.dense((d, kv * dh), stacked=stacked),
-        "wo": init.dense((h * dh, d), stacked=stacked),
+        "wq": init.dense((d, h * dh), n=n),
+        "wk": init.dense((d, kv * dh), n=n),
+        "wv": init.dense((d, kv * dh), n=n),
+        "wo": init.dense((h * dh, d), n=n),
     }
     if cfg.qk_norm:
-        p["q_norm"] = init.ones((dh,), stacked)
-        p["k_norm"] = init.ones((dh,), stacked)
+        p["q_norm"] = init.ones((dh,), n)
+        p["k_norm"] = init.ones((dh,), n)
     return p
 
 
-def _mlp_p(init: _Init, stacked=False):
+def _mlp_p(init: _Init, n=0):
     cfg = init.cfg
     d, f = cfg.d_model, cfg.d_ff
-    p = {"wi_up": init.dense((d, f), stacked=stacked),
-         "wo": init.dense((f, d), stacked=stacked)}
+    p = {"wi_up": init.dense((d, f), n=n),
+         "wo": init.dense((f, d), n=n)}
     if cfg.act in ("swiglu", "geglu"):
-        p["wi_gate"] = init.dense((d, f), stacked=stacked)
+        p["wi_gate"] = init.dense((d, f), n=n)
     return p
 
 
-def _attn_layer_p(init: _Init, stacked=False):
-    return {"attn": _attn_p(init, stacked), "ln1": _norm_p(init, stacked),
-            "ln2": _norm_p(init, stacked), "mlp": _mlp_p(init, stacked)}
+def _rwkv_p(init: _Init, n=0):
+    cfg = init.cfg
+    d = cfg.d_model
+    hk = cfg.n_heads * cfg.head_dim
+    lora = max(d // 16, 32)
+    time = {f"mu_{c}": init.zeros((d,), n) for c in "rkvgw"}
+    time["lora_a"] = init.dense((d, lora), n=n)
+    for c in "rkvgw":
+        time[f"lora_b_{c}"] = init.dense((lora, d), in_axis=0, n=n)
+    for c in "rkvg":
+        time[f"w{c}"] = init.dense((d, hk), n=n)
+    time.update(
+        wo=init.dense((hk, d), n=n),
+        w_base=init.zeros((d,), n),
+        w_lora_a=init.dense((d, lora), n=n),
+        w_lora_b=init.dense((lora, d), in_axis=0, n=n),
+        u=init.zeros((hk,), n),
+        ln_x_scale=init.ones((hk,), n),
+        ln_x_bias=init.zeros((hk,), n),
+    )
+    chan = {"mu_k": init.zeros((d,), n), "mu_r": init.zeros((d,), n),
+            "wk": init.dense((d, cfg.d_ff), n=n),
+            "wv": init.dense((cfg.d_ff, d), n=n),
+            "wr": init.dense((d, d), n=n)}
+    return {"time": time, "chan": chan, "ln1": _norm_p(init, n),
+            "ln2": _norm_p(init, n)}
+
+
+def _rglru_p(init: _Init, n=0):
+    cfg = init.cfg
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {
+        "w_in": init.dense((d, w), n=n),
+        "w_in_gate": init.dense((d, w), n=n),
+        "conv_w": init.dense((cfg.conv_width, w), in_axis=0, n=n),
+        "w_rg": init.dense((w, w), n=n),
+        "b_rg": init.zeros((w,), n),
+        "w_ig": init.dense((w, w), n=n),
+        "b_ig": init.zeros((w,), n),
+        "lambda_p": init.full((w,), 0.5, n),
+        "w_out": init.dense((w, d), n=n),
+    }
+
+
+def _attn_layer_p(init: _Init, n=0):
+    return {"attn": _attn_p(init, n), "ln1": _norm_p(init, n),
+            "ln2": _norm_p(init, n), "mlp": _mlp_p(init, n)}
+
+
+def _rec_layer_p(init: _Init, n=0):
+    if init.cfg.recurrent == "rwkv6":
+        return _rwkv_p(init, n)
+    return {"rec": _rglru_p(init, n), "ln1": _norm_p(init, n),
+            "ln2": _norm_p(init, n), "mlp": _mlp_p(init, n)}
 
 
 def init_params(cfg: ArchConfig, *, device=None,
                 generator: torch.Generator | None = None) -> Params:
-    """Random parameters of a dense model on ``device`` (CUDA when None):
-    the reference's tree, drawn like `common.dense_init` from
-    ``generator`` (a ``torch.Generator`` on that device; seed 0 when
-    None)."""
+    """Random parameters on ``device`` (CUDA when None): the reference's
+    tree, drawn like `common.dense_init` from ``generator`` (a
+    ``torch.Generator`` on that device; seed 0 when None). rwkv6 has one
+    stack ``layers``; the hybrid two, ``attn_layers`` and ``rec_layers``."""
     require_in_slice(cfg)
     dev = resolve_device(device)
     if generator is None:
@@ -111,7 +168,14 @@ def init_params(cfg: ArchConfig, *, device=None,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = init.dense((cfg.d_model, cfg.vocab))
-    p["layers"] = _attn_layer_p(init, stacked=True)
+    if cfg.recurrent == "rwkv6":
+        p["layers"] = _rec_layer_p(init, cfg.n_layers)
+    elif cfg.pattern_period > 1:  # hybrid
+        n_attn = cfg.layer_kinds().count("attn")
+        p["attn_layers"] = _attn_layer_p(init, n_attn)
+        p["rec_layers"] = _rec_layer_p(init, cfg.n_layers - n_attn)
+    else:
+        p["layers"] = _attn_layer_p(init, cfg.n_layers)
     return p
 
 
@@ -137,6 +201,12 @@ def params_from_numpy(cfg: ArchConfig, tree: Params, device=None) -> Params:
     return conv(tree)
 
 
+def leaves(tree: Params):
+    """Every tensor of a parameter tree."""
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
 def layer_params(stacked: dict, i: int) -> dict:
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
@@ -144,20 +214,70 @@ def layer_params(stacked: dict, i: int) -> dict:
 
 
 # ========================================================== forward
+def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor):
+    """Token embeddings; RG-LRU models scale them by sqrt(d_model), rounded
+    to the activations' dtype first (the reference's ``jnp.asarray(d **
+    0.5, x.dtype)``)."""
+    x = embed(tokens, params["embed"])
+    if cfg.recurrent != "rglru":
+        return x
+    return x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+
+
+def kind_layers(cfg: ArchConfig):
+    """(kind, index within that kind's stack) of each layer in order, for
+    a hybrid's two stacks (recurrentgemma: rec 0, rec 1, attn 0, ...)."""
+    index = {"attn": 0, "rec": 0}
+    for kind in cfg.layer_kinds():
+        yield kind, index[kind]
+        index[kind] += 1
+
+
 def _attn_block(cfg: ArchConfig, lp: dict, x, *, window: int):
     nf = lambda y, pp: norm(y, pp, cfg.norm, cfg.norm_eps)
     x = x + attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), window=window)
     return x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
 
 
+def _rec_block(cfg: ArchConfig, lp: dict, x, state=None):
+    """One recurrent layer (an RWKV6 block, or an RG-LRU block + MLP):
+    steps from ``state`` (decode) or scans from zeros (prefill, forward).
+    Returns (x, the layer's new state)."""
+    nf = lambda y, pp: norm(y, pp, cfg.norm, cfg.norm_eps)
+    if cfg.recurrent == "rwkv6":
+        return rwkv_mod.rwkv_block(cfg, lp, x, state, nf)
+    h, st = rglru_mod.rglru_block(cfg, lp["rec"], nf(x, lp["ln1"]), state)
+    x = x + h
+    x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+    return x, st
+
+
+def _hybrid_forward(cfg: ArchConfig, params: Params, x):
+    """Period-pattern dispatch (recurrentgemma: rec, rec, attn): layer i of
+    each kind takes the next slice of that kind's stack."""
+    for kind, i in kind_layers(cfg):
+        if kind == "attn":
+            x = _attn_block(cfg, layer_params(params["attn_layers"], i), x,
+                            window=cfg.local_window)
+        else:
+            x, _ = _rec_block(cfg, layer_params(params["rec_layers"], i), x)
+    return x
+
+
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor):
     """Full-sequence forward: tokens [B, S] -> (logits [B, S, V], aux
-    loss). The dense family has no auxiliary loss, so aux is 0."""
+    loss). None of the ported families has an auxiliary loss, so aux is 0."""
     require_in_slice(cfg)
-    x = embed(tokens, params["embed"])
-    for i in range(cfg.n_layers):
-        x = _attn_block(cfg, layer_params(params["layers"], i), x,
-                        window=cfg.sliding_window)
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.recurrent == "rwkv6":
+        for i in range(cfg.n_layers):
+            x, _ = _rec_block(cfg, layer_params(params["layers"], i), x)
+    elif cfg.pattern_period > 1:
+        x = _hybrid_forward(cfg, params, x)
+    else:
+        for i in range(cfg.n_layers):
+            x = _attn_block(cfg, layer_params(params["layers"], i), x,
+                            window=cfg.sliding_window)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = unembed(x, params.get("lm_head", params["embed"]),
                      tied="lm_head" not in params)

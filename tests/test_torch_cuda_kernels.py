@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (paged attention and prefill flash
-attention) against their plain PyTorch versions, on the card. Marked
+"""The port's hand-written CUDA kernels (paged attention, prefill flash
+attention, the RG-LRU and RWKV6 scans) against their plain PyTorch
+versions, on the card. Marked
 ``cuda``: they skip where there is no CUDA device, and import neither JAX
 nor `repro`, so the card's machine runs them as they are:
 
@@ -10,7 +11,9 @@ engine's default layer (H4/KV2/D32) and qwen3-14b's attention width
 (H40/KV8/D128), pages of 4, 8 and 16 slots, tables with holes and a row of
 length 0. Flash attention: the sweep of tests/test_kernels.py under its
 three masks, head_dim 80 and 16, ragged lengths and rows with no valid
-key."""
+key. Scans: the sweeps of tests/test_kernels.py, ragged lengths, initial
+states (h0, s0) and the final WKV state, at the widths of
+recurrentgemma-9b and rwkv6-3b."""
 import pytest
 import torch
 
@@ -18,6 +21,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as wkv
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +189,119 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention(torch.zeros((1, 8, 2, 24), device=dev),
                            torch.zeros((1, 8, 1, 24), device=dev),
                            torch.zeros((1, 8, 1, 24), device=dev))
+
+
+# ---------------------------------------------------------------- scans
+# the RG-LRU kernel repeats the plain version's IEEE operations in fp32;
+# the RWKV6 kernel sums K terms in another order than the plain einsum;
+# bf16 outputs may differ by one rounding of the fp32 result
+SCAN_TOL = {"rglru": {"float32": 1e-5, "bfloat16": 3e-2},
+            "rwkv6": {"float32": 1e-4, "bfloat16": 3e-2}}
+# (b, t, w, h0): the sweep of tests/test_kernels.py, a ragged T from an
+# initial state, T = 1 (shorter than one unrolled chunk), a W that is no
+# multiple of the block, and recurrentgemma-9b's width
+RGLRU_SHAPES = {
+    "sweep0": (2, 256, 64, False), "sweep1": (1, 512, 128, False),
+    "sweep2": (3, 128, 256, False), "ragged-200-h0": (2, 200, 96, True),
+    "t1-h0": (3, 1, 40, True), "w130-t37-h0": (1, 37, 130, True),
+    "recurrentgemma-width": (4, 256, 4096, False),
+}
+# (b, t, h, k, s0): the sweep of tests/test_kernels.py, the smoke width
+# (16) and 32 from an initial state over a ragged T, rwkv6-3b's heads
+RWKV6_SHAPES = {
+    "sweep0": (1, 256, 2, 64, False), "sweep1": (2, 128, 4, 128, False),
+    "k16-s0": (3, 70, 4, 16, True), "k32-ragged-200-s0": (2, 200, 3, 32, True),
+    "rwkv6-3b-heads-s0": (1, 256, 40, 64, True),
+}
+
+
+def _rglru_inputs(shape, dtype, seed, dev):
+    b, t, w, h0 = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, t, w), generator=g)
+    a = torch.sigmoid(torch.randn((b, t, w), generator=g))
+    h = torch.randn((b, w), generator=g) if h0 else None
+    dt = getattr(torch, dtype)
+    return x.to(dt).to(dev), a.to(dt).to(dev), None if h is None else h.to(dev)
+
+
+def _rwkv6_inputs(shape, dtype, seed, dev):
+    b, t, h, k, s0 = shape
+    g = torch.Generator().manual_seed(seed)
+    r, kk, v = (torch.randn((b, t, h, k), generator=g) * 0.5 for _ in range(3))
+    w = torch.sigmoid(torch.randn((b, t, h, k), generator=g) + 2)
+    u = torch.randn((h, k), generator=g) * 0.1
+    s = torch.randn((b, h, k, k), generator=g) * 0.5 if s0 else None
+    dt = getattr(torch, dtype)
+    return ([x.to(dt).to(dev) for x in (r, kk, v, w)], u.to(dev),
+            None if s is None else s.to(dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(RGLRU_SHAPES))
+def test_rglru_kernel_matches_plain(dev, name, dtype):
+    x, a, h0 = _rglru_inputs(RGLRU_SHAPES[name], dtype, seed=len(name), dev=dev)
+    before = rg.rglru.launches
+    out, h_t = rg.rglru(x, a, h0=h0)
+    torch.cuda.synchronize()
+    assert rg.rglru.launches == before + 1
+    want, want_h = ref.rglru(x, a, h0=h0)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    tol = SCAN_TOL["rglru"][dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h_t.float(), want_h.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(RWKV6_SHAPES))
+def test_rwkv6_kernel_matches_plain(dev, name, dtype):
+    (r, k, v, w), u, s0 = _rwkv6_inputs(RWKV6_SHAPES[name], dtype, seed=len(name),
+                                        dev=dev)
+    before = wkv.rwkv6_wkv.launches
+    out, S = wkv.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+    torch.cuda.synchronize()
+    assert wkv.rwkv6_wkv.launches == before + 1
+    want, want_S = ref.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+    assert out.dtype == r.dtype and S.dtype == r.dtype and S.shape == want_S.shape
+    tol = SCAN_TOL["rwkv6"][dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(S.float(), want_S.float(), atol=tol, rtol=tol)
+    # without the final state: the same outputs
+    assert torch.equal(wkv.rwkv6_wkv(r, k, v, w, u, s0=s0), out)
+
+
+def test_scan_dispatchers_launch_for_cuda_tensors(dev):
+    x, a, _ = _rglru_inputs(RGLRU_SHAPES["sweep0"], "float32", 1, dev)
+    before = rg.rglru.launches
+    ops.rglru(x, a)
+    assert rg.rglru.launches == before + 1
+    (r, k, v, w), u, _ = _rwkv6_inputs(RWKV6_SHAPES["sweep0"], "float32", 1, dev)
+    before = wkv.rwkv6_wkv.launches
+    ops.rwkv6_wkv(r, k, v, w, u, return_state=True)
+    assert wkv.rwkv6_wkv.launches == before + 1
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, a, _ = _rglru_inputs(RGLRU_SHAPES["sweep0"], "float32", 2, dev)
+    with pytest.raises(ValueError):
+        rg.rglru(x, a.bfloat16())                                   # dtype
+    with pytest.raises(ValueError):
+        rg.rglru(x.half(), a.half())                                # dtype
+    with pytest.raises(ValueError):
+        rg.rglru(x.transpose(0, 1).contiguous().transpose(0, 1), a)  # layout
+    with pytest.raises(ValueError):
+        rg.rglru(x, a.cpu())                                        # device
+    with pytest.raises(ValueError):
+        rg.rglru(x, a, h0=torch.zeros((1, 64), device=dev))         # h0 shape
+    (r, k, v, w), u, _ = _rwkv6_inputs(RWKV6_SHAPES["sweep0"], "float32", 2, dev)
+    with pytest.raises(ValueError):
+        wkv.rwkv6_wkv(r, k.bfloat16(), v, w, u)                     # dtype
+    with pytest.raises(ValueError):
+        wkv.rwkv6_wkv(r, k, v, w, u[:1])                            # u shape
+    with pytest.raises(ValueError):
+        wkv.rwkv6_wkv(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError, match="limits"):                 # K = 48
+        z = torch.zeros((1, 4, 2, 48), device=dev)
+        wkv.rwkv6_wkv(z, z, z, z, torch.zeros((2, 48), device=dev))
+    with pytest.raises(ValueError, match="limits"):                 # K != V
+        wkv.rwkv6_wkv(r, k, v[..., :32].contiguous(), w, u)

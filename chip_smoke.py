@@ -16,7 +16,16 @@ nvcc per source, all at once), then:
    key sequence, and rows with no valid key; and the RG-LRU and RWKV6 scan
    kernels (fp32, bf16) against theirs on the sweeps of
    tests/test_kernels.py, a ragged length, and an initial state (h0; s0
-   with the final state);
+   with the final state); and the MoE top-k router kernel against its
+   plain version on the sweep of tests/test_kernels.py with and without
+   bias, DeepSeek's expert counts (160 with k = 6, 256 with k = 8) at 4,
+   4096 and 1000 tokens, and rows with exact ties (indices exact);
+1b. drives the FTL lookup (`kernels.ops.ftl_lookup`, its one entry point)
+   at SSD scale: a burst of 2^20 LPNs against a 4 TB SSD's 1862-segment
+   directory with half of its 524288-entry mapping pages cached (1.95 GB
+   of PPNs up to 2^31 - 2). It must launch once, without a host sync, and
+   give its plain version's PPNs and hits bit for bit, there and on the
+   sweep of tests/test_kernels.py with out-of-range LPNs added;
 2. drives the serving engine's main path — `serving.engine.step` at
    qwen3-14b's attention width, 8 replicas, 32 steps — twice: fp32 pages
    unmetered, and int8 pages under a LINK_BW budget of 4 pages per step.
@@ -33,31 +42,42 @@ nvcc per source, all at once), then:
    full published configs (bf16, batch 4, prompt 2048, 32 greedy tokens):
    recurrentgemma-9b (26 RG-LRU layers and 12 local-attention layers of
    window 2048, whose ring wraps in decode) and rwkv6-3b (32 RWKV6
-   layers). Each kernel must run once per layer of its kind in the prefill
-   (every launch count zeroed just before the run, read just after), the
-   logits must be finite, and decode must not synchronize with the host.
-   Each kernel is held against its plain version on the inputs the first
-   and last layers of its kind gave it. Each model is freed before the
-   next starts;
+   layers); then the DeepSeek MoE/MLA family at full published width,
+   depth cut to fit the card (bf16, batch 4, prompt 1024, 32 greedy
+   tokens): deepseek-v2-236b's 1 dense + 7 MoE layers and
+   deepseek-v3-671b's 3 dense + 2 MoE layers. Each kernel must run once
+   per layer of its kind in the prefill, and the router once per MoE
+   layer in every decode step too (every launch count zeroed just before
+   the run, read just after; MLA launches no flash kernel), the logits
+   must be finite, and decode must not synchronize with the host; the
+   DeepSeek runs are repeated from the same seed and must give the same
+   tokens and logits bit for bit. Each
+   kernel is held against its plain version on the inputs the first and
+   last layers of its kind gave it (the router also on the first decode
+   step's). Each model is freed before the next starts;
 4. times each kernel form on the inputs the main path gave it, beside its
    plain version, one PyTorch library call computing the same function
    where there is one, and the least time the card could take (bytes over
    the memory rate or operations over the peak rate of their type,
    whichever is larger);
-5. checks the engine, and three narrow fp32 models (a dense one,
-   recurrentgemma-smoke and rwkv6-smoke; prefill of 128 + 8 decode steps),
-   on the GPU against the same code on the CPU (the plain path).
+5. checks the engine, and five narrow fp32 models (a dense one,
+   recurrentgemma-smoke and rwkv6-smoke with a prompt of 128,
+   deepseek-v2-smoke and deepseek-v3-smoke with a prompt of 1040, whose
+   2080 tokens take the MoE's sorted dispatch; 8 decode steps), on the GPU
+   against the same code on the CPU (the plain path).
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
-`flash_checks`, `scan_checks`, `engine`, `model`, `model_window`,
-`model_hybrid`, `model_rwkv`, `gpu_vs_cpu_engine`, `gpu_vs_cpu_model`),
-the `kernels` JSON line — per kernel form its checks
-and its numbers of step 4 — and last `{"ok": true, "device": {...}}`. Any
-failure exits non-zero before the last line. Needs one CUDA device; exits
-non-zero without one, or when run outside a checkout.
+`flash_checks`, `scan_checks`, `router_checks`, `ftl`, `engine`, `model`,
+`model_window`, `model_hybrid`, `model_rwkv`, `model_moe_v2`,
+`model_moe_v3`, `gpu_vs_cpu_engine`, `gpu_vs_cpu_model`), the script's
+own time (`run`, the build included), the `kernels` JSON line — per kernel form its checks and its numbers of step 4 — and
+last `{"ok": true, "device": {...}}`. Any failure exits non-zero before
+the last line. Needs one CUDA device; exits non-zero without one, or when
+run outside a checkout.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -94,6 +114,26 @@ MODEL = ("qwen3-14b", 4, 2048, 32)
 MODEL_WINDOW = ("h2o-danube-1.8b", 1, 8192, 16)
 MODEL_HYBRID = ("recurrentgemma-9b", 4, 2048, 32)
 MODEL_RWKV = ("rwkv6-3b", 4, 2048, 32)
+# the DeepSeek MoE/MLA family at full published width, depth cut to fit one
+# card (the full models hold 2.357e11 and 6.717e11 parameters): (arch,
+# batch, prompt, generated tokens, layers run). v2: its 1 dense + 7 MoE
+# layers; v3: its 3 dense + 2 MoE layers. A prompt of 1024 keeps MLA's
+# dense [B, 128, S, S] scores (below 4096 keys) to 1 GB in bf16.
+MODEL_MOE_V2 = ("deepseek-v2-236b", 4, 1024, 32, 8)
+MODEL_MOE_V3 = ("deepseek-v3-671b", 4, 1024, 32, 5)
+# router kernel vs plain version: indices exact, weights within this
+ROUTER_W_TOL = 1e-6
+# (t, e, k): the sweep of tests/test_kernels.py, then DeepSeek-v2's (160,
+# 6) and -v3's (256, 8) experts at a decode step's 4 tokens, a prefill's
+# 4096 and a ragged 1000
+ROUTER_CHECKS = [(256, 128, 6), (512, 256, 8), (128, 160, 2)] + [
+    (t, e, k) for e, k in ((160, 6), (256, 8)) for t in (4, 4096, 1000)]
+# the FTL lookup at SSD scale: a 4 TB SSD's mapping table in 2 MB segments
+# (src/repro_torch/jbof/ssd.py), half of its segments cached in DRAM (the
+# shrunk DRAM of XBOF), a burst of 2^20 uniform LPNs
+FTL_BURST = 1 << 20
+# (n_seg, n_slots, entries, n): the sweep of tests/test_kernels.py
+FTL_SWEEP = [(64, 16, 128, 512), (128, 32, 256, 1024), (16, 4, 512, 256)]
 # scan kernels vs plain versions: the RG-LRU kernel repeats the plain
 # version's IEEE operations in fp32, the RWKV6 kernel sums K terms in
 # another order; bf16 outputs may differ by one rounding of the fp32 result
@@ -295,22 +335,46 @@ def kernel_table() -> dict:
     `kernels.ops` that the models call, the kernel's wrapper (which counts
     its launches) and its plain version."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as wkv
     return {"flash_attention": ("attention", fa.flash_attention, ref.attention),
             "rglru": ("rglru", rg.rglru, ref.rglru),
-            "rwkv6_wkv": ("rwkv6_wkv", wkv.rwkv6_wkv, ref.rwkv6_wkv)}
+            "rwkv6_wkv": ("rwkv6_wkv", wkv.rwkv6_wkv, ref.rwkv6_wkv),
+            "topk_router": ("topk_router", mr.topk_router, ref.topk_router)}
 
 
-def expected_launches(cfg) -> dict:
-    """Launches of each kernel in one prefill: one per layer of its kind
-    (decode runs the plain single-step forms, no kernel)."""
+def prefill_launches(cfg) -> dict:
+    """Launches of each kernel in one prefill: one per layer of its kind.
+    MLA attends in plain PyTorch (as the reference does), so a DeepSeek
+    model launches no flash kernel; its router runs once per MoE layer."""
     kinds = cfg.layer_kinds()
     n_rec = kinds.count("rec")
-    return {"flash_attention": kinds.count("attn"),
+    return {"flash_attention": kinds.count("attn") if cfg.mla is None else 0,
             "rglru": n_rec if cfg.recurrent == "rglru" else 0,
-            "rwkv6_wkv": n_rec if cfg.recurrent == "rwkv6" else 0}
+            "rwkv6_wkv": n_rec if cfg.recurrent == "rwkv6" else 0,
+            "topk_router": (cfg.n_layers - cfg.moe.first_k_dense
+                            if cfg.moe is not None else 0)}
+
+
+def expected_launches(cfg, gen) -> dict:
+    """Launches of each kernel in a prefill and ``gen`` decode steps. Decode
+    runs the plain single-step forms of attention and the scans (no TPU
+    kernel backs them), but routes every MoE layer through the router
+    kernel: n_moe_layers * (1 + gen) launches."""
+    out = prefill_launches(cfg)
+    out["topk_router"] *= 1 + gen
+    return out
+
+
+def router_compare(got, want):
+    """(max abs weight error, indices equal, ok): indices exact, weights
+    within ROUTER_W_TOL."""
+    (w, idx), (w_want, idx_want) = got, want
+    err = float((w - w_want).abs().max()) if w.numel() else 0.0
+    same = torch.equal(idx, idx_want)
+    return err, same, same and err <= ROUTER_W_TOL and bool(torch.isfinite(w).all())
 
 
 def compare(got, want, tol):
@@ -324,22 +388,31 @@ def compare(got, want, tol):
             all(e[2] for e in errs))
 
 
-def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
-    """Drive `launch.serve.run_model` at the arch's full config; return its
-    JSON line and, per kernel, the (args, kwargs) its dispatcher got from
-    the first and last layers of its kind in the prefill."""
+def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
+                repeat=False) -> tuple[dict, dict]:
+    """Drive `launch.serve.run_model` at the arch's full config (its depth
+    cut to ``n_layers`` when given; with ``repeat``, a second run from the
+    same seed must give the same tokens and logits bit for bit); return
+    its JSON line and, per kernel,
+    the (args, kwargs) its dispatcher got, by call index: from the first
+    and last layers of its kind in the prefill and, for the router, from
+    the first MoE layer of the first decode step."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import decode as D
-    cfg = configs.get(arch)
-    table, expect = kernel_table(), expected_launches(cfg)
+    full = configs.get(arch)
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    table, expect = kernel_table(), expected_launches(cfg, gen)
+    per_prefill = prefill_launches(cfg)
     saved = {name: getattr(ops, attr) for name, (attr, _, _) in table.items()}
     captured = {name: {} for name in table}
     decode_step = D.decode_step
 
     def capture(name):
-        dispatch, calls, keep = saved[name], [0], (0, expect[name] - 1)
+        n = per_prefill[name]
+        keep = {0, n - 1} | ({n} if name == "topk_router" and gen else set())
+        dispatch, calls = saved[name], [0]
 
         def wrapper(*args, **kw):
             if calls[0] in keep:
@@ -364,7 +437,8 @@ def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
         kernel.launches = 0
     D.decode_step = checked_step
     try:
-        out = serve.run_model(arch, batch, prompt, gen, seed=0, device=dev)
+        out = serve.run_model(arch, batch, prompt, gen, seed=0, device=dev,
+                              cfg=cfg)
     finally:
         for name, (attr, _, _) in table.items():
             setattr(ops, attr, saved[name])
@@ -373,10 +447,14 @@ def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
     logits = out["logits"]
     line = dict(arch=arch, layers=cfg.n_layers, kinds=cfg.layer_kinds(),
                 d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
-                head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                head_dim=cfg.head_dim if cfg.mla is None else None,
+                d_ff=cfg.d_ff, vocab=cfg.vocab,
                 window=cfg.sliding_window or cfg.local_window,
                 recurrent=cfg.recurrent, dtype=cfg.dtype,
                 n_params=cfg.n_params(), n_params_tensors=out["n_params"],
+                full_layers=full.n_layers,
+                mla=dataclasses.asdict(cfg.mla) if cfg.mla else None,
+                moe=dataclasses.asdict(cfg.moe) if cfg.moe else None,
                 batch=batch, prompt=prompt, gen=gen, launches=launches,
                 expected_launches=expect,
                 prefill_ms=out["prefill_ms"],
@@ -389,14 +467,26 @@ def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
                 sample=out["tokens"][0, :8].tolist(),
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 decode_host_syncs="none (sync debug mode 'error')")
+    first = (out["tokens"], logits)
     del out, logits
     if launches != expect:
-        fail(f"{arch}: kernel launches in one prefill {launches} != one per "
-             f"layer of each kind {expect}")
+        fail(f"{arch}: kernel launches in the run {launches} != one per layer "
+             f"of each kind in the prefill, and one per MoE layer and decode "
+             f"step for the router: {expect}")
     if not line["logits_finite"]:
         fail(f"{arch}: logits not finite")
     if line["tokens_shape"] != [batch, gen]:
         fail(f"{arch}: greedy tokens {line['tokens_shape']} != {[batch, gen]}")
+    if repeat:
+        again = serve.run_model(arch, batch, prompt, gen, seed=0, device=dev,
+                                cfg=cfg)
+        line["repeat_equal"] = bool(torch.equal(again["tokens"], first[0])
+                                    and torch.equal(again["logits"], first[1]))
+        del again
+        if not line["repeat_equal"]:
+            fail(f"{arch}: a second run from the same seed gave other tokens "
+                 "or logits")
+    del first
     # each kernel against its plain version on the main path's inputs.
     # Attention's outputs are small, so bf16 is gated there by max abs
     # error / max |want|; the scans' by element, at tol * (1 + |want|)
@@ -410,10 +500,14 @@ def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
                 tol = TOL["bf16"]
                 err, rel, _ = compare(got, want, tol)
                 ok = rel <= tol and bool(torch.isfinite(got).all())
+            elif name == "topk_router":
+                tol = ROUTER_W_TOL
+                err, _, ok = router_compare(got, want)
+                rel = err
             else:
                 tol = SCAN_TOL[name]["bf16"]
                 err, rel, ok = compare(got, want, tol)
-            line["checks"].append(dict(kernel=name, layer_of_kind=layer,
+            line["checks"].append(dict(kernel=name, call=layer,
                                        shapes=[list(a.shape) for a in args
                                                if torch.is_tensor(a)],
                                        kw={k: v for k, v in kw.items()
@@ -421,24 +515,33 @@ def model_phase(arch, batch, prompt, gen, dev) -> tuple[dict, dict]:
                                        max_abs_err=err, max_rel_err=rel,
                                        tol=tol, ok=ok))
             if not ok:
-                fail(f"{arch} {name} layer {layer} of its kind: kernel disagrees "
+                fail(f"{arch} {name} call {layer}: kernel disagrees "
                      f"with its plain version (max abs err {err}, relative {rel})")
             del got, want
-    # only the first layer's inputs are kept, for the kernels line
-    captured = {name: calls[0] for name, calls in captured.items() if calls}
+    # the first layer's inputs (and the router's at the first decode step)
+    # are kept, for the kernels line
+    line_calls = {name: {0} | ({per_prefill[name]} if name == "topk_router" else set())
+                  for name in table}
+    captured = {name: {i: c for i, c in calls.items() if i in line_calls[name]}
+                for name, calls in captured.items() if calls}
     torch.cuda.empty_cache()
     return line, captured
 
 
-def gpu_vs_cpu_model(dev, cfg, seed) -> dict:
+def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
     """A narrow fp32 model, the same weights on both devices: prefill a
-    prompt of 128, then 8 greedy decode steps. The CUDA run (kernels) and
+    prompt of ``prompt`` (batch 2), then 8 greedy decode steps. The CUDA run (kernels) and
     the CPU run (plain versions) must give equal tokens, and logits within
-    1e-4 * (1 + |want|); the CUDA prefill must launch each kernel once per
-    layer of its kind."""
+    1e-4 * (1 + |want|); the CUDA run must launch each kernel once per
+    layer of its kind in the prefill, and the router once per MoE layer
+    and step. For a MoE model the line gives the smallest gap, over the
+    CUDA run's router calls, between a token's k-th and (k+1)-th
+    selection score: a CPU and a GPU product may order two scores closer
+    than that differently, and then pick another expert."""
+    from repro_torch.kernels import ops
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
-    table, expect = kernel_table(), expected_launches(cfg)
+    table, expect = kernel_table(), expected_launches(cfg, 8)
     cpu_params = T.init_params(cfg, device="cpu",
                                generator=torch.Generator().manual_seed(seed))
 
@@ -446,40 +549,57 @@ def gpu_vs_cpu_model(dev, cfg, seed) -> dict:
         return ({k: to_dev(x) for k, x in node.items()} if isinstance(node, dict)
                 else node.to(dev))
 
-    tokens = torch.randint(0, cfg.vocab, (2, 128),
+    tokens = torch.randint(0, cfg.vocab, (2, prompt),
                            generator=torch.Generator().manual_seed(seed + 1))
+    route, gaps = ops.topk_router, []
+
+    def gap_recorder(scores, k, bias=None):
+        sel = scores if bias is None else scores + bias
+        top = torch.topk(sel, min(k + 1, sel.shape[-1]), dim=-1).values
+        if top.shape[-1] > k:
+            gaps.append((top[:, k - 1] - top[:, k]).min())
+        return route(scores, k, bias=bias)
+
     runs = {}
     for name, params, toks in (("cuda", to_dev(cpu_params), tokens.to(dev)),
                                ("cpu", cpu_params, tokens)):
         for _, kernel, _ in table.values():
             kernel.launches = 0
-        logits, cache = D.prefill(cfg, params, toks, max_len=136)
-        steps = [logits.cpu()]
-        greedy = []
-        for _ in range(8):
-            tok = torch.argmax(logits, -1).to(torch.int32)
-            greedy.append(tok.cpu())
-            logits, cache = D.decode_step(cfg, params, cache, tok)
-            steps.append(logits.cpu())
+        ops.topk_router = gap_recorder if name == "cuda" else route
+        try:
+            logits, cache = D.prefill(cfg, params, toks, max_len=prompt + 8)
+            steps = [logits.cpu()]
+            greedy = []
+            for _ in range(8):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                greedy.append(tok.cpu())
+                logits, cache = D.decode_step(cfg, params, cache, tok)
+                steps.append(logits.cpu())
+        finally:
+            ops.topk_router = route
         runs[name] = (steps, torch.stack(greedy, 1),
                       {k: kern.launches for k, (_, kern, _) in table.items()})
+    gap = float(torch.stack(gaps).min()) if gaps else None
     (g_logits, g_tok, g_launch), (c_logits, c_tok, c_launch) = runs["cuda"], runs["cpu"]
     if g_launch != expect or any(c_launch.values()):
         fail(f"gpu_vs_cpu_model {cfg.name}: launches {g_launch} (CUDA), "
              f"{c_launch} (CPU); want {expect} and none")
     if not torch.equal(g_tok, c_tok):
         fail(f"gpu_vs_cpu_model {cfg.name}: greedy tokens {g_tok.tolist()} != "
-             f"CPU {c_tok.tolist()}")
+             f"CPU {c_tok.tolist()} (smallest router gap between the k-th and "
+             f"(k+1)-th score: {gap})")
     worst = 0.0
     for i, (a, b) in enumerate(zip(g_logits, c_logits)):
         err = (a - b).abs()
         worst = max(worst, float(err.max()))
         if not bool((err <= 1e-4 * (1 + b.abs())).all()):
             fail(f"gpu_vs_cpu_model {cfg.name}: logits of step {i} differ by up "
-                 f"to {float(err.max())} from the CPU plain path")
-    return {"config": cfg.name, "batch": 2, "prompt": 128, "decode_steps": 8,
+                 f"to {float(err.max())} from the CPU plain path (smallest "
+                 f"router gap between the k-th and (k+1)-th score: {gap})")
+    return {"config": cfg.name, "batch": 2, "prompt": prompt, "decode_steps": 8,
             "launches": g_launch, "tokens_equal": True,
-            "max_abs_logit_err": worst, "tol": "1e-4 * (1 + |want|)", "ok": True}
+            "max_abs_logit_err": worst, "tol": "1e-4 * (1 + |want|)",
+            "router_min_gap": gap, "ok": True}
 
 
 def scan_inputs(name, shape, dtype, seed, dev):
@@ -649,6 +769,189 @@ def flash_row(name, form, q, k, v, causal, window, launches, flush, checks,
     }
 
 
+def router_inputs(t, e, bias, seed, dev, ties=False):
+    """Random router inputs: softmax scores (four values per row with
+    ``ties``, so every row has exact ties) and a bias of scale 0.1."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if ties:
+        scores = torch.randint(0, 4, (t, e), generator=g).float() / 8
+    else:
+        scores = torch.softmax(torch.randn((t, e), generator=g), -1)
+    b = torch.randn((e,), generator=g) * 0.1 if bias else None
+    return scores.to(dev), None if b is None else b.to(dev)
+
+
+def router_checks(dev) -> list[dict]:
+    """The router kernel against its plain version on random inputs, with
+    and without bias, and on rows with exact ties: indices exact, weights
+    within ROUTER_W_TOL."""
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    checks = []
+    shapes = [(shape, False) for shape in ROUTER_CHECKS] + [
+        ((64, 160, 6), True), ((64, 256, 8), True)]
+    for (t, e, k), ties in shapes:
+        for bias in (False, True):
+            scores, b = router_inputs(t, e, bias, len(checks), dev, ties=ties)
+            got = mr.topk_router(scores, k, bias=b)
+            torch.cuda.synchronize()
+            err, same, ok = router_compare(got, ref.topk_router(scores, k, bias=b))
+            checks.append(dict(shape=[t, e, k], bias=bias, ties=ties,
+                               max_abs_err=err, idx_equal=same, ok=ok))
+    return checks
+
+
+def router_row(name, scores, k, bias, decode_in, launches, flush, checks,
+               extra) -> dict:
+    """One `kernels` entry for the router kernel on the scores the first
+    MoE layer of a prefill gave it; also its time on the first decode
+    step's."""
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    err, same, ok = router_compare(mr.topk_router(scores, k, bias=bias),
+                                   ref.topk_router(scores, k, bias=bias))
+    if not ok:
+        fail(f"{name}: kernel disagrees with its plain version on the main "
+             f"path's inputs (max abs weight err {err}, indices equal {same})")
+    ms = timed_ms(lambda: mr.topk_router(scores, k, bias=bias), 20, flush)
+    plain_ms = timed_ms(lambda: ref.topk_router(scores, k, bias=bias), 10, flush)
+    # the library yardstick covers the selection only: torch.topk on the
+    # same sel (its tie order is not promised, and it gives no weights)
+    sel = scores if bias is None else scores + bias
+    library_ms = timed_ms(lambda: torch.topk(sel, k, dim=-1), 20, flush)
+    (d_args, d_kw) = decode_in
+    decode_ms = timed_ms(lambda: mr.topk_router(*d_args, **d_kw), 20, flush)
+    t, e = scores.shape
+    # scores read once, the bias once, w (fp32) and idx (int32) written
+    nbytes = t * e * 4 + (e * 4 if bias is not None else 0) + t * k * 8
+    # the bias add per score, then per pick a sum and a division
+    flops = (t * e if bias is not None else 0) + 2 * t * k
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / FP32_FLOPS
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_router.cu",
+        "replaces": "src/repro/kernels/moe_router.py:43",
+        "launches": launches,
+        "shape": {"scores": [t, e], "k": k, "bias": bias is not None},
+        "max_abs_err": err, "idx_equal": same, "tol": ROUTER_W_TOL,
+        "gate": "indices exact, |w err| <= tol",
+        "checks": checks,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+        "library_ms": library_ms,
+        "library_call": "torch.topk(scores + bias, k) (selection only, no weights)",
+        "decode_shape": list(d_args[0].shape), "decode_ms": decode_ms,
+        **extra,
+    }
+
+
+def ftl_phase(dev, flush) -> tuple[dict, dict]:
+    """The FTL lookup's path at SSD scale: `kernels.ops.ftl_lookup`, its
+    one entry point, on a burst of 2^20 uniform LPNs against a 4 TB SSD's
+    directory of 1862 segments, half of them cached (931 mapping pages of
+    524288 random PPNs in [0, 2^31 - 1), 1.95 GB). The launch count is
+    zeroed just before the burst and read just after; the burst runs
+    under sync debug mode "error". The kernel must give its plain
+    version's result bit for bit, there and on the sweep of
+    tests/test_kernels.py with out-of-range LPNs added. Returns the
+    phase's line and its `kernels` entry; frees its tensors."""
+    from repro_torch.jbof import ssd
+    from repro_torch.kernels import ftl_lookup as fk
+    from repro_torch.kernels import ops, ref
+    entries = ssd.SEGMENT_BYTES // 4          # 4-byte entries per 2 MB segment
+    n_seg = ssd.SEGMENTS_FULL
+    n_slots = n_seg // 2
+    g = torch.Generator(device=dev).manual_seed(11)
+    directory = torch.full((n_seg,), -1, dtype=torch.int32, device=dev)
+    cached = torch.randperm(n_seg, generator=g, device=dev)[:n_slots]
+    directory[cached] = torch.arange(n_slots, dtype=torch.int32, device=dev)
+    cache = torch.randint(0, 2**31 - 1, (n_slots, entries), generator=g,
+                          device=dev, dtype=torch.int32)
+    lpns = torch.randint(0, n_seg * entries, (FTL_BURST,), generator=g,
+                         device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    fk.ftl_lookup.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ppn, hit = ops.ftl_lookup(lpns, directory, cache, entries)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launches = fk.ftl_lookup.launches
+    want_ppn, want_hit = ref.ftl_lookup(lpns, directory, cache, entries)
+    torch.cuda.synchronize()
+    exact = torch.equal(ppn, want_ppn) and torch.equal(hit, want_hit)
+    n_hits = int(hit.sum())
+    big = int((ppn >= 1 << 24).sum())
+    if launches != 1:
+        fail(f"ftl: ftl_lookup launched {launches} times in one lookup")
+    if not exact:
+        fail("ftl: the kernel's PPNs or hits differ from its plain version's "
+             "on the SSD-scale burst")
+    # random sweep, then out-of-range LPNs (negative, past the table:
+    # floored //, a wrap, then clamps)
+    cases = []
+    for i, (ns, nsl, ent, n) in enumerate(FTL_SWEEP):
+        sg = torch.Generator(device="cpu").manual_seed(100 + i)
+        d = torch.where(torch.rand((ns,), generator=sg) < 0.6,
+                        torch.randint(0, nsl, (ns,), generator=sg), -1)
+        cases.append((torch.randint(0, ns * ent, (n,), generator=sg), d,
+                      torch.randint(0, 2**31 - 1, (nsl, ent), generator=sg), False))
+    cases.append((torch.tensor([-100, -57, -56, -9, -1, 0, 5, 15, 31, 39, 55, 56,
+                                57, 1000, 2**31 - 1, -2**31]),
+                  torch.tensor([2, 0, -1, 1, 5, 2, -7]),
+                  torch.randint(0, 2**31 - 1, (3, 8),
+                                generator=torch.Generator().manual_seed(99)), True))
+    sweep = []
+    for lp, d, c, out_of_range in cases:
+        args = [t.to(torch.int32).to(dev) for t in (lp, d, c)]
+        got, want = fk.ftl_lookup(*args, c.shape[1]), ref.ftl_lookup(*args, c.shape[1])
+        torch.cuda.synchronize()
+        sweep.append(dict(shape=[d.numel(), *c.shape, lp.numel()],
+                          out_of_range=out_of_range,
+                          exact=torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+    if not all(c["exact"] for c in sweep):
+        fail(f"ftl: kernel differs from its plain version on the sweep: {sweep}")
+    ms = timed_ms(lambda: fk.ftl_lookup(lpns, directory, cache, entries), 20, flush)
+    plain_ms = timed_ms(lambda: ref.ftl_lookup(lpns, directory, cache, entries),
+                        10, flush)
+    # the least bytes THIS burst needs: each LPN read, one directory entry
+    # per LPN, a mapping entry per hit (a miss reads none), the PPN and the
+    # hit byte written: 13 B per LPN + 4 per hit
+    nbytes = FTL_BURST * 13 + n_hits * 4
+    t_bytes = 1e3 * nbytes / HBM_BPS
+    line = dict(n_seg=n_seg, n_slots=n_slots, entries=entries,
+                mapping_cache_gb=cache.numel() * 4 / 1e9, lpns=FTL_BURST,
+                launches=launches, exact=exact, hit_rate=n_hits / FTL_BURST,
+                ppns_past_2_24=big, sweep=sweep, ms=ms, plain_ms=plain_ms,
+                lookups_per_s=FTL_BURST / (ms / 1e3))
+    row = {
+        "name": "ftl_lookup", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ftl_lookup.cu",
+        "replaces": "src/repro/kernels/ftl_lookup.py:54",
+        "launches": launches,
+        "shape": {"lpns": FTL_BURST, "directory": n_seg,
+                  "mapping_cache": [n_slots, entries]},
+        "max_abs_err": 0, "gate": "bit for bit (PPNs and hits)",
+        "checks": sweep,
+        "ms": ms, "plain_ms": plain_ms,
+        # integer work: a division, a remainder and a few compares per LPN
+        "bound_ms": t_bytes, "bound_by": "bytes",
+        "bytes": nbytes, "hits": n_hits,
+        # 17 B per LPN counts every LPN's mapping entry, hit or miss
+        "bytes_17_per_lpn": FTL_BURST * 17,
+        # each random gather pulls a whole 32-byte sector for its 4 bytes
+        "gather_sectors": FTL_BURST + n_hits,
+        "gather_sector_bytes": 32 * (FTL_BURST + n_hits),
+        # no single PyTorch call computes the two-level translation
+        "library_ms": None,
+    }
+    del directory, cache, lpns, ppn, hit, want_ppn, want_hit
+    torch.cuda.empty_cache()
+    return line, row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
@@ -665,7 +968,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     _build.build()
     ptxas = [ln.strip() for log in _build.LOG.values() for ln in log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -708,6 +1011,19 @@ def main() -> None:
     bad = [c for c in schecks if not c["ok"]]
     if bad:
         fail(f"scan kernel disagrees with its plain version: {bad}")
+    rchecks = router_checks(dev)
+    print(json.dumps({"router_checks": {
+        "n": len(rchecks), "ok": all(c["ok"] for c in rchecks),
+        "idx_equal": all(c["idx_equal"] for c in rchecks),
+        "max_abs_err": max(c["max_abs_err"] for c in rchecks)}}), flush=True)
+    bad = [c for c in rchecks if not c["ok"]]
+    if bad:
+        fail(f"router kernel disagrees with its plain version: {bad}")
+
+    # ---- 1b. the FTL lookup at SSD scale (frees its tables when done)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
+    ftl_line, ftl_row = ftl_phase(dev, flush)
+    print(json.dumps({"ftl": ftl_line}), flush=True)
 
     # ---- 2. the main path: the engine at full width, two phases
     captured = {}
@@ -779,6 +1095,12 @@ def main() -> None:
     print(json.dumps({"model_hybrid": hybrid_line}), flush=True)
     rwkv_line, rwkv_in = model_phase(*MODEL_RWKV, dev)
     print(json.dumps({"model_rwkv": rwkv_line}), flush=True)
+    moe_v2_line, moe_v2_in = model_phase(*MODEL_MOE_V2[:4], dev,
+                                         n_layers=MODEL_MOE_V2[4], repeat=True)
+    print(json.dumps({"model_moe_v2": moe_v2_line}), flush=True)
+    moe_v3_line, moe_v3_in = model_phase(*MODEL_MOE_V3[:4], dev,
+                                         n_layers=MODEL_MOE_V3[4], repeat=True)
+    print(json.dumps({"model_moe_v3": moe_v3_line}), flush=True)
 
     # ---- 3. each kernel form on the inputs the main path gave it
     fp_args, _ = main_inputs["fp32"]
@@ -789,7 +1111,6 @@ def main() -> None:
                   fp_args[2].bfloat16(), fp_args[3], fp_args[4]], {}, 0),
         "int8": (list(int8_args), dict(int8_kw), launches["int8_metered"]),
     }
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
     kernels = []
     for form, (args, kw, n_launch) in forms.items():
         got = pa.paged_attention(*args, **kw)
@@ -854,10 +1175,15 @@ def main() -> None:
                                             "steps": 6, "ok": True}}), flush=True)
     from repro_torch import configs
     from repro_torch.models.config import ArchConfig
-    model_checks = {cfg.name: gpu_vs_cpu_model(dev, cfg, seed)
-                    for seed, cfg in ((3, ArchConfig(**NARROW)),
-                                      (5, configs.smoke("recurrentgemma-9b")),
-                                      (7, configs.smoke("rwkv6-3b")))}
+    # the DeepSeek smoke configs at a prompt of 1040: 2080 tokens take the
+    # MoE's sorted-capacity dispatch in the prefill, the one-hot in decode
+    model_checks = {cfg.name: gpu_vs_cpu_model(dev, cfg, seed, prompt)
+                    for seed, cfg, prompt in (
+                        (3, ArchConfig(**NARROW), 128),
+                        (5, configs.smoke("recurrentgemma-9b"), 128),
+                        (7, configs.smoke("rwkv6-3b"), 128),
+                        (9, configs.smoke("deepseek-v2-236b"), 1040),
+                        (11, configs.smoke("deepseek-v3-671b"), 1040))}
     print(json.dumps({"gpu_vs_cpu_model": model_checks}), flush=True)
     gpu_cpu_launches = {name: sum(c["launches"][name] for c in model_checks.values())
                         for name in kernel_table()}
@@ -867,7 +1193,7 @@ def main() -> None:
     # path does not run), h2o-danube's sliding window and recurrentgemma's
     # local attention (head_dim 256, one KV head)
     def flash_in(captured):
-        (q, k, v), kw = captured["flash_attention"]
+        (q, k, v), kw = captured["flash_attention"][0]
         return q, k, v, kw["causal"], kw["window"]
 
     q, k, v, causal, window = flash_in(model_in)
@@ -899,7 +1225,7 @@ def main() -> None:
     # does not run; the narrow fp32 models of step 4 launch it)
     for name, line, captured, phase in (("rglru", hybrid_line, hybrid_in, "model_hybrid"),
                                         ("rwkv6_wkv", rwkv_line, rwkv_in, "model_rwkv")):
-        args, kw = captured[name]
+        args, kw = captured[name][0]
         kernels.append(scan_row(name, "bf16", args, kw, line["launches"][name],
                                 flush, schecks, {"on_main_path": True, "phase": phase}))
         args32 = [a.float() for a in args]
@@ -909,6 +1235,30 @@ def main() -> None:
         del args, args32
     del hybrid_in, rwkv_in
 
+    # ---- 7. the router on the scores the DeepSeek models' first MoE layer
+    # gave it in the prefill (v2: softmax, no bias; v3: sigmoid with the
+    # aux-free bias), and on the first decode step's; then the FTL lookup
+    # on its SSD-scale burst
+    n_v2 = prefill_launches(dataclasses.replace(configs.get(MODEL_MOE_V2[0]),
+                                                n_layers=MODEL_MOE_V2[4]))["topk_router"]
+    n_v3 = prefill_launches(dataclasses.replace(configs.get(MODEL_MOE_V3[0]),
+                                                n_layers=MODEL_MOE_V3[4]))["topk_router"]
+    for form, line, captured, n_moe in (("v2", moe_v2_line, moe_v2_in, n_v2),
+                                        ("v3", moe_v3_line, moe_v3_in, n_v3)):
+        (scores, k), kw = captured["topk_router"][0]
+        kernels.append(router_row(
+            f"topk_router[{form}]", scores, k, kw.get("bias"),
+            captured["topk_router"][n_moe], line["launches"]["topk_router"],
+            flush, rchecks,
+            {"on_main_path": True, "phase": f"model_moe_{form}",
+             "scores": "sigmoid + aux-free bias" if kw.get("bias") is not None
+             else "softmax",
+             "launches_gpu_vs_cpu_model": gpu_cpu_launches["topk_router"]}))
+    del moe_v2_in, moe_v3_in
+    kernels.append({**ftl_row, "on_main_path": True, "phase": "ftl"})
+
+    # the script's own time, from the card line to here, the build included
+    print(json.dumps({"run": {"seconds": time.perf_counter() - start}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ time, on one GPU.
 
 Runs `repro_torch.models.decode.prefill` and `decode_step` at the arch's
 full published config (random weights from seed 0, as
-`launch.serve.run_model` draws them). After one warm-up prefill and
+`launch.serve.run_model` draws them). The DeepSeek archs, which do not
+fit one card whole, run at `chip_smoke.py`'s depth cut: deepseek-v2-236b
+at 8 layers (1 dense + 7 MoE), deepseek-v3-671b at 5 (3 dense + 2 MoE). After one warm-up prefill and
 decode step it profiles one prefill, then ``--decode-steps`` decode steps,
 and reports for each window:
 
@@ -26,7 +28,13 @@ and reports for each window:
   projections, the temporal conv and the gates), RWKV6's time mix around
   its scan (`time_mix`: token shift, interpolation, projections, decay,
   group norm) and channel mix, and the scans themselves (`recurrence`:
-  the scan kernel in prefill, the plain single step in decode). A layer's device ms is
+  the scan kernel in prefill, the plain single step in decode); for
+  DeepSeek MLA's projections into q and the latent (`attention_proj`)
+  and its latent-space attention with the up-projections
+  (`mla_attend`), and the MoE FFN: its router product and scores
+  (`router`), the router kernel (`topk_router`), the dispatch and
+  combine (`moe_dispatch`), the routed experts' products (`experts`)
+  and the rest of the layer (`moe`: the shared experts). A layer's device ms is
   the summed duration of the kernels that ran inside its range and in no
   labelled range nested in it; `other` is the kernels outside every range
   (the residual adds). Its host ms is the host time inside its range,
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
+import dataclasses
 import functools
 import json
 import subprocess
@@ -126,10 +135,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_model_profile: needs a CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import MODEL_MOE_V2, MODEL_MOE_V3
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     from repro_torch.models import decode as D
+    from repro_torch.models import moe as M
     from repro_torch.models import rglru as RG
     from repro_torch.models import rwkv6 as RW
     from repro_torch.models import transformer as T
@@ -141,6 +153,9 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
     cfg = configs.get(args.arch)
+    cut = {m[0]: m[4] for m in (MODEL_MOE_V2, MODEL_MOE_V3)}
+    if args.arch in cut:
+        cfg = dataclasses.replace(cfg, n_layers=cut[args.arch])
     params = T.init_params(cfg, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(0))
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
@@ -149,7 +164,8 @@ def main() -> None:
 
     labels = {"embed", "norm", "attention_proj", "attention", "cache_write",
               "mlp", "unembed", "rec_block", "time_mix", "channel_mix",
-              "recurrence"}
+              "recurrence", "mla_attend", "moe", "router", "topk_router",
+              "moe_dispatch", "experts"}
     for module, attr, label in (
             (D, "embed_tokens", "embed"), (D, "norm", "norm"), (T, "norm", "norm"),
             (T, "mlp", "mlp"), (RG, "rglru_block", "rec_block"),
@@ -159,7 +175,11 @@ def main() -> None:
             (A, "gqa_train", "attention_proj"), (D, "_decode_gqa", "attention_proj"),
             (ops, "attention", "attention"), (ops, "decode_attention", "attention"),
             (D, "_write_kv", "cache_write"), (D, "_ring_update", "cache_write"),
-            (D, "mlp", "mlp"), (D, "unembed", "unembed")):
+            (D, "mlp", "mlp"), (D, "unembed", "unembed"),
+            (A, "_mla_qkv", "attention_proj"), (A, "_mla_attend", "mla_attend"),
+            (M, "moe_ffn", "moe"), (M, "route", "router"),
+            (ops, "topk_router", "topk_router"), (M, "_moe_sorted", "moe_dispatch"),
+            (M, "_moe_small_batch", "moe_dispatch"), (M, "_expert_ffn", "experts")):
         _label(module, attr, label)
 
     state = {}
@@ -186,7 +206,8 @@ def main() -> None:
     out = {"config": {"arch": args.arch, "batch": args.batch,
                       "prompt_len": args.prompt_len,
                       "decode_steps": args.decode_steps, "dtype": cfg.dtype,
-                      "layers": cfg.n_layers}}
+                      "layers": cfg.n_layers,
+                      "full_layers": configs.get(args.arch).n_layers}}
     for phase, fn, per in (("prefill", do_prefill, 1),
                            ("decode", do_decode, args.decode_steps)):
         if phase == "decode":

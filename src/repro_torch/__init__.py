@@ -17,7 +17,16 @@ Ported so far:
   `models.decode.prefill` and `decode_step`, driven by
   `launch.serve.run_model`) for qwen3-14b, granite-8b, internlm2-20b and
   h2o-danube-1.8b, with the prefill flash-attention kernel
-  (`kernels/csrc/flash_attention.cu`).
+  (`kernels/csrc/flash_attention.cu`);
+- the same serve path for the recurrent families, recurrentgemma-9b
+  (RG-LRU blocks and local attention) and rwkv6-3b, with the RG-LRU and
+  WKV scan kernels (`kernels/csrc/rglru_scan.cu`, `rwkv6_scan.cu`);
+- the same serve path for the DeepSeek MoE/MLA family, deepseek-v2-236b
+  and deepseek-v3-671b (`models/moe.py`, MLA in `models/attention.py`,
+  the latent cache), with the MoE top-k router kernel
+  (`kernels/csrc/moe_router.cu`);
+- the FTL's LPN -> PPN lookup (`kernels.ops.ftl_lookup`), with its kernel
+  (`kernels/csrc/ftl_lookup.cu`).
 
 Configurations and architectures outside these raise
 ``NotImplementedError("later slice")``.

@@ -2,9 +2,10 @@
 published config (``CONFIG``) and a reduced same-family config
 (``smoke()``), copied from `repro.configs`.
 
-All ten architectures are named; the four whose blocks the port does not
-run yet (MoE/MLA, enc-dec, M-RoPE) raise ``NotImplementedError("later
-slice")`` from `get` and `smoke`.
+All ten architectures are named. The port runs eight: the dense family,
+rwkv6, the RG-LRU hybrid and the DeepSeek MoE/MLA pair. The two whose
+blocks it does not run yet (whisper's enc-dec, qwen2-vl's M-RoPE) raise
+``NotImplementedError("later slice")`` from `get` and `smoke`.
 """
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
-# the dense family, rwkv6 and the RG-LRU hybrid, which this port runs
+# the dense family, rwkv6, the RG-LRU hybrid and the DeepSeek MoE/MLA
+# pair, which this port runs
 PORTED = ("granite-8b", "h2o-danube-1.8b", "internlm2-20b", "qwen3-14b",
-          "rwkv6-3b", "recurrentgemma-9b")
+          "rwkv6-3b", "recurrentgemma-9b", "deepseek-v2-236b",
+          "deepseek-v3-671b")
 
 ARCH_NAMES = list(_MODULES)
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as _fa
+from . import ftl_lookup as _ftl
+from . import moe_router as _mr
 from . import paged_attention as _pa
 from . import ref
 from . import rglru_scan as _rg
@@ -71,3 +73,22 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
 
 # the decode step, like `rglru_step`: the plain version on every device
 rwkv6_wkv_step = ref.rwkv6_wkv_step
+
+
+def topk_router(scores: torch.Tensor, k: int, bias: torch.Tensor | None = None):
+    """Top-k experts of scores [T, E] fp32 by ``scores + bias`` -> (weights
+    [T, k] fp32 renormalizing the unbiased picked scores, indices [T, k]
+    int32). No shape gate: the reference's ``E >= 128`` is a TPU lane
+    constraint."""
+    if scores.device.type == "cpu":
+        return ref.topk_router(scores, k, bias=bias)
+    return _mr.topk_router(scores, k, bias=bias)
+
+
+def ftl_lookup(lpns: torch.Tensor, directory: torch.Tensor,
+               mapping_cache: torch.Tensor, entries_per_segment: int):
+    """LPN -> PPN translation through the cached mapping table -> (ppn [N]
+    int32, hit [N] bool); a miss gives -1."""
+    if lpns.device.type == "cpu":
+        return ref.ftl_lookup(lpns, directory, mapping_cache, entries_per_segment)
+    return _ftl.ftl_lookup(lpns, directory, mapping_cache, entries_per_segment)

@@ -1,11 +1,10 @@
 """Plain PyTorch versions of the port's kernels — the semantics contract.
 
-Port of `repro.kernels.ref` for the ported paths: prefill attention
-(dense and chunked forms), decode attention, paged attention, and the
-RG-LRU and RWKV6 recurrences with their single decode steps. The CPU path
-runs these; on the GPU `chip_smoke.py` and the CUDA tests hold each kernel
-against them on the same inputs. The remaining oracles (MoE router, FTL
-lookup) come with the slices whose kernels need them.
+Port of `repro.kernels.ref`: prefill attention (dense and chunked
+forms), decode attention, paged attention, the RG-LRU and RWKV6
+recurrences with their single decode steps, the FTL lookup and the MoE
+top-k router. The CPU path runs these; on the GPU `chip_smoke.py` and the
+CUDA tests hold each kernel against them on the same inputs.
 """
 from __future__ import annotations
 
@@ -249,3 +248,44 @@ def rwkv6_wkv_step(S, r_t, k_t, v_t, w_t, u):
     out = torch.einsum("bhk,bhkv->bhv", r_t.float(), S32 + u.float()[None, :, :, None] * kv)
     S_new = w_t.float()[..., :, None] * S32 + kv
     return S_new.to(S.dtype), out.to(r_t.dtype)
+
+
+# ------------------------------------------------------------ ftl lookup
+def ftl_lookup(lpns: torch.Tensor, directory: torch.Tensor,
+               mapping_cache: torch.Tensor, entries_per_segment: int):
+    """Batched LPN -> PPN translation through the cached mapping table:
+    ``slot = directory[lpn // entries]``, ``ppn = mapping_cache[slot, lpn %
+    entries]``; a slot of -1 is a miss, (-1, False) (the caller schedules
+    a mapping-page flash read — the paper's miss path). lpns [N],
+    directory [n_seg] and mapping_cache [n_slots, entries] int32 -> (ppn
+    [N] int32, hit [N] bool).
+
+    Out-of-range LPNs are indexed as the reference's jnp gathers index
+    them: ``//`` and ``%`` floor, a negative segment wraps once and is
+    then clamped into the directory, and the slot is clamped into the
+    cache. Nothing raises."""
+    n_seg, n_slots = directory.shape[0], mapping_cache.shape[0]
+    seg = torch.div(lpns, entries_per_segment, rounding_mode="floor").long()
+    off = torch.remainder(lpns, entries_per_segment).long()
+    seg = torch.where(seg < 0, seg + n_seg, seg).clamp(0, n_seg - 1)
+    slot = directory[seg]
+    hit = slot >= 0
+    ppn = mapping_cache[slot.long().clamp(0, n_slots - 1), off]
+    return torch.where(hit, ppn, torch.full_like(ppn, -1)), hit
+
+
+# ------------------------------------------------------------ moe router
+def topk_router(scores: torch.Tensor, k: int, bias: torch.Tensor | None = None):
+    """Top-k expert selection: scores [T, E] fp32 (and bias [E] fp32) ->
+    (weights [T, k] fp32, indices [T, k] int32).
+
+    Selection ranks ``scores + bias`` (DeepSeek-v3's aux-free balancing),
+    largest first, ties to the lowest index (as `lax.top_k` does; a
+    stable descending sort keeps equal values in index order, which
+    `torch.topk` does not promise). The weights renormalize the UNBIASED
+    scores of the chosen experts: picked / max(sum, 1e-9)."""
+    sel = scores if bias is None else scores + bias
+    idx = torch.sort(sel, dim=-1, descending=True, stable=True).indices[:, :k]
+    picked = torch.gather(scores, -1, idx)
+    w = picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9)
+    return w, idx.to(torch.int32)

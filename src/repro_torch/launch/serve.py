@@ -3,8 +3,8 @@ and the XBOF harvesting runtime layer.
 
 Port of `repro.launch.serve`. `run_model` drives the model zoo's serve
 path (`models.transformer.init_params`, `models.decode.prefill`, then
-`models.decode.decode_step` per token) for the dense family, rwkv6 and
-the RG-LRU hybrid (recurrentgemma);
+`models.decode.decode_step` per token) for the dense family, the
+DeepSeek MoE/MLA pair, rwkv6 and the RG-LRU hybrid (recurrentgemma);
 `run_runtime_layer` runs N data-parallel engine replicas under skewed
 arrivals, redirecting overload through the unified `core.manager` round.
 Both run on CUDA unless given ``--device``.
@@ -13,6 +13,8 @@ Both run on CUDA unless given ``--device``.
       --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke \
       --device cpu --batch 2 --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --smoke --device cpu --batch 2 --prompt-len 16 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
       --device cpu --batch 2 --prompt-len 16 --gen 4 --replicas 4
 """
@@ -36,14 +38,20 @@ def _sync(dev: torch.device) -> None:
 
 
 def run_model(arch: str, batch: int, prompt_len: int, gen: int, *,
-              smoke: bool = False, seed: int = 0, device=None) -> dict:
+              smoke: bool = False, seed: int = 0, device=None,
+              cfg=None) -> dict:
     """Prefill a random prompt of ``batch`` x ``prompt_len`` tokens, then
     decode ``gen`` tokens greedily, on ``device`` (CUDA when None), with
-    weights drawn by `init_params` from ``seed``. Prints the prefill time
-    and the decode rate. Returns the greedy tokens [B, gen], the last
-    logits [B, V], the times (prefill ms, decode ms per token, decoded
-    tokens per second) and the parameter count summed over the tensors."""
-    cfg = configs.smoke(arch) if smoke else configs.get(arch)
+    weights drawn by `init_params` from ``seed``. ``cfg`` (an
+    `ArchConfig`), when given, replaces the named config: a harness runs a
+    depth-cut config through it (``dataclasses.replace(configs.get(arch),
+    n_layers=...)``) when the whole model does not fit one card. Prints the
+    prefill time and the decode rate. Returns the greedy tokens [B, gen],
+    the last logits [B, V], the times (prefill ms, decode ms per token,
+    decoded tokens per second) and the parameter count summed over the
+    tensors."""
+    if cfg is None:
+        cfg = configs.smoke(arch) if smoke else configs.get(arch)
     require_in_slice(cfg)
     dev = resolve_device(device)
     params = T.init_params(
@@ -114,7 +122,8 @@ def run_runtime_layer(n_replicas: int, steps: int = 12, device=None) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=configs.ARCH_NAMES, default=None,
-                    help="run the model's prefill + greedy decode")
+                    help="run the model's prefill + greedy decode (the ported "
+                         f"archs: {', '.join(configs.PORTED)})")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -2,9 +2,7 @@
 
 Port of `repro.models.config`: one frozen `ArchConfig` per architecture
 (see `repro_torch.configs`), with the same fields and derived properties.
-`param_dtype` is a ``torch.dtype``. MLA and MoE stay plain dataclasses so
-that configs can name them; the modules that run them come with later
-slices.
+`param_dtype` is a ``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -171,12 +169,19 @@ class ArchConfig:
 
 def require_in_slice(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError("later slice")`` for an architecture the
-    port does not run yet: MoE, MLA, enc-dec, M-RoPE or a modality
-    frontend. The port runs the uniform attention stack (GQA, RoPE,
-    optional qk-norm and sliding window), the RWKV6 stack and the RG-LRU
-    hybrid (recurrent blocks and local attention in a period pattern)."""
+    port does not run yet: enc-dec, M-RoPE, a modality frontend, or MoE and
+    MLA apart (the reference's decode reads a MoE model's ``moe_layers``
+    only on its MLA branch and an MLA model's only there too, so neither
+    runs alone) or with recurrent blocks. The port runs the uniform
+    attention stack (GQA, RoPE, optional qk-norm and sliding window; or
+    MLA with a dense-FFN prefix and MoE layers, as DeepSeek), the RWKV6
+    stack and the RG-LRU hybrid (recurrent blocks and local attention in a
+    period pattern). As the two come together, the model code picks the
+    DeepSeek family by ``cfg.mla`` alone."""
+    moe, mla = cfg.moe is not None, cfg.mla is not None
     later = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("moe without mla", moe and not mla), ("mla without moe", mla and not moe),
+        ("moe/mla with recurrent blocks", (moe or mla) and cfg.recurrent != ""),
         (f"recurrent={cfg.recurrent}",
          cfg.recurrent not in ("", "rglru", "rwkv6")),
         ("enc-dec", cfg.is_encdec), ("m-rope", bool(cfg.mrope_sections)),
@@ -184,4 +189,5 @@ def require_in_slice(cfg: ArchConfig) -> None:
     if later:
         raise NotImplementedError(
             f"later slice: {cfg.name} needs {', '.join(later)}; the port "
-            "runs the dense attention stack, RWKV6 and the RG-LRU hybrid so far")
+            "runs the dense and DeepSeek MoE/MLA attention stacks, RWKV6 and "
+            "the RG-LRU hybrid so far")

@@ -1,9 +1,12 @@
 """Serving path: cache construction, prefill, and single-token decode.
 
-Port of `repro.models.decode` for the dense family, rwkv6 and the RG-LRU
-hybrid. The cache is a dict with the reference's keys and shapes:
+Port of `repro.models.decode` for the dense family, DeepSeek's MoE/MLA
+family, rwkv6 and the RG-LRU hybrid. The cache is a dict with the
+reference's keys and shapes:
 
 - dense: ``k`` and ``v`` [L, B, S, KV, Dh];
+- MLA: the compressed latent ``c_kv`` [L, B, S, kv_lora] and the shared
+  RoPE key ``k_rope`` [L, B, S, rope];
 - rwkv6: ``wkv`` [L, B, H, Dh, Dh] (the WKV state, in the params' dtype,
   so each decode step rounds it as the reference does), ``shift_t`` and
   ``shift_c`` [L, B, D];
@@ -16,7 +19,9 @@ functions, `prefill` writes each layer's state into the cache as it goes
 and `decode_step` writes the new token's K/V and recurrent state into the
 cache tensors in place (it returns a new dict holding the same tensors),
 so no second copy of the cache is ever held. `decode_step` reads nothing
-back to the host: `length` stays on the device.
+back to the host: `length` stays on the device. A MoE layer's FFN takes
+the sorted-capacity dispatch in a prefill of more than
+`moe.SMALL_BATCH_TOKENS` tokens and the one-hot dispatch in decode.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .common import mlp, norm, rmsnorm, unembed
 from .config import ArchConfig, require_in_slice
-from .transformer import Params, _rec_block, embed_tokens, kind_layers, layer_params
+from .transformer import (Params, _rec_block, deepseek_layers, embed_tokens, ffn,
+                          kind_layers, layer_params)
 
 
 def _nf(cfg):
@@ -49,6 +55,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     kv, dh = cfg.n_kv_heads, cfg.head_dim
     zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=device)
     cache: dict = {"length": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.mla is not None:
+        m = cfg.mla
+        cache["c_kv"] = zeros(cfg.n_layers, batch, max_len, m.kv_lora_rank)
+        cache["k_rope"] = zeros(cfg.n_layers, batch, max_len, m.qk_rope_head_dim)
+        return cache
     if cfg.recurrent == "rwkv6":
         cache["wkv"] = zeros(cfg.n_layers, batch, cfg.n_heads, dh, dh)
         cache["shift_t"] = zeros(cfg.n_layers, batch, cfg.d_model)
@@ -128,13 +139,26 @@ def _decode_rwkv(cfg, params, cache, x):
     return x
 
 
+def _decode_mla(cfg, params, cache, x, length):
+    nf = _nf(cfg)
+    for i, lp in enumerate(deepseek_layers(cfg, params)):
+        y, _ = attn.mla_decode(cfg, lp["attn"], nf(x, lp["ln1"]),
+                               attn.MLACache(cache["c_kv"][i], cache["k_rope"][i], length))
+        x = x + y
+        y, _ = ffn(cfg, lp, nf(x, lp["ln2"]))
+        x = x + y
+    return x
+
+
 def decode_step(cfg: ArchConfig, params: Params, cache: Any, token: torch.Tensor):
     """token: [B] int -> (logits [B, V], cache'). Writes the token's K/V
     and the layers' recurrent state into the cache's tensors in place."""
     require_in_slice(cfg)
     x = embed_tokens(cfg, params, token)[:, None, :]   # [B, 1, D]
     length = cache["length"]
-    if cfg.recurrent == "rwkv6":
+    if cfg.mla is not None:
+        x = _decode_mla(cfg, params, cache, x, length)
+    elif cfg.recurrent == "rwkv6":
         x = _decode_rwkv(cfg, params, cache, x)
     elif cfg.pattern_period > 1:
         x = _decode_hybrid(cfg, params, cache, x, length)
@@ -171,6 +195,20 @@ def _prefill_attn_layer(cfg, lp, x, k_buf, v_buf, window):
     x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
     _write_kv(k_buf, k, window)
     _write_kv(v_buf, v, window)
+    return x
+
+
+def _prefill_mla(cfg, params, cache, x):
+    nf = _nf(cfg)
+    s = x.shape[1]
+    for i, lp in enumerate(deepseek_layers(cfg, params)):
+        y, (c_kv, k_rope) = attn.mla_train(cfg, lp["attn"], nf(x, lp["ln1"]),
+                                           return_latent=True)
+        x = x + y
+        y, _ = ffn(cfg, lp, nf(x, lp["ln2"]))
+        x = x + y
+        cache["c_kv"][i, :, :s].copy_(c_kv)
+        cache["k_rope"][i, :, :s].copy_(k_rope)
     return x
 
 
@@ -215,7 +253,9 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             f"conv's tail of conv_width - 1 = {cfg.conv_width - 1}")
     x = embed_tokens(cfg, params, tokens)
     cache = init_cache(cfg, b, max_len or s, device=x.device)
-    if cfg.recurrent == "rwkv6":
+    if cfg.mla is not None:
+        x = _prefill_mla(cfg, params, cache, x)
+    elif cfg.recurrent == "rwkv6":
         x = _prefill_rwkv(cfg, params, cache, x)
     elif cfg.pattern_period > 1:
         x = _prefill_hybrid(cfg, params, cache, x)

@@ -1,14 +1,19 @@
 """Model assembly: parameter init, carrying the reference's weights
 across, and the full-sequence forward.
 
-Port of `repro.models.transformer` for the dense family, rwkv6 (one stack
-of RWKV6 blocks) and the RG-LRU hybrid (a stack of local-attention layers
-and a stack of recurrent layers, dispatched by the period pattern).
-Params are a dict of tensors with the reference tree's keys and layouts:
+Port of `repro.models.transformer` for the dense family, the DeepSeek
+MoE/MLA family (MLA attention in every layer, a stack of dense-FFN prefix
+layers ``dense_layers`` and a stack of MoE layers ``moe_layers``, and for
+DeepSeek-v3 the multi-token-prediction block ``mtp``, which serving never
+reads), rwkv6 (one stack of RWKV6 blocks) and the RG-LRU hybrid (a stack
+of local-attention layers and a stack of recurrent layers, dispatched by
+the period pattern). Params are a dict of tensors with the reference
+tree's keys, layouts and dtypes (the MoE router and its bias are fp32):
 the layer parameters are STACKED along a leading layer axis
-(``params["layers"]["attn"]["wq"]`` is [L, D, H * Dh]) and the forward
-walks the stacks in a Python loop where the reference scans them. Other
-families raise ``NotImplementedError("later slice")``.
+(``params["layers"]["attn"]["wq"]`` is [L, D, H * Dh], a MoE layer's
+``experts`` [L, E, D, F]) and the forward walks the stacks in a Python
+loop where the reference scans them. Other families raise
+``NotImplementedError("later slice")``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 
 from repro_torch import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .common import dense_init, embed, mlp, norm, unembed
@@ -38,8 +44,8 @@ class _Init:
                  generator: torch.Generator):
         self.cfg, self.device, self.gen = cfg, device, generator
 
-    def dense(self, shape, in_axis=-2, n=0):
-        dt = self.cfg.param_dtype
+    def dense(self, shape, in_axis=-2, n=0, dtype=None):
+        dt = dtype or self.cfg.param_dtype
         if not n:
             return dense_init(shape, in_axis, dt, generator=self.gen,
                               device=self.device)
@@ -49,16 +55,29 @@ class _Init:
                        device=self.device, out=out[i])
         return out
 
-    def full(self, shape, value, n=0):
+    def experts(self, shape, n):
+        """A stack of ``n`` layers of expert weights [n, E, D_in, D_out]
+        (``shape`` = [E, D_in, D_out], fan-in D_in), each (layer, expert)
+        slice drawn on its own: the fp32 temporary is one expert's matrix
+        (a whole layer's DeepSeek-v3 wi_gate would need 15 GB)."""
+        dt = self.cfg.param_dtype
+        out = torch.empty((n, *shape), dtype=dt, device=self.device)
+        for i in range(n):
+            for e in range(shape[0]):
+                dense_init(shape, 1, dt, generator=self.gen,
+                           device=self.device, out=out[i, e])
+        return out
+
+    def full(self, shape, value, n=0, dtype=None):
         lead = (n,) if n else ()
-        return torch.full((*lead, *shape), value, dtype=self.cfg.param_dtype,
-                          device=self.device)
+        return torch.full((*lead, *shape), value,
+                          dtype=dtype or self.cfg.param_dtype, device=self.device)
 
     def ones(self, shape, n=0):
         return self.full(shape, 1.0, n)
 
-    def zeros(self, shape, n=0):
-        return self.full(shape, 0.0, n)
+    def zeros(self, shape, n=0, dtype=None):
+        return self.full(shape, 0.0, n, dtype)
 
 
 def _norm_p(init: _Init, n=0):
@@ -69,8 +88,30 @@ def _norm_p(init: _Init, n=0):
     return p
 
 
+def _mla_p(init: _Init, n=0):
+    cfg = init.cfg
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    p = {
+        "wkv_a": init.dense((d, m.kv_lora_rank), n=n),
+        "wk_rope": init.dense((d, m.qk_rope_head_dim), n=n),
+        "wkv_b": init.dense((m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+                            in_axis=0, n=n),
+        "wo": init.dense((h * m.v_head_dim, d), n=n),
+    }
+    qdim = h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if m.q_lora_rank:
+        p["wq_a"] = init.dense((d, m.q_lora_rank), n=n)
+        p["wq_b"] = init.dense((m.q_lora_rank, qdim), in_axis=0, n=n)
+    else:
+        p["wq"] = init.dense((d, qdim), n=n)
+    return p
+
+
 def _attn_p(init: _Init, n=0):
     cfg = init.cfg
+    if cfg.mla is not None:
+        return _mla_p(init, n)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": init.dense((d, h * dh), n=n),
@@ -91,6 +132,27 @@ def _mlp_p(init: _Init, n=0):
          "wo": init.dense((f, d), n=n)}
     if cfg.act in ("swiglu", "geglu"):
         p["wi_gate"] = init.dense((d, f), n=n)
+    return p
+
+
+def _moe_p(init: _Init, n):
+    cfg = init.cfg
+    e, d = cfg.moe, cfg.d_model
+    p = {
+        "router": init.dense((d, e.n_routed), n=n, dtype=torch.float32),
+        "experts": {
+            "wi_gate": init.experts((e.n_routed, d, e.d_ff_expert), n),
+            "wi_up": init.experts((e.n_routed, d, e.d_ff_expert), n),
+            "wo": init.experts((e.n_routed, e.d_ff_expert, d), n),
+        },
+    }
+    if e.aux_free_bias:
+        p["router_bias"] = init.zeros((e.n_routed,), n, dtype=torch.float32)
+    if e.n_shared:
+        fs = e.d_ff_expert * e.n_shared
+        p["shared"] = {"wi_gate": init.dense((d, fs), n=n),
+                       "wi_up": init.dense((d, fs), n=n),
+                       "wo": init.dense((fs, d), n=n)}
     return p
 
 
@@ -139,9 +201,13 @@ def _rglru_p(init: _Init, n=0):
     }
 
 
-def _attn_layer_p(init: _Init, n=0):
-    return {"attn": _attn_p(init, n), "ln1": _norm_p(init, n),
-            "ln2": _norm_p(init, n), "mlp": _mlp_p(init, n)}
+def _attn_layer_p(init: _Init, n=0, moe_layer: bool = False):
+    p = {"attn": _attn_p(init, n), "ln1": _norm_p(init, n), "ln2": _norm_p(init, n)}
+    if moe_layer:
+        p["moe"] = _moe_p(init, n)
+    else:
+        p["mlp"] = _mlp_p(init, n)
+    return p
 
 
 def _rec_layer_p(init: _Init, n=0):
@@ -156,7 +222,10 @@ def init_params(cfg: ArchConfig, *, device=None,
     """Random parameters on ``device`` (CUDA when None): the reference's
     tree, drawn like `common.dense_init` from ``generator`` (a
     ``torch.Generator`` on that device; seed 0 when None). rwkv6 has one
-    stack ``layers``; the hybrid two, ``attn_layers`` and ``rec_layers``."""
+    stack ``layers``; the hybrid two, ``attn_layers`` and ``rec_layers``;
+    DeepSeek ``dense_layers`` (its first ``first_k_dense``), ``moe_layers``
+    and, with ``mtp_depth``, ``mtp``. Expert stacks are drawn one (layer,
+    expert) matrix at a time."""
     require_in_slice(cfg)
     dev = resolve_device(device)
     if generator is None:
@@ -168,7 +237,12 @@ def init_params(cfg: ArchConfig, *, device=None,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = init.dense((cfg.d_model, cfg.vocab))
-    if cfg.recurrent == "rwkv6":
+    if cfg.mla is not None:  # DeepSeek
+        fk = cfg.moe.first_k_dense
+        if fk:
+            p["dense_layers"] = _attn_layer_p(init, fk)
+        p["moe_layers"] = _attn_layer_p(init, cfg.n_layers - fk, moe_layer=True)
+    elif cfg.recurrent == "rwkv6":
         p["layers"] = _rec_layer_p(init, cfg.n_layers)
     elif cfg.pattern_period > 1:  # hybrid
         n_attn = cfg.layer_kinds().count("attn")
@@ -176,6 +250,10 @@ def init_params(cfg: ArchConfig, *, device=None,
         p["rec_layers"] = _rec_layer_p(init, cfg.n_layers - n_attn)
     else:
         p["layers"] = _attn_layer_p(init, cfg.n_layers)
+    if cfg.mtp_depth:
+        p["mtp"] = {"layer": _attn_layer_p(init),
+                    "proj": init.dense((2 * cfg.d_model, cfg.d_model)),
+                    "norm": _norm_p(init)}
     return p
 
 
@@ -233,10 +311,34 @@ def kind_layers(cfg: ArchConfig):
         index[kind] += 1
 
 
+def deepseek_layers(cfg: ArchConfig, params: Params):
+    """Each layer's parameters, in order, of a model with a dense-FFN
+    prefix stack and a MoE stack (DeepSeek)."""
+    fk = cfg.moe.first_k_dense
+    for i in range(fk):
+        yield layer_params(params["dense_layers"], i)
+    for i in range(cfg.n_layers - fk):
+        yield layer_params(params["moe_layers"], i)
+
+
+def ffn(cfg: ArchConfig, lp: dict, x):
+    """A layer's FFN on its normed input: the MoE layer's (y, aux loss), or
+    the MLP's (y, None)."""
+    if "moe" in lp:
+        return moe_mod.moe_ffn(cfg, lp["moe"], x)
+    return mlp(x, lp["mlp"], cfg.act), None
+
+
 def _attn_block(cfg: ArchConfig, lp: dict, x, *, window: int):
+    """One attention layer (GQA, or MLA) and its FFN: (x, aux loss or
+    None)."""
     nf = lambda y, pp: norm(y, pp, cfg.norm, cfg.norm_eps)
-    x = x + attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), window=window)
-    return x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+    if cfg.mla is not None:
+        x = x + attn.mla_train(cfg, lp["attn"], nf(x, lp["ln1"]))
+    else:
+        x = x + attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), window=window)
+    h, laux = ffn(cfg, lp, nf(x, lp["ln2"]))
+    return x + h, laux
 
 
 def _rec_block(cfg: ArchConfig, lp: dict, x, state=None):
@@ -257,8 +359,8 @@ def _hybrid_forward(cfg: ArchConfig, params: Params, x):
     each kind takes the next slice of that kind's stack."""
     for kind, i in kind_layers(cfg):
         if kind == "attn":
-            x = _attn_block(cfg, layer_params(params["attn_layers"], i), x,
-                            window=cfg.local_window)
+            x, _ = _attn_block(cfg, layer_params(params["attn_layers"], i), x,
+                               window=cfg.local_window)
         else:
             x, _ = _rec_block(cfg, layer_params(params["rec_layers"], i), x)
     return x
@@ -266,19 +368,26 @@ def _hybrid_forward(cfg: ArchConfig, params: Params, x):
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor):
     """Full-sequence forward: tokens [B, S] -> (logits [B, S, V], aux
-    loss). None of the ported families has an auxiliary loss, so aux is 0."""
+    loss). The aux loss is the MoE layers' load-balance loss summed (0 with
+    DeepSeek-v3's aux-free bias, and in every other family)."""
     require_in_slice(cfg)
     x = embed_tokens(cfg, params, tokens)
-    if cfg.recurrent == "rwkv6":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.mla is not None:  # DeepSeek
+        for lp in deepseek_layers(cfg, params):
+            x, laux = _attn_block(cfg, lp, x, window=0)
+            if laux is not None:
+                aux = aux + laux
+    elif cfg.recurrent == "rwkv6":
         for i in range(cfg.n_layers):
             x, _ = _rec_block(cfg, layer_params(params["layers"], i), x)
     elif cfg.pattern_period > 1:
         x = _hybrid_forward(cfg, params, x)
     else:
         for i in range(cfg.n_layers):
-            x = _attn_block(cfg, layer_params(params["layers"], i), x,
-                            window=cfg.sliding_window)
+            x, _ = _attn_block(cfg, layer_params(params["layers"], i), x,
+                               window=cfg.sliding_window)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = unembed(x, params.get("lm_head", params["embed"]),
                      tied="lm_head" not in params)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux

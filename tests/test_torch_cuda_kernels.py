@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (paged attention, prefill flash
-attention, the RG-LRU and RWKV6 scans) against their plain PyTorch
-versions, on the card. Marked
+attention, the RG-LRU and RWKV6 scans, the MoE top-k router, the FTL
+lookup) against their plain PyTorch versions, on the card. Marked
 ``cuda``: they skip where there is no CUDA device, and import neither JAX
 nor `repro`, so the card's machine runs them as they are:
 
@@ -13,11 +13,17 @@ length 0. Flash attention: the sweep of tests/test_kernels.py under its
 three masks, head_dim 80 and 16, ragged lengths and rows with no valid
 key. Scans: the sweeps of tests/test_kernels.py, ragged lengths, initial
 states (h0, s0) and the final WKV state, at the widths of
-recurrentgemma-9b and rwkv6-3b."""
+recurrentgemma-9b and rwkv6-3b. Router: the sweep of tests/test_kernels.py
+with and without bias, DeepSeek-v2's and -v3's shapes in prefill and
+decode, and rows with exact ties (indices exact, weights within 1e-6).
+FTL: the sweep of tests/test_kernels.py, PPNs past fp32's integers and
+out-of-range LPNs (exact)."""
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ftl_lookup as ftl
+from repro_torch.kernels import moe_router as mr
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
@@ -305,3 +311,130 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(dev):
         wkv.rwkv6_wkv(z, z, z, z, torch.zeros((2, 48), device=dev))
     with pytest.raises(ValueError, match="limits"):                 # K != V
         wkv.rwkv6_wkv(r, k, v[..., :32].contiguous(), w, u)
+
+
+# ---------------------------------------------------------------- router
+# (t, e, k): the sweep of tests/test_kernels.py, DeepSeek-v2's (160, 6)
+# and -v3's (256, 8) experts at a decode step's 4 tokens, a prefill's 4096
+# and a ragged 1000, one scores row of 1024 (the kernel's limit) and E = 8
+# (the smoke configs)
+ROUTER_SHAPES = {
+    "sweep0": (256, 128, 6), "sweep1": (512, 256, 8), "sweep2": (128, 160, 2),
+    "v2-decode": (4, 160, 6), "v2-prefill": (4096, 160, 6), "v2-ragged": (1000, 160, 6),
+    "v3-decode": (4, 256, 8), "v3-prefill": (4096, 256, 8), "v3-ragged": (1000, 256, 8),
+    "e1024-k16": (37, 1024, 16), "smoke-e8": (24, 8, 2),
+}
+
+
+def _router_inputs(shape, bias, seed, dev, ties=False):
+    t, e, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    if ties:    # four values per row, so every row has exact ties
+        scores = torch.randint(0, 4, (t, e), generator=g).float() / 8
+    else:
+        scores = torch.softmax(torch.randn((t, e), generator=g), -1)
+    b = torch.randn((e,), generator=g) * 0.1 if bias else None
+    return scores.to(dev), None if b is None else b.to(dev)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("name", list(ROUTER_SHAPES))
+def test_router_kernel_matches_plain(dev, name, bias, ties):
+    shape = ROUTER_SHAPES[name]
+    scores, b = _router_inputs(shape, bias, seed=len(name), dev=dev, ties=ties)
+    before = mr.topk_router.launches
+    w, idx = mr.topk_router(scores, shape[2], bias=b)
+    torch.cuda.synchronize()
+    assert mr.topk_router.launches == before + 1
+    want_w, want_idx = ref.topk_router(scores, shape[2], bias=b)
+    assert w.dtype == torch.float32 and idx.dtype == torch.int32
+    assert torch.equal(idx, want_idx)
+    torch.testing.assert_close(w, want_w, atol=1e-6, rtol=0)
+
+
+def test_router_dispatcher_launches_for_cuda_tensors(dev):
+    scores, b = _router_inputs(ROUTER_SHAPES["v3-decode"], True, 1, dev)
+    before = mr.topk_router.launches
+    ops.topk_router(scores, 8, bias=b)
+    assert mr.topk_router.launches == before + 1
+
+
+def test_router_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    scores, b = _router_inputs(ROUTER_SHAPES["v2-decode"], True, 2, dev)
+    with pytest.raises(ValueError):
+        mr.topk_router(scores.bfloat16(), 6)                        # dtype
+    with pytest.raises(ValueError):
+        mr.topk_router(scores, 6, bias=b[:8])                       # bias shape
+    with pytest.raises(ValueError):
+        mr.topk_router(scores, 6, bias=b.cpu())                     # device
+    with pytest.raises(ValueError):
+        mr.topk_router(scores.t().contiguous().t(), 6)              # layout
+    with pytest.raises(ValueError, match="limits"):                 # k > 16
+        mr.topk_router(scores, 17)
+    with pytest.raises(ValueError, match="limits"):                 # E > 1024
+        mr.topk_router(torch.rand((2, 1025), device=dev), 4)
+
+
+# ---------------------------------------------------------------- ftl
+# (n_seg, n_slots, entries, n): the sweep of tests/test_kernels.py, then a
+# 4 TB SSD's 1862-segment directory over narrower pages, and a ragged n
+FTL_SHAPES = {
+    "sweep0": (64, 16, 128, 512), "sweep1": (128, 32, 256, 1024),
+    "sweep2": (16, 4, 512, 256), "segments-full": (1862, 931, 512, 100_003),
+}
+
+
+def _ftl_inputs(shape, seed, dev, ppn_max=1 << 20):
+    n_seg, n_slots, entries, n = shape
+    g = torch.Generator().manual_seed(seed)
+    slots = torch.randint(0, n_slots, (n_seg,), generator=g)
+    directory = torch.where(torch.rand((n_seg,), generator=g) < 0.6, slots, -1)
+    cache = torch.randint(0, ppn_max, (n_slots, entries), generator=g)
+    lpns = torch.randint(0, n_seg * entries, (n,), generator=g)
+    return [t.to(torch.int32).to(dev) for t in (lpns, directory, cache)]
+
+
+@pytest.mark.parametrize("ppn_max", [1 << 20, (1 << 31) - 1], ids=["small", "int31"])
+@pytest.mark.parametrize("name", list(FTL_SHAPES))
+def test_ftl_kernel_matches_plain(dev, name, ppn_max):
+    lpns, directory, cache = _ftl_inputs(FTL_SHAPES[name], len(name), dev, ppn_max)
+    entries = cache.shape[1]
+    before = ftl.ftl_lookup.launches
+    ppn, hit = ftl.ftl_lookup(lpns, directory, cache, entries)
+    torch.cuda.synchronize()
+    assert ftl.ftl_lookup.launches == before + 1
+    want_ppn, want_hit = ref.ftl_lookup(lpns, directory, cache, entries)
+    assert ppn.dtype == torch.int32 and hit.dtype == torch.bool
+    assert torch.equal(ppn, want_ppn) and torch.equal(hit, want_hit)
+
+
+def test_ftl_kernel_out_of_range_lpns_match_plain(dev):
+    directory = torch.tensor([2, 0, -1, 1, 5, 2, -7], dtype=torch.int32, device=dev)
+    cache = torch.randint(0, 1 << 30, (3, 8), dtype=torch.int32, device=dev)
+    lpns = torch.tensor([-100, -57, -56, -9, -1, 0, 5, 15, 31, 39, 55, 56, 57,
+                         1000, 2**31 - 1, -2**31], dtype=torch.int32, device=dev)
+    got = ftl.ftl_lookup(lpns, directory, cache, 8)
+    want = ref.ftl_lookup(lpns, directory, cache, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ftl_dispatcher_launches_for_cuda_tensors(dev):
+    args = _ftl_inputs(FTL_SHAPES["sweep0"], 1, dev)
+    before = ftl.ftl_lookup.launches
+    ops.ftl_lookup(*args, args[2].shape[1])
+    assert ftl.ftl_lookup.launches == before + 1
+
+
+def test_ftl_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    lpns, directory, cache = _ftl_inputs(FTL_SHAPES["sweep0"], 2, dev)
+    with pytest.raises(ValueError, match="entries_per_segment"):
+        ftl.ftl_lookup(lpns, directory, cache, 64)                  # entries
+    with pytest.raises(ValueError):
+        ftl.ftl_lookup(lpns.long(), directory, cache, 128)          # dtype
+    with pytest.raises(ValueError):
+        ftl.ftl_lookup(lpns, directory.cpu(), cache, 128)           # device
+    with pytest.raises(ValueError):
+        ftl.ftl_lookup(lpns, directory, cache.t().contiguous().t(), 128)  # layout
+    with pytest.raises(ValueError, match="limits"):                 # empty directory
+        ftl.ftl_lookup(lpns, directory[:0], cache, 128)

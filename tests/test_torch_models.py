@@ -29,9 +29,11 @@ from repro_torch.models.config import ArchConfig, MLAConfig, MoEConfig
 jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["qwen3-14b", "granite-8b", "internlm2-20b", "h2o-danube-1.8b"]
-# rwkv6 and recurrentgemma: tests/test_torch_recurrent_models.py
+# rwkv6 and recurrentgemma: tests/test_torch_recurrent_models.py; the
+# DeepSeek pair: tests/test_torch_moe_models.py
 LATER = [a for a in jconfigs.ARCH_NAMES
-         if a not in DENSE + ["rwkv6-3b", "recurrentgemma-9b"]]
+         if a not in DENSE + ["rwkv6-3b", "recurrentgemma-9b",
+                              "deepseek-v2-236b", "deepseek-v3-671b"]]
 TOL = 1e-4
 # the narrow head_dim-128 config on which the JAX prefill reaches the
 # Pallas flash kernel (prompt >= 128 and head_dim % 128 == 0)

@@ -13,7 +13,9 @@ nvcc per source, all at once), then:
    and the flash-attention kernel (fp32, bf16) against its plain version
    on the sweep of tests/test_kernels.py under its three masks, head_dim
    80 and 16, a ragged non-causal length, queries offset against a longer
-   key sequence, and rows with no valid key; and the RG-LRU and RWKV6 scan
+   key sequence, rows with no valid key, and the edges of the bf16
+   kernel's tiles (S and T off the tile sizes, S = 1, head dims 32 to 256,
+   windows with S < T); and the RG-LRU and RWKV6 scan
    kernels (fp32, bf16) against theirs on the sweeps of
    tests/test_kernels.py, a ragged length, and an initial state (h0; s0
    with the final state); and the MoE top-k router kernel against its
@@ -59,12 +61,17 @@ nvcc per source, all at once), then:
    plain version, one PyTorch library call computing the same function
    where there is one, and the least time the card could take (bytes over
    the memory rate or operations over the peak rate of their type,
-   whichever is larger);
+   whichever is larger); the flash rows also carry the achieved TFLOP/s
+   and the share of the bound reached (`of_bound`, bound / time);
 5. checks the engine, and five narrow fp32 models (a dense one,
    recurrentgemma-smoke and rwkv6-smoke with a prompt of 128,
    deepseek-v2-smoke and deepseek-v3-smoke with a prompt of 1040, whose
    2080 tokens take the MoE's sorted dispatch; 8 decode steps), on the GPU
    against the same code on the CPU (the plain path).
+
+The `build` line also carries nvcc's registers and spills of each flash
+instantiation and the count of HGMMA (wgmma) instructions in the flash
+library's SASS (cuobjdump); a count of 0 fails the run.
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
 `flash_checks`, `scan_checks`, `router_checks`, `ftl`, `engine`, `model`,
@@ -79,6 +86,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -156,7 +164,18 @@ FLASH_SHAPES = [(b, s, s, h, kv, d, c, w) for b, s, h, kv, d in FLASH_SWEEP
                 for c, w in ((True, 0), (True, 128), (False, 0))] + [
     (2, 256, 256, 32, 8, 80, True, 0), (1, 300, 300, 32, 8, 80, True, 96),
     (3, 70, 70, 4, 2, 16, True, 0), (1, 200, 200, 4, 2, 128, False, 0),
-    (2, 64, 256, 8, 2, 128, True, 0), (1, 256, 64, 4, 2, 128, True, 0)]
+    (2, 64, 256, 8, 2, 128, True, 0), (1, 256, 64, 4, 2, 128, True, 0)] + [
+    # the edges of the bf16 wgmma kernel's tiles (128 query rows, 128 or 80
+    # keys, boxes of 16, 32 or 64 columns): ragged S and T, S = 1, head
+    # dims 32, 64 and 96, recurrentgemma-9b's layout cut down (16 heads,
+    # one KV head, head_dim 256, window 128), head_dim 80 with S < T
+    (1, 129, 191, 4, 2, 128, True, 0), (2, 191, 129, 4, 2, 64, False, 0),
+    (1, 1, 77, 4, 2, 96, True, 0), (2, 1, 300, 8, 1, 256, True, 128),
+    (1, 300, 300, 4, 2, 32, True, 64), (2, 256, 256, 8, 8, 64, True, 0),
+    (1, 200, 200, 6, 3, 96, False, 0), (1, 300, 300, 16, 1, 256, True, 128),
+    (1, 200, 300, 32, 8, 80, True, 96),
+    # more work items than SMs: each persistent block walks several
+    (2, 1100, 1100, 16, 4, 64, True, 0), (1, 650, 650, 48, 2, 256, True, 200)]
 # the narrow fp32 config of gpu_vs_cpu_model: head_dim 128 with a prompt
 # of 128, the shape at which the JAX prefill reaches its Pallas kernel
 NARROW = dict(name="narrow-d128", family="dense", n_layers=2, d_model=256,
@@ -281,6 +300,34 @@ def work(args, kw):
               + table_reads * 4 + lengths.numel() * 4)
     flops = 4 * h * d * tokens + mean_rows * kv * d * mp * page
     return nbytes, flops
+
+
+def flash_ptxas(log: str) -> list[dict]:
+    """Registers and spills of each kernel instantiation in nvcc's report
+    on csrc/flash_attention.cu: `hopper_kernel<D, CHUNK, BN>` (bf16) and
+    `simt_kernel<D>` (fp32)."""
+    rows, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(hopper_kernel|simt_kernel)I(\w*?)EEEv", ln)
+        if m:
+            name = f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2) + 'E'))}>"
+            rows.append({"kernel": name})
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            rows[-1].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            name = None
+    return rows
+
+
+def hgmma_count(build) -> int:
+    """HGMMA (wgmma) instructions in the built flash library's SASS, by
+    the toolkit's cuobjdump beside nvcc."""
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    return sum("HGMMA" in ln for ln in sass.splitlines())
 
 
 def flash_inputs(shape, dtype, seed, dev):
@@ -763,6 +810,8 @@ def flash_row(name, form, q, k, v, causal, window, launches, flush, checks,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
         "peak_flops": peak,
+        # achieved rate and the share of the bound this run reached
+        "tflops": flops / ms / 1e9, "of_bound": max(t_bytes, t_ops) / ms,
         "library_ms": library_ms, "library_call": library_call,
         "library_max_abs_err": lib_err,
         **extra,
@@ -972,9 +1021,18 @@ def main() -> None:
     _build.build()
     ptxas = [ln.strip() for log in _build.LOG.values() for ln in log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
+    hgmma = hgmma_count(_build)
+    serialized = sum("wgmma.mma_async instructions are serialized" in ln
+                     for ln in _build.LOG.get("flash_attention", "").splitlines())
     print(json.dumps({"build": {"seconds": round(time.perf_counter() - t0, 3),
-                                "sources": list(_build.SOURCES), "ptxas": ptxas}}),
+                                "sources": list(_build.SOURCES), "ptxas": ptxas,
+                                "flash_ptxas": flash_ptxas(_build.LOG.get("flash_attention", "")),
+                                "flash_hgmma": hgmma,
+                                "flash_wgmma_serialized_reports": serialized}}),
           flush=True)
+    if hgmma == 0:
+        fail("the flash library holds no HGMMA instruction: its bf16 kernel is "
+             "not on the tensor cores")
 
     # ---- 1. every kernel form against its plain version, both widths
     checks = []

@@ -17,74 +17,90 @@
 // kernel's `p.astype(v.dtype)`), while the denominator sums them in fp32;
 // out = acc / max(l, 1e-30).
 //
-// What bounds it on the card: at the main path's shapes (qwen3-14b
-// prefill, S = T = 2048, D = 128) it does about 2 * D flops per (q, k)
-// pair and head twice over, some 850 flops per byte it must move, far
-// above the H100's ~295 flops per byte of bf16 balance: it is bound by
-// tensor-core flops. This first kernel does its math in fp32 on the CUDA
-// cores (no mma.sync / wgmma, TMA or warp specialisation yet: later
-// work), so it runs well below that bound.
+// What bounds it on the card: at the model zoo's prefill shapes (S = T =
+// 2048 and more, D 80 to 256) it does 4 * D flops per unmasked (query,
+// key) pair and head, some 850 flops per byte it must move, far above the
+// H100's ~295 flops per byte of bf16 balance: it is bound by tensor-core
+// flops (989 TFLOP/s bf16).
 //
-// Design (simple and right first): one block of 128 threads per
-// (batch, query head, tile of BQ = 64 query rows). The TPU grid's
-// sequential key axis, which carried m / l / acc in VMEM scratch, becomes
-// a loop inside the block over key tiles of BK = 64. Each iteration stages
-// the tile's K (transposed) and V rows of the block's KV head in shared
-// memory as fp32, computes the 64 x 64 scores with each thread owning a
-// 4 x 8 register tile (rows 4 * ty + i, columns tx + 8 * j), updates the
-// online softmax with row reductions over the 8 threads of a row group
-// (warp shuffles), writes the weights over the K tile, and accumulates
-// P.V with each thread owning 4 rows x D / 8 columns (tx + 8 * j) of the
-// output in registers. Ragged edges are masked here, not padded: a key
-// column >= T gets weight exactly 0 (-inf score), a query row >= S is
-// computed but never stored. Key tiles wholly outside every row's causal
-// band or window are skipped, which is exact for rows that have a valid
-// key (their masked terms are exp(NEG_INF - m) = 0); a tile holding a row
-// with no valid key walks every key tile, so that row gets the plain
-// version's uniform average.
+// bf16: FlashAttention-3's forward pass on wgmma and TMA. A work item is
+// (batch, query head, tile of kBM = 128 query rows); items run from the
+// last query tile (the longest under a causal mask) to the first, and a
+// persistent grid of one 384-thread block per SM walks them in rounds,
+// so one item's epilogue overlaps the next one's loads.
+// - Warpgroup 0 is the producer. It gives up its registers (setmaxnreg
+//   24) and one thread issues the TMA loads: an item's Q once the
+//   consumers' last S = Q.K^T of the previous item is done, then K and V
+//   of its KV head tile by tile into a ring of kStages = 2 stages, each
+//   with full barriers for K and V and empty barriers the consumers
+//   release. Tiles stay bf16 in shared memory, in the swizzle the wgmma
+//   descriptors name: the D axis is cut into boxes of CHUNK columns (64
+//   with a 128-byte swizzle for D = 64, 128, 256; 32 with a 64-byte
+//   swizzle for D = 32, 96; 16 with a 32-byte swizzle for D = 16 and 80,
+//   whose 160-byte rows span no whole 128-byte swizzle), stored box after
+//   box, so each 16-column K-step of Q.K^T reads inside one box.
+// - Warpgroups 1 and 2 are the consumers (setmaxnreg 240), 64 query rows
+//   each. S = Q.K^T is wgmma m64nBNk16 with both operands K-major in
+//   shared memory, fp32 accumulate. The masks apply only on tiles that
+//   cross T, the causal diagonal or the window's lower edge; the online
+//   softmax runs in registers (a row of the accumulator fragment lies on
+//   the 4 lanes of a quad: two shuffles), in base 2, with scale * log2(e)
+//   folded into the exponent of unmasked scores only, so a masked score
+//   stays exactly NEG_INF. P is rounded to bf16 in place: the S
+//   accumulator's fragment is the A-register fragment of the next
+//   product. O += P.V is one wgmma m64nDk16 per 16 keys with A = P from
+//   registers and B = V [keys, D] read MN-major (the transpose bit).
+//   FlashAttention-3's two overlaps: tile i's S and tile i - 1's P.V are
+//   in flight together and tile i's softmax runs while P.V does; and the
+//   two consumer warpgroups take turns to issue their products (named
+//   barriers), so one's softmax runs while the other's products keep the
+//   tensor cores busy.
+// Key tiles are BN = 128 keys for D <= 128; at D = 256, 80 keys, so that Q
+// (64 KB), two stages of K and V (160 KB) and the consumers' registers (O
+// 128, S 40, P 20 a thread) fit. No wgmma or wait sits under a condition
+// (the loop over key tiles is peeled), the roles come from a warp-uniform
+// shuffle, and the epilogue divides with a MUFU reciprocal (a division
+// calls a slow path): otherwise ptxas serializes every wgmma (its C7510 to
+// C7520 reports) and each product waits for the one before. A ragged edge costs no branch in the loads: TMA fills
+// rows past S or T with zeros; a key column >= T gets a -inf score
+// (weight exactly 0), a query row >= S is never stored. Key tiles wholly
+// outside every row's causal band or window are skipped, which is exact
+// for rows that have a valid key (their masked terms are exp(NEG_INF - m)
+// = 0); an item holding a row with no valid key walks every key tile, so
+// that row gets the plain version's uniform average. Inputs must start
+// on 16 bytes (TMA); rows are D * 2 bytes, a multiple of 16 for every
+// head dim taken.
+//
+// fp32: the first kernel, on the CUDA cores. One block of 128 threads per
+// (batch, query head, tile of 64 query rows); key tiles of 64 staged in
+// shared memory as fp32 (K transposed); each thread owns a 4 x 8 tile of
+// scores and 4 rows x D / 8 columns of the output. A tensor-core fp32
+// form would need TF32, which the fp32 checks do not allow.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr float kNegInf = -1e30f;
+// returned by the C entry for a shape beyond the kernel's limits
+constexpr int kErrShape = -1;
+
+// ====================================================================
+// fp32: the SIMT kernel
+// ====================================================================
+
 constexpr int kThreads = 128;
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per tile
 constexpr int kRows = 4;         // query rows per thread (16 row groups)
 constexpr int kCols = 8;         // threads per row group
 constexpr int kPad = kBQ + 1;    // padded stride of the transposed tiles
-// returned by the C entry for a shape beyond the kernel's limits
-constexpr int kErrShape = -1;
 
 static_assert(kBQ == kBK, "Q^T and K^T / P share one padded stride");
 static_assert((kThreads / kCols) * kRows == kBQ, "row groups cover the tile");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// the weight as the P.V product sees it: bf16-rounded for bf16 inputs
-template <typename T>
-__device__ __forceinline__ float weight(float p) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __bfloat162float(__float2bfloat16(p));
-  } else {
-    return p;
-  }
-}
 
 // rows of the region that holds K^T [D][kPad] and then P [kBQ][kPad]
 __host__ __device__ constexpr int kt_rows(int d) { return d > kBQ ? d : kBQ; }
@@ -100,13 +116,12 @@ __device__ __forceinline__ float group_sum(float x) {
   for (int o = 1; o < kCols; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       int S, int Tk, int H, int KV, int causal, int window,
-                       float scale) {
+simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ out,
+            int S, int Tk, int H, int KV, int causal, int window,
+            float scale) {
   constexpr int kDC = D / kCols;  // output columns per thread
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -124,14 +139,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_row = static_cast<size_t>(H) * D;
   const size_t k_row = static_cast<size_t>(KV) * D;
-  const T* qb = q + (static_cast<size_t>(b) * S) * q_row + static_cast<size_t>(h) * D;
-  const T* kb = k + (static_cast<size_t>(b) * Tk) * k_row + static_cast<size_t>(kvh) * D;
-  const T* vb = v + (static_cast<size_t>(b) * Tk) * k_row + static_cast<size_t>(kvh) * D;
+  const float* qb = q + (static_cast<size_t>(b) * S) * q_row + static_cast<size_t>(h) * D;
+  const float* kb = k + (static_cast<size_t>(b) * Tk) * k_row + static_cast<size_t>(kvh) * D;
+  const float* vb = v + (static_cast<size_t>(b) * Tk) * k_row + static_cast<size_t>(kvh) * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D;
     const int d = e - r * D;
-    qt[d * kPad + r] = q0 + r < S ? to_f32(qb[(q0 + r) * q_row + d]) : 0.f;
+    qt[d * kPad + r] = q0 + r < S ? qb[(q0 + r) * q_row + d] : 0.f;
   }
 
   // the key tiles this block walks
@@ -163,8 +178,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = e - c * D;
       const bool in = k0 + c < Tk;
       const size_t off = static_cast<size_t>(k0 + c) * k_row + d;
-      kt[d * kPad + c] = in ? to_f32(kb[off]) : 0.f;
-      vs[c * D + d] = in ? to_f32(vb[off]) : 0.f;
+      kt[d * kPad + c] = in ? kb[off] : 0.f;
+      vs[c * D + d] = in ? vb[off] : 0.f;
     }
     __syncthreads();
 
@@ -214,7 +229,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kCols; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        ps[r * kPad + tx + kCols * j] = weight<T>(p);
+        ps[r * kPad + tx + kCols * j] = p;
       }
       sum = group_sum(sum);
       l[i] = l[i] * alpha + sum;
@@ -238,7 +253,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + (static_cast<size_t>(b) * S) * q_row + static_cast<size_t>(h) * D;
+  float* ob = out + (static_cast<size_t>(b) * S) * q_row + static_cast<size_t>(h) * D;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = q0 + ty * kRows + i;
@@ -246,15 +261,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kDC; ++j) {
-      ob[static_cast<size_t>(r) * q_row + tx + kCols * j] = from_f32<T>(acc[i][j] / denom);
+      ob[static_cast<size_t>(r) * q_row + tx + kCols * j] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int Tk, int H, int KV, int causal, int window, float scale,
-           cudaStream_t stream) {
+template <int D>
+int launch_simt(const void* q, const void* k, const void* v, void* out, int B,
+                int S, int Tk, int H, int KV, int causal, int window, float scale,
+                cudaStream_t stream) {
   // Q^T and K^T (later P) at the padded stride, and V
   const size_t smem = sizeof(float) * (static_cast<size_t>(D + kt_rows(D)) * kPad +
                                        static_cast<size_t>(kBK) * D);
@@ -262,31 +277,770 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (smem > static_cast<size_t>(optin)) return kErrShape;
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = simt_kernel<D>;
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, Tk, H, KV, causal,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, Tk, H, KV, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int Tk, int H, int KV, int D, int causal, int window,
-               float scale, cudaStream_t s) {
+// ====================================================================
+// bf16: wgmma + TMA, warp-specialised
+// ====================================================================
+
+constexpr int kBM = 128;              // query rows per work item: two consumer warpgroups of 64
+constexpr int kStages = 2;            // depth of the K / V ring
+constexpr int kHopperThreads = 384;   // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 24;     // setmaxnreg: 128 * 24 + 256 * 240 <= 65536
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory layout of one block. Every tile is stored as D / CHUNK
+// boxes of [rows][CHUNK] bf16 (one TMA box each, swizzled by CHUNK * 2
+// bytes); each box starts on 1024 bytes.
+template <int D, int CHUNK, int BN>
+struct Tiles {
+  static_assert(D % CHUNK == 0 && (CHUNK == 16 || CHUNK == 32 || CHUNK == 64), "boxes");
+  static_assert(BN % 16 == 0 && BN <= 256, "key tile");
+  static constexpr int kNch = D / CHUNK;         // boxes along D
+  static constexpr int kRowBytes = CHUNK * 2;    // one row of a box: the swizzle span
+  static constexpr int kAtom = 8 * kRowBytes;    // 8 rows: one swizzle atom
+  static constexpr int kQBox = kBM * kRowBytes;  // one box of the Q tile
+  static constexpr int kKVBox = BN * kRowBytes;  // one box of a K or V tile
+  static constexpr int kQBytes = kNch * kQBox;
+  static constexpr int kKVBytes = kNch * kKVBox;
+  // alignment slack, Q, the K and V rings, 2 + 4 * kStages mbarriers
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (2 + 4 * kStages);
+  static_assert(kQBox % 1024 == 0 && kKVBox % 1024 == 0, "boxes start on 1024 bytes");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// arrive once and expect `bytes` of TMA transactions in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// wait for the phase of the given parity to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one TMA load of a box of a 4-d tensor map (coordinates innermost first);
+// rows past the tensor's end arrive as zeros
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from reading an accumulator before the wait above it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a wgmma operand: start address,
+// leading and stride byte offsets (16-byte units), and the swizzle of a
+// CHUNK-column box (1: 128 B, 2: 64 B, 3: 32 B).
+template <int CHUNK>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  constexpr uint64_t mode = CHUNK == 64 ? 1 : CHUNK == 32 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x in one MUFU op: -inf gives 0, and 0 (NEG_INF - NEG_INF) gives 1
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one key tile in base 2, for the accumulator
+// fragment's columns col (+ 8 * j, + 1) and its rows at key positions
+// pos0 (+ 8). With kMask a score becomes scale * log2(e) * s where valid,
+// NEG_INF where masked and -inf past T (weight exactly 0); without it
+// every score of the tile is valid and the scale folds into the exponent
+// (scale_log2 >= 0). Leaves the weights in s, the new row maxima in m,
+// this thread's share of the row sums in l, and the factor that rescales
+// the old O in alpha.
+template <bool kMask, int BN>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float scale_log2, int col,
+                                               int pos0, int Tk, int causal, int window) {
+  if constexpr (kMask) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float& x = s[4 * j + i];
+        const int c = col + 8 * j + (i & 1);
+        const int pos = pos0 + 8 * (i >> 1);
+        if (c >= Tk) {
+          x = -INFINITY;
+        } else if ((causal && c > pos) || (window > 0 && c <= pos - window)) {
+          x = kNegInf;
+        } else {
+          x *= scale_log2;
+        }
+      }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = s[2 * hr];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if constexpr (!kMask) mx *= scale_log2;
+    const float m_new = fmaxf(m[hr], mx);
+    // with kMask the exponent is x - m_new, else s * scale_log2 - m_new
+    const float mul = kMask ? 1.f : scale_log2;
+    alpha[hr] = ex2(m[hr] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * hr + e];
+        x = ex2(fmaf(x, mul, -m_new));
+        sum += x;
+      }
+    }
+    l[hr] = l[hr] * alpha[hr] + sum;
+    m[hr] = m_new;
+  }
+}
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 in, fp32 accumulate; a
+// thread holds N / 2 accumulators: (row 16 * warp + lane / 4 (+ 8), column
+// 8 * j + 2 * (lane % 4) (+ 1)) at d[4 * j (+ 2) (+ 1)].
+// _ss: A and B K-major in shared memory; scale_d = 0 overwrites D.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+// _rs: A from registers (the accumulator fragment of a previous product,
+// packed to bf16 pairs), B MN-major in shared memory; accumulates.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," 
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," 
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," 
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," 
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," 
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," 
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," 
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// S = Q.K^T for one key tile: D / 16 K-steps, each inside one box
+template <int D, int CHUNK, int BN>
+__device__ __forceinline__ void gemm_qk(float (&s)[BN / 2], uint32_t q_base, uint32_t k_base) {
+  using L = Tiles<D, CHUNK, BN>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t box = kk * 16 / CHUNK, in = (kk * 16 % CHUNK) * 2;
+    wgmma_ss<BN>(s, make_desc<CHUNK>(q_base + box * L::kQBox + in, 16, L::kAtom),
+                 make_desc<CHUNK>(k_base + box * L::kKVBox + in, 16, L::kAtom), kk > 0);
+  }
+}
+
+// O += P.V for one key tile: one wgmma across all of D per 16 keys. V
+// [keys][D] is the MN-major B operand: the stride byte offset steps 8
+// keys inside a box, the leading byte offset from one box of D to the next.
+template <int D, int CHUNK, int BN>
+__device__ __forceinline__ void gemm_pv(float (&o)[D / 2], const uint32_t (&p)[BN / 4],
+                                        uint32_t v_base) {
+  using L = Tiles<D, CHUNK, BN>;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    wgmma_rs<D>(o, a, make_desc<CHUNK>(v_base + kk * 16 * L::kRowBytes, L::kKVBox, L::kAtom));
+  }
+}
+
+// named barriers of the consumer warpgroups' turns (0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One query tile of the grid's work: its rows, head, batch and the key
+// tiles it walks. Work items go from the last query tile (the longest
+// under a causal mask) to the first, over all heads and batches, a KV
+// head's query heads side by side.
+struct Work {
+  int q0, h, b, t_lo, n_tiles;
+};
+
+// The block's next work item after w: rounds of gridDim.x items, taken in
+// block order in even rounds and in reverse in odd ones, so that a block
+// that draws the longer item of one round draws the shorter of the next.
+__device__ __forceinline__ int next_work(int w) {
+  const int round = w / gridDim.x;
+  const int bid = round & 1 ? gridDim.x - 1 - w % gridDim.x : w % gridDim.x;
+  const int next = round + 1;
+  return next * gridDim.x + (next & 1 ? gridDim.x - 1 - bid : bid);
+}
+
+template <int BN>
+__device__ __forceinline__ Work work_item(int w, int B, int S, int Tk, int H, int causal,
+                                          int window) {
+  Work t;
+  const int bh = w % (H * B);
+  t.q0 = ((S + kBM - 1) / kBM - 1 - w / (H * B)) * kBM;
+  t.h = bh % H;
+  t.b = bh / H;
+  // skip key tiles wholly outside every row's causal band or window,
+  // unless a row has no valid key (it averages V over all T keys)
+  const int offset = Tk - S;
+  const int pos_first = t.q0 + offset;
+  const int pos_last = min(t.q0 + kBM, S) - 1 + offset;
+  int k_lo = 0, k_hi = Tk - 1;
+  if (causal && pos_first >= 0) {
+    k_hi = min(Tk - 1, pos_last);
+    if (window > 0) k_lo = max(0, pos_first - window + 1);
+  }
+  t.t_lo = k_lo / BN;
+  t.n_tiles = k_hi / BN - t.t_lo + 1;
+  return t;
+}
+
+template <int D, int CHUNK, int BN>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+hopper_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int B,
+              int S, int Tk, int H, int KV, int causal, int window, float scale_log2) {
+  using L = Tiles<D, CHUNK, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = qs + L::kQBytes;                 // kStages K tiles
+  uint8_t* vs = ks + kStages * L::kKVBytes;      // kStages V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * L::kKVBytes);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+  const int tid = threadIdx.x;
+  const int n_work = (S + kBM - 1) / kBM * H * B;
+  const int offset = Tk - S;                      // key position of query row 0
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);                      // every consumer thread
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 256);
+      mbar_init(&v_empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role, known to the compiler to be the same across a
+  // warp (a role taken from a divergent branch would make ptxas serialize
+  // every wgmma)
+  const int wg_index = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg_index == 0) {
+    // ---- producer warpgroup: one thread issues every TMA load. The K / V
+    // ring runs on across the block's work items, and the next item's Q
+    // loads as soon as the consumers' last S = Q.K^T of this one is done.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      int g = 0;                                  // K / V tiles loaded so far
+      int n = 0;                                  // work items so far
+      for (int w = blockIdx.x; w < n_work; w = next_work(w), ++n) {
+        const Work t = work_item<BN>(w, B, S, Tk, H, causal, window);
+        const int kvh = t.h / (H / KV);
+        mbar_wait(q_empty, (n & 1) ^ 1);          // the first round passes
+        mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+        for (int c = 0; c < L::kNch; ++c) {
+          tma_load(qs + c * L::kQBox, &qmap, q_full, c * CHUNK, t.h, t.q0, t.b);
+        }
+        for (int it = 0; it < t.n_tiles; ++it, ++g) {
+          const int st = g % kStages;
+          const uint32_t parity = ((g / kStages) & 1) ^ 1;
+          const int k0 = (t.t_lo + it) * BN;
+          mbar_wait(&k_empty[st], parity);
+          mbar_expect_tx(&k_full[st], L::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < L::kNch; ++c) {
+            tma_load(ks + st * L::kKVBytes + c * L::kKVBox, &kmap, &k_full[st], c * CHUNK,
+                     kvh, k0, t.b);
+          }
+          mbar_wait(&v_empty[st], parity);
+          mbar_expect_tx(&v_full[st], L::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < L::kNch; ++c) {
+            tma_load(vs + st * L::kKVBytes + c * L::kKVBox, &vmap, &v_full[st], c * CHUNK,
+                     kvh, k0, t.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups 1 and 2: 64 query rows each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = wg_index - 1;
+  const int lane = tid % 32;
+  const int row0 = 64 * wg + 16 * ((tid / 32) % 4) + lane / 4;  // rows row0 and row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_base = smem_u32(qs) + wg * 64 * L::kRowBytes;
+  float o[D / 2];
+  float m[2], l[2];                               // l: this thread's columns only
+  float s[BN / 2];                                // scores, then logits, then weights
+  uint32_t p[BN / 4];                             // weights in bf16: P.V's A fragment
+
+  int g = 0;                                      // K / V tiles consumed so far
+  int n = 0;                                      // work items so far
+  for (int w = blockIdx.x; w < n_work; w = next_work(w), ++n) {
+    const Work t = work_item<BN>(w, B, S, Tk, H, causal, window);
+    const int pos0 = t.q0 + row0 + offset;        // key position of row row0
+    // key positions of the warpgroup's first and last row below S
+    const int wg_first = t.q0 + 64 * wg + offset;
+    const int wg_last = min(t.q0 + 64 * wg + 64, S) - 1 + offset;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+
+    // masks only on a tile that crosses T, the diagonal or the window's
+    // lower edge (or under a negative scale, which the folded form does
+    // not take); the weights stay in s
+    auto softmax = [&](int it, float (&alpha)[2]) {
+      const int k0 = (t.t_lo + it) * BN;
+      if (k0 + BN > Tk || (causal && k0 + BN - 1 > wg_first) ||
+          (window > 0 && k0 <= wg_last - window) || scale_log2 < 0.f) {
+        online_softmax<true, BN>(s, m, l, alpha, scale_log2, k0 + col0, pos0, Tk, causal,
+                                 window);
+      } else {
+        online_softmax<false, BN>(s, m, l, alpha, scale_log2, k0 + col0, pos0, Tk, causal,
+                                  window);
+      }
+    };
+    // the weights to bf16 in place: the S accumulator's fragment is the A
+    // fragment of P.V (key step j / 2 takes {(r, k), (r + 8, k), (r, k + 8),
+    // (r + 8, k + 8)})
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          p[2 * j + hr] = pack_bf16(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]);
+        }
+      }
+    };
+
+    // The tile loop is peeled so that no wgmma or wait sits under a
+    // condition: ptxas serializes every wgmma when it cannot prove that a
+    // read of an accumulator comes after the wait that covers it. The two
+    // warpgroups take turns to issue their products (named barriers 1 and
+    // 2), so that one's softmax runs while the other's products keep the
+    // tensor cores busy; warpgroup 0 takes the first turn of each item.
+    mbar_wait(q_full, n & 1);
+    mbar_wait(&k_full[g % kStages], (g / kStages) & 1);
+    if (wg == 1) named_arrive(1, 256);
+    named_sync(1 + wg, 256);
+    wgmma_fence();
+    gemm_qk<D, CHUNK, BN>(s, q_base, smem_u32(ks + (g % kStages) * L::kKVBytes));
+    wgmma_commit();
+    named_arrive(2 - wg, 256);
+    wgmma_wait<0>();
+    fence_regs<BN / 2>(s);
+    mbar_arrive(&k_empty[g % kStages]);
+    if (t.n_tiles == 1) mbar_arrive(q_empty);     // the last S of this item
+    {
+      float alpha[2];
+      softmax(0, alpha);
+      pack();
+    }
+    for (int it = 1; it < t.n_tiles; ++it) {
+      // S of tile it and P.V of tile it - 1 in flight together; the
+      // softmax of tile it runs while P.V still does
+      const int st = (g + it) % kStages;
+      const int pst = (g + it - 1) % kStages;
+      mbar_wait(&k_full[st], ((g + it) / kStages) & 1);
+      mbar_wait(&v_full[pst], ((g + it - 1) / kStages) & 1);
+      named_sync(1 + wg, 256);
+      wgmma_fence();
+      gemm_qk<D, CHUNK, BN>(s, q_base, smem_u32(ks + st * L::kKVBytes));
+      wgmma_commit();
+      gemm_pv<D, CHUNK, BN>(o, p, smem_u32(vs + pst * L::kKVBytes));
+      wgmma_commit();
+      named_arrive(2 - wg, 256);
+      wgmma_wait<1>();
+      fence_regs<BN / 2>(s);
+      mbar_arrive(&k_empty[st]);
+      if (it == t.n_tiles - 1) mbar_arrive(q_empty);
+      float alpha[2];
+      softmax(it, alpha);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(o);
+      mbar_arrive(&v_empty[pst]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      pack();
+    }
+    const int last = (g + t.n_tiles - 1) % kStages;
+    mbar_wait(&v_full[last], ((g + t.n_tiles - 1) / kStages) & 1);
+    named_sync(1 + wg, 256);
+    wgmma_fence();
+    gemm_pv<D, CHUNK, BN>(o, p, smem_u32(vs + last * L::kKVBytes));
+    wgmma_commit();
+    if (wg == 0) named_arrive(2, 256);            // warpgroup 1's last turn
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    mbar_arrive(&v_empty[last]);
+    g += t.n_tiles;
+
+    // out = acc / max(l, 1e-30) in bf16; rows >= S are not stored
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float lt = l[hr];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      // a reciprocal in one MUFU op: an IEEE division would call a slow
+      // path, and a call makes ptxas serialize every wgmma of the kernel
+      float inv;
+      asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(fmaxf(lt, 1e-30f)));
+      const int r = t.q0 + row0 + 8 * hr;
+      if (r >= S) continue;
+      __nv_bfloat16* orow = out + ((static_cast<size_t>(t.b) * S + r) * H + t.h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The map of a contiguous bf16 tensor [n3, n2, n1, d] (q: [B, S, H, D];
+// k, v: [B, T, KV, D]) cut in boxes of [1, rows, 1, chunk].
+bool encode_map(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int n1, int n2,
+                int n3, int chunk, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2), static_cast<cuuint64_t>(n3)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;  // bytes
+  const cuuint64_t strides[3] = {row, row * n1, row * n1 * n2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = chunk == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : chunk == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int CHUNK, int BN>
+int launch_hopper(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                  int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
+  using L = Tiles<D, CHUNK, BN>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode_map(fn, &qmap, q, D, H, S, B, CHUNK, kBM) ||
+      !encode_map(fn, &kmap, k, D, KV, Tk, B, CHUNK, BN) ||
+      !encode_map(fn, &vmap, v, D, KV, Tk, B, CHUNK, BN)) {
+    return kErrShape;
+  }
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (L::kSmem > optin) return kErrShape;
+  auto kernel = hopper_kernel<D, CHUNK, BN>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  // persistent: one block per SM walks the work items (next_work)
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long n_work = static_cast<long long>((S + kBM - 1) / kBM) * H * B;
+  if (n_work > 0x7fffffff) return kErrShape;
+  const dim3 grid(static_cast<unsigned>(n_work < sms ? n_work : sms));
+  kernel<<<grid, kHopperThreads, L::kSmem, stream>>>(qmap, kmap, vmap,
+                                                      static_cast<__nv_bfloat16*>(out), B, S, Tk,
+                                                      H, KV, causal, window, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (head dim, box columns, keys per tile) of each bf16 instantiation
+int dispatch_bf16(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                  int H, int KV, int D, int causal, int window, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
-    case 80: return launch<T, 80>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
-    case 96: return launch<T, 96>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 16:
+      return launch_hopper<16, 16, 128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 32:
+      return launch_hopper<32, 32, 128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 64:
+      return launch_hopper<64, 64, 128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 80:
+      return launch_hopper<80, 16, 128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 96:
+      return launch_hopper<96, 32, 128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 128:
+      return launch_hopper<128, 64, 128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 256:
+      return launch_hopper<256, 64, 80>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    default: return kErrShape;
+  }
+}
+
+int dispatch_fp32(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+                  int H, int KV, int D, int causal, int window, float scale, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch_simt<16>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 32:
+      return launch_simt<32>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 64:
+      return launch_simt<64>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 80:
+      return launch_simt<80>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 96:
+      return launch_simt<96>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 128:
+      return launch_simt<128>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
+    case 256:
+      return launch_simt<256>(q, k, v, out, B, S, Tk, H, KV, causal, window, scale, s);
     default: return kErrShape;
   }
 }
@@ -295,12 +1049,14 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
 
 // kind: 0 = fp32, 1 = bf16 (q, k, v and out alike). Returns
 // cudaGetLastError() after the launch (0 on success),
-// cudaErrorInvalidValue for an unknown kind, or kErrShape for a shape
+// cudaErrorInvalidValue for an unknown kind, cudaErrorNotSupported when
+// the driver offers no cuTensorMapEncodeTiled, or kErrShape for a shape
 // beyond the kernel's limits: head_dim not one of 16, 32, 64, 80, 96, 128,
 // 256; H not a multiple of KV; S or T below 1; more than 65535 heads or
 // batches (grid y / z); a window without causal (the reference's forms
-// disagree there); or shared memory beyond what one block may opt in to.
-// The Python wrapper turns kErrShape into a ValueError.
+// disagree there); bf16 q, k or v not starting on 16 bytes (TMA); or
+// shared memory beyond what one block may opt in to. The Python wrapper
+// turns kErrShape into a ValueError.
 extern "C" int xbof_flash_attention(int kind, const void* q, const void* k,
                                     const void* v, void* out, int B, int S,
                                     int T, int H, int KV, int D, int causal,
@@ -312,10 +1068,13 @@ extern "C" int xbof_flash_attention(int kind, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
-      return dispatch_d<float>(q, k, v, out, B, S, T, H, KV, D, causal, window, scale, s);
+      return dispatch_fp32(q, k, v, out, B, S, T, H, KV, D, causal, window, scale, s);
     case 1:
-      return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, T, H, KV, D, causal, window,
-                                       scale, s);
+      if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+           reinterpret_cast<uintptr_t>(v)) % 16 != 0) {
+        return kErrShape;
+      }
+      return dispatch_bf16(q, k, v, out, B, S, T, H, KV, D, causal, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,8 +3,11 @@
 Replaces the TPU Pallas kernel `repro.kernels.flash_attention`: tiled
 online-softmax grouped-query attention, causal or not, with an optional
 sliding window, queries offset by T - S. At the model zoo's prefill shapes
-it is bound by flops; see the source's note for its design. Plain version:
-`kernels.ref.attention`.
+it is bound by tensor-core flops. bf16 runs FlashAttention-3's forward
+pass: a producer warpgroup streams Q, K and V into shared memory with TMA,
+two consumer warpgroups run both products on `wgmma`; TMA needs q, k and v
+to start on 16 bytes. fp32 runs on the CUDA cores. See the source's note
+for the design. Plain version: `kernels.ref.attention`.
 
 `flash_attention` launches the kernel on PyTorch's current stream for CUDA
 tensors only and raises on anything it does not take; the dispatcher
@@ -61,6 +64,12 @@ def _check(q, k, v, causal, window):
                          f"vs kv heads {kv}")
     if window < 0:
         raise ValueError(f"window must be >= 0; got {window}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"bf16 {name} must start on 16 bytes (TMA); got address "
+                    f"{t.data_ptr():#x} (a view with a storage offset?)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

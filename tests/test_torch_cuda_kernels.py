@@ -11,8 +11,10 @@ engine's default layer (H4/KV2/D32) and qwen3-14b's attention width
 (H40/KV8/D128), pages of 4, 8 and 16 slots, tables with holes and a row of
 length 0. Flash attention: the sweep of tests/test_kernels.py under its
 three masks, head_dim 80 and 16, ragged lengths and rows with no valid
-key. Scans: the sweeps of tests/test_kernels.py, ragged lengths, initial
-states (h0, s0) and the final WKV state, at the widths of
+key, and the edges of the bf16 kernel's tiles (S and T off the tile
+sizes, S = 1, head dims 32 to 256, windows with S < T). Scans: the
+sweeps of tests/test_kernels.py, ragged lengths, initial states (h0, s0)
+and the final WKV state, at the widths of
 recurrentgemma-9b and rwkv6-3b. Router: the sweep of tests/test_kernels.py
 with and without bias, DeepSeek-v2's and -v3's shapes in prefill and
 decode, and rows with exact ties (indices exact, weights within 1e-6).
@@ -145,6 +147,23 @@ FLASH_SHAPES.update({
     "s64-t256-causal": (2, 64, 256, 8, 2, 128, True, 0),
     "s256-t64-no-valid-key-rows": (1, 256, 64, 4, 2, 128, True, 0),
     "s256-t64-window": (1, 256, 64, 4, 2, 80, True, 32),
+    # the edges of the wgmma kernel's tiles (128 query rows, 128 or 80
+    # keys, boxes of 16, 32 or 64 columns): ragged S and T, S = 1, head
+    # dims 32, 64 and 96, recurrentgemma-9b's layout cut down, head_dim 80
+    # with S < T under a window
+    "s129-t191-causal": (1, 129, 191, 4, 2, 128, True, 0),
+    "s191-t129-full": (2, 191, 129, 4, 2, 64, False, 0),
+    "s1-t77-causal": (1, 1, 77, 4, 2, 96, True, 0),
+    "s1-t300-window": (2, 1, 300, 8, 1, 256, True, 128),
+    "d32-s300-window": (1, 300, 300, 4, 2, 32, True, 64),
+    "d64-causal": (2, 256, 256, 8, 8, 64, True, 0),
+    "d96-ragged-full": (1, 200, 200, 6, 3, 96, False, 0),
+    "recurrentgemma-cut": (1, 300, 300, 16, 1, 256, True, 128),
+    "d80-s200-t300-window": (1, 200, 300, 32, 8, 80, True, 96),
+    # more work items than the H100's 132 SMs, so each persistent block
+    # walks several (the barrier phases carry over between them)
+    "many-items-causal": (2, 1100, 1100, 16, 4, 64, True, 0),
+    "many-items-d256-window": (1, 650, 650, 48, 2, 256, True, 200),
 })
 
 
@@ -195,6 +214,11 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention(torch.zeros((1, 8, 2, 24), device=dev),
                            torch.zeros((1, 8, 1, 24), device=dev),
                            torch.zeros((1, 8, 1, 24), device=dev))
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted[1:] = qb.flatten()
+    with pytest.raises(ValueError, match="16 bytes"):               # TMA alignment
+        fa.flash_attention(shifted[1:].view(qb.shape), kb, vb)
 
 
 # ---------------------------------------------------------------- scans

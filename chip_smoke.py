@@ -18,7 +18,11 @@ nvcc per source, all at once), then:
    windows with S < T); and the RG-LRU and RWKV6 scan
    kernels (fp32, bf16) against theirs on the sweeps of
    tests/test_kernels.py, a ragged length, and an initial state (h0; s0
-   with the final state); and the MoE top-k router kernel against its
+   with the final state), the WKV kernel also across the bf16 kernel's
+   16-row chunks (T = 1, 63, 64, 65, 129), K = 128 from s0, more blocks
+   than SMs and decays with w = 0 and w = 1 exactly, down to e^-30 and
+   near e^-1, each call repeated and equal bit for bit; and the MoE
+   top-k router kernel against its
    plain version on the sweep of tests/test_kernels.py with and without
    bias, DeepSeek's expert counts (160 with k = 6, 256 with k = 8) at 4,
    4096 and 1000 tokens, and rows with exact ties (indices exact);
@@ -62,7 +66,9 @@ nvcc per source, all at once), then:
    where there is one, and the least time the card could take (bytes over
    the memory rate or operations over the peak rate of their type,
    whichever is larger); the flash rows also carry the achieved TFLOP/s
-   and the share of the bound reached (`of_bound`, bound / time);
+   and the share of the bound reached (`of_bound`, bound / time), and the
+   bf16 WKV row, whose products run on the tensor cores, its bound at the
+   bf16 peak with `of_bound` and, beside it, the bound at the fp32 rate;
 5. checks the engine, and five narrow fp32 models (a dense one,
    recurrentgemma-smoke and rwkv6-smoke with a prompt of 128,
    deepseek-v2-smoke and deepseek-v3-smoke with a prompt of 1040, whose
@@ -70,8 +76,9 @@ nvcc per source, all at once), then:
    against the same code on the CPU (the plain path).
 
 The `build` line also carries nvcc's registers and spills of each flash
-instantiation and the count of HGMMA (wgmma) instructions in the flash
-library's SASS (cuobjdump); a count of 0 fails the run.
+and WKV instantiation, the count of HGMMA (wgmma) instructions in the
+flash library's SASS and of HMMA (mma.sync) instructions in the WKV
+library's (cuobjdump); a count of 0 fails the run.
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
 `flash_checks`, `scan_checks`, `router_checks`, `ftl`, `engine`, `model`,
@@ -151,8 +158,17 @@ SCAN_TOL = {"rglru": {"fp32": 1e-5, "bf16": 3e-2},
 # an initial state; rwkv6 also at the smoke configs' width (16)
 RGLRU_CHECKS = [(2, 256, 64, False), (1, 512, 128, False), (3, 128, 256, False),
                 (2, 200, 96, True)]                  # (b, t, w, h0)
+# (b, t, h, k, s0[, decay]); then the bf16 kernel's chunks of 16 rows (T
+# = 1, 63, 64, 65, 129), K = 128 from s0, more blocks than SMs, and the
+# decays of `wkv_decay` (w = 0 and w = 1 exactly, down to e^-30, near e^-1)
 RWKV6_CHECKS = [(1, 256, 2, 64, False), (2, 128, 4, 128, False),
-                (2, 200, 3, 32, True), (3, 70, 4, 16, True)]   # (b, t, h, k, s0)
+                (2, 200, 3, 32, True), (3, 70, 4, 16, True),
+                (2, 1, 3, 64, True), (1, 63, 2, 64, False), (1, 64, 2, 32, True),
+                (2, 65, 2, 64, True), (1, 129, 4, 16, True), (2, 97, 2, 128, True),
+                (2, 512, 80, 64, False),
+                (2, 200, 3, 64, True, "zero-one"), (1, 65, 2, 16, False, "zero-one"),
+                (1, 130, 2, 128, True, "near0"), (2, 77, 3, 32, False, "near0"),
+                (2, 300, 4, 64, True, "main")]
 # flash kernel vs plain version, random inputs: (b, s, t, h, kv, d,
 # causal, window) — the sweep of tests/test_kernels.py under its three
 # masks, then head_dim 80 and 16, a ragged non-causal length, queries
@@ -302,15 +318,18 @@ def work(args, kw):
     return nbytes, flops
 
 
-def flash_ptxas(log: str) -> list[dict]:
-    """Registers and spills of each kernel instantiation in nvcc's report
-    on csrc/flash_attention.cu: `hopper_kernel<D, CHUNK, BN>` (bf16) and
-    `simt_kernel<D>` (fp32)."""
+def ptxas_rows(log: str, kernels: str) -> list[dict]:
+    """Registers and spills of each kernel instantiation in nvcc's report,
+    for the kernels of the regex alternation ``kernels``: e.g.
+    `hopper_kernel<D, CHUNK, BN>` of csrc/flash_attention.cu, or
+    `rwkv6_kernel<float, K>` of csrc/rwkv6_scan.cu."""
     rows, name = [], None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(hopper_kernel|simt_kernel)I(\w*?)EEEv", ln)
+        m = re.search(rf"Compiling entry function '\w*?({kernels})I(\w*?)EEEv", ln)
         if m:
-            name = f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2) + 'E'))}>"
+            dtype = (["float"] if m.group(2).startswith("f") else
+                     ["bf16"] if "bfloat16" in m.group(2) else [])
+            name = f"{m.group(1)}<{', '.join(dtype + re.findall(r'Li(\d+)E', m.group(2) + 'E'))}>"
             rows.append({"kernel": name})
         elif name and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill", ln)
@@ -321,13 +340,14 @@ def flash_ptxas(log: str) -> list[dict]:
     return rows
 
 
-def hgmma_count(build) -> int:
-    """HGMMA (wgmma) instructions in the built flash library's SASS, by
-    the toolkit's cuobjdump beside nvcc."""
+def sass_count(build, source: str, opcode: str) -> int:
+    """Instructions of ``opcode`` (e.g. HGMMA, wgmma; HMMA, mma.sync) in the
+    SASS of the library built from ``csrc/<source>.cu``, by the toolkit's
+    cuobjdump beside nvcc."""
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(source))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    return sum("HGMMA" in ln for ln in sass.splitlines())
+    return sum(opcode in ln for ln in sass.splitlines())
 
 
 def flash_inputs(shape, dtype, seed, dev):
@@ -659,9 +679,10 @@ def scan_inputs(name, shape, dtype, seed, dev):
         args = [rnd(b, t, w).to(dtype), torch.sigmoid(rnd(b, t, w)).to(dtype)]
         kw = {"h0": rnd(b, w)} if h0 else {}
     else:
-        b, t, h, k, s0 = shape
+        b, t, h, k, s0 = shape[:5]
         args = [(rnd(b, t, h, k) * 0.5).to(dtype) for _ in range(3)]
-        args += [torch.sigmoid(rnd(b, t, h, k) + 2).to(dtype), rnd(h, k) * 0.1]
+        args += [wkv_decay((b, t, h, k), shape[5] if len(shape) > 5 else "sigmoid",
+                           g).to(dtype), rnd(h, k) * 0.1]
         kw = {"return_state": True}
         if s0:
             kw["s0"] = rnd(b, h, k, k) * 0.5
@@ -669,9 +690,27 @@ def scan_inputs(name, shape, dtype, seed, dev):
             {k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()})
 
 
+def wkv_decay(shape, kind, g):
+    """w of a WKV check: the sweeps' sigmoid(N + 2); "main", exp(-exp(N /
+    10)) near e^-1 as rwkv6-3b's zero-initialised w_base gives; "near0",
+    exp(-U(0, 30)), down to e^-30; "zero-one", sigmoid(N + 2) with a
+    quarter exactly 0 and a quarter exactly 1."""
+    z = torch.randn(shape, generator=g)
+    if kind == "main":
+        return torch.exp(-torch.exp(0.1 * z))
+    if kind == "near0":
+        return torch.exp(-30.0 * torch.rand(shape, generator=g))
+    w = torch.sigmoid(z + 2)
+    if kind == "zero-one":
+        pick = torch.rand(shape, generator=g)
+        w = torch.where(pick < 0.25, 0.0, torch.where(pick > 0.75, 1.0, w))
+    return w
+
+
 def scan_checks(dev) -> list[dict]:
     """The scan kernels against their plain versions on random inputs, per
-    element within tol * (1 + |want|)."""
+    element within tol * (1 + |want|); the WKV kernel also gives the same
+    bits on a second call."""
     table = kernel_table()
     checks = []
     for name, shapes in (("rglru", RGLRU_CHECKS), ("rwkv6_wkv", RWKV6_CHECKS)):
@@ -683,15 +722,19 @@ def scan_checks(dev) -> list[dict]:
                 torch.cuda.synchronize()
                 tol = SCAN_TOL[name][form]
                 err, rel, ok = compare(got, plain_fn(*args, **kw), tol)
-                checks.append(dict(kernel=name, form=form, shape=list(shape),
-                                   max_abs_err=err, max_rel_err=rel, tol=tol,
-                                   ok=ok))
+                row = dict(kernel=name, form=form, shape=list(shape),
+                           max_abs_err=err, max_rel_err=rel, tol=tol, ok=ok)
+                if name == "rwkv6_wkv":
+                    again = kernel(*args, **kw)
+                    row["repeats"] = all(torch.equal(a, b) for a, b in zip(got, again))
+                    row["ok"] = ok and row["repeats"]
+                checks.append(row)
     return checks
 
 
 def scan_work(name, args, kw):
     """Bytes a scan must move (each input read once, each output written
-    once) and the fp32 operations it must do, for THESE inputs. rglru: x
+    once) and the operations it must do, for THESE inputs. rglru: x
     and a in, out written, h0 if given; 7 operations per element (a * a,
     1 - that, the clamp, sqrt, times x, a * h, the sum). rwkv6_wkv: r, k, v,
     w and u in, out written, s0 and the final state if there; per step and
@@ -731,8 +774,14 @@ def scan_row(name, form, args, kw, launches, flush, checks, extra) -> dict:
     ms = timed_ms(lambda: kernel(*args, **kw), 10, flush)
     plain_ms = timed_ms(lambda: plain_fn(*args, **kw), 2, flush)
     nbytes, flops = scan_work(name, args, kw)
-    # the math is fp32 on the CUDA cores whatever the inputs' dtype
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / FP32_FLOPS
+    # the bf16 WKV kernel runs its products on the tensor cores; the RG-LRU
+    # scan and every fp32 form do their math in fp32 on the CUDA cores
+    tensor_cores = name == "rwkv6_wkv" and form == "bf16"
+    peak = BF16_FLOPS if tensor_cores else FP32_FLOPS
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / peak
+    if tensor_cores:
+        extra = {**extra, "of_bound": max(t_bytes, t_ops) / ms,
+                 "bound_ms_at_fp32_rate": max(t_bytes, 1e3 * flops / FP32_FLOPS)}
     source = "rglru_scan" if name == "rglru" else "rwkv6_scan"
     return {
         "name": f"{name}[{form}]", "route": "cuda",
@@ -748,7 +797,7 @@ def scan_row(name, form, args, kw, launches, flush, checks, extra) -> dict:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "flops": flops, "peak_flops": FP32_FLOPS,
+        "bytes": nbytes, "flops": flops, "peak_flops": peak,
         # no single PyTorch call computes this linear recurrence
         "library_ms": None,
         **extra,
@@ -1021,17 +1070,25 @@ def main() -> None:
     _build.build()
     ptxas = [ln.strip() for log in _build.LOG.values() for ln in log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
-    hgmma = hgmma_count(_build)
+    hgmma = sass_count(_build, "flash_attention", "HGMMA")
+    hmma = sass_count(_build, "rwkv6_scan", "HMMA")
     serialized = sum("wgmma.mma_async instructions are serialized" in ln
                      for ln in _build.LOG.get("flash_attention", "").splitlines())
     print(json.dumps({"build": {"seconds": round(time.perf_counter() - t0, 3),
                                 "sources": list(_build.SOURCES), "ptxas": ptxas,
-                                "flash_ptxas": flash_ptxas(_build.LOG.get("flash_attention", "")),
+                                "flash_ptxas": ptxas_rows(_build.LOG.get("flash_attention", ""),
+                                                          "hopper_kernel|simt_kernel"),
                                 "flash_hgmma": hgmma,
-                                "flash_wgmma_serialized_reports": serialized}}),
+                                "flash_wgmma_serialized_reports": serialized,
+                                "wkv_ptxas": ptxas_rows(_build.LOG.get("rwkv6_scan", ""),
+                                                        "wkv_chunk_kernel|rwkv6_kernel"),
+                                "wkv_hmma": hmma}}),
           flush=True)
     if hgmma == 0:
         fail("the flash library holds no HGMMA instruction: its bf16 kernel is "
+             "not on the tensor cores")
+    if hmma == 0:
+        fail("the WKV library holds no HMMA instruction: its bf16 kernel is "
              "not on the tensor cores")
 
     # ---- 1. every kernel form against its plain version, both widths

@@ -5,8 +5,16 @@ computes the whole of the reference oracle's signature: an optional
 initial state ``s0`` and, with ``return_state``, the final state, so the
 prefill runs it too. Per (batch, head) a [K, V] fp32 state S:
 out_t = r_t . (S + diag(u) k_t v_t^T), then S <- diag(w_t) S + k_t v_t^T.
-It is bound by operations, and by the latency of its walk along T; see
-the source's note for its design. Plain version: `kernels.ref.rwkv6_wkv`.
+Plain version: `kernels.ref.rwkv6_wkv`.
+
+bf16 runs a chunked kernel on the tensor cores: chunks of 16 steps, each
+three matrix products (`mma.sync`) with an fp32 state, the decay taken
+as running products of w. Its domain is 0 <= w <= 1, the model's range
+(w = exp(-exp(x)), where w = 0 and w = 1 occur in bf16): there every
+decay factor lies in [0, 1], w = 0 is exact and nothing overflows.
+fp32 runs a serial kernel that walks T one step at a time on the CUDA
+cores, as does a bf16 view whose r, k, v or w does not start on 16
+bytes. See the source's note for both designs and what bounds them.
 
 `rwkv6_wkv` launches the kernel on PyTorch's current stream for CUDA
 tensors only and raises on anything it does not take; the dispatcher

@@ -15,7 +15,9 @@ key, and the edges of the bf16 kernel's tiles (S and T off the tile
 sizes, S = 1, head dims 32 to 256, windows with S < T). Scans: the
 sweeps of tests/test_kernels.py, ragged lengths, initial states (h0, s0)
 and the final WKV state, at the widths of
-recurrentgemma-9b and rwkv6-3b. Router: the sweep of tests/test_kernels.py
+recurrentgemma-9b and rwkv6-3b; for the chunked bf16 WKV kernel also T
+across its 16-row chunks, K = 128 from s0, more blocks than SMs, decays
+with w = 0 and w = 1 exactly and down to e^-30, and a view off 16 bytes. Router: the sweep of tests/test_kernels.py
 with and without bias, DeepSeek-v2's and -v3's shapes in prefill and
 decode, and rows with exact ties (indices exact, weights within 1e-6).
 FTL: the sweep of tests/test_kernels.py, PPNs past fp32's integers and
@@ -236,13 +238,41 @@ RGLRU_SHAPES = {
     "t1-h0": (3, 1, 40, True), "w130-t37-h0": (1, 37, 130, True),
     "recurrentgemma-width": (4, 256, 4096, False),
 }
-# (b, t, h, k, s0): the sweep of tests/test_kernels.py, the smoke width
-# (16) and 32 from an initial state over a ragged T, rwkv6-3b's heads
+# (b, t, h, k, s0[, decay]): the sweep of tests/test_kernels.py, the
+# smoke width (16) and 32 from an initial state over a ragged T, rwkv6-3b's
+# heads; then the bf16 kernel's chunks of 16 rows (T = 1, 63, 64, 65, 129),
+# K = 128 from s0, more blocks than SMs, and the decays of `_decay`
 RWKV6_SHAPES = {
     "sweep0": (1, 256, 2, 64, False), "sweep1": (2, 128, 4, 128, False),
     "k16-s0": (3, 70, 4, 16, True), "k32-ragged-200-s0": (2, 200, 3, 32, True),
     "rwkv6-3b-heads-s0": (1, 256, 40, 64, True),
+    "t1-s0": (2, 1, 3, 64, True), "t63": (1, 63, 2, 64, False),
+    "t64-s0": (1, 64, 2, 32, True), "t65-s0": (2, 65, 2, 64, True),
+    "t129-k16-s0": (1, 129, 4, 16, True), "k128-t97-s0": (2, 97, 2, 128, True),
+    "grid-2x80-heads": (2, 512, 80, 64, False),
+    "w-zero-one-s0": (2, 200, 3, 64, True, "zero-one"),
+    "w-zero-one-k16": (1, 65, 2, 16, False, "zero-one"),
+    "w-near0-k128-s0": (1, 130, 2, 128, True, "near0"),
+    "w-near0-k32": (2, 77, 3, 32, False, "near0"),
+    "w-main-s0": (2, 300, 4, 64, True, "main"),
 }
+
+
+def _decay(shape, kind, g):
+    """w [shape]: the sweeps' sigmoid(N + 2); "main", exp(-exp(N / 10)) near
+    e^-1 as rwkv6-3b's zero-initialised w_base gives; "near0", exp(-U(0,
+    30)), down to e^-30; "zero-one", sigmoid(N + 2) with a quarter exactly
+    0 and a quarter exactly 1."""
+    z = torch.randn(shape, generator=g)
+    if kind == "main":
+        return torch.exp(-torch.exp(0.1 * z))
+    if kind == "near0":
+        return torch.exp(-30.0 * torch.rand(shape, generator=g))
+    w = torch.sigmoid(z + 2)
+    if kind == "zero-one":
+        pick = torch.rand(shape, generator=g)
+        w = torch.where(pick < 0.25, 0.0, torch.where(pick > 0.75, 1.0, w))
+    return w
 
 
 def _rglru_inputs(shape, dtype, seed, dev):
@@ -256,10 +286,10 @@ def _rglru_inputs(shape, dtype, seed, dev):
 
 
 def _rwkv6_inputs(shape, dtype, seed, dev):
-    b, t, h, k, s0 = shape
+    b, t, h, k, s0 = shape[:5]
     g = torch.Generator().manual_seed(seed)
     r, kk, v = (torch.randn((b, t, h, k), generator=g) * 0.5 for _ in range(3))
-    w = torch.sigmoid(torch.randn((b, t, h, k), generator=g) + 2)
+    w = _decay((b, t, h, k), shape[5] if len(shape) > 5 else "sigmoid", g)
     u = torch.randn((h, k), generator=g) * 0.1
     s = torch.randn((b, h, k, k), generator=g) * 0.5 if s0 else None
     dt = getattr(torch, dtype)
@@ -298,6 +328,24 @@ def test_rwkv6_kernel_matches_plain(dev, name, dtype):
     torch.testing.assert_close(S.float(), want_S.float(), atol=tol, rtol=tol)
     # without the final state: the same outputs
     assert torch.equal(wkv.rwkv6_wkv(r, k, v, w, u, s0=s0), out)
+
+
+def test_rwkv6_bf16_view_off_16_bytes_takes_the_serial_kernel(dev):
+    """The chunked kernel copies 16-byte pieces; a bf16 view that starts 2
+    bytes in runs the serial kernel, with the same launch count and gate."""
+    (r, k, v, w), u, s0 = _rwkv6_inputs((1, 70, 2, 32, True), "bfloat16", 3, dev)
+    shifted = torch.empty(r.numel() + 1, dtype=r.dtype, device=dev)
+    shifted[1:] = r.flatten()
+    r_view = shifted[1:].view(r.shape)
+    assert r_view.data_ptr() % 16 != 0 and r_view.is_contiguous()
+    before = wkv.rwkv6_wkv.launches
+    out, S = wkv.rwkv6_wkv(r_view, k, v, w, u, s0=s0, return_state=True)
+    torch.cuda.synchronize()
+    assert wkv.rwkv6_wkv.launches == before + 1
+    want, want_S = ref.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+    tol = SCAN_TOL["rwkv6"]["bfloat16"]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(S.float(), want_S.float(), atol=tol, rtol=tol)
 
 
 def test_scan_dispatchers_launch_for_cuda_tensors(dev):

@@ -18,10 +18,14 @@ nvcc per source, all at once), then:
    windows with S < T); and the RG-LRU and RWKV6 scan
    kernels (fp32, bf16) against theirs on the sweeps of
    tests/test_kernels.py, a ragged length, and an initial state (h0; s0
-   with the final state), the WKV kernel also across the bf16 kernel's
+   with the final state), the RG-LRU kernel also across its chunks of 32
+   steps and tiles of 64 channels (T = 1, 31, 32, 33; W = 40, 130 and
+   9000, more blocks than SMs; B * W under one tile), with a = 0 and a = 1
+   exactly and on views at an odd storage offset, each equal to its plain
+   version bit for bit; the WKV kernel also across the bf16 kernel's
    16-row chunks (T = 1, 63, 64, 65, 129), K = 128 from s0, more blocks
    than SMs and decays with w = 0 and w = 1 exactly, down to e^-30 and
-   near e^-1, each call repeated and equal bit for bit; and the MoE
+   near e^-1; each scan call repeated and equal bit for bit; and the MoE
    top-k router kernel against its
    plain version on the sweep of tests/test_kernels.py with and without
    bias, DeepSeek's expert counts (160 with k = 6, 256 with k = 8) at 4,
@@ -65,18 +69,21 @@ nvcc per source, all at once), then:
    plain version, one PyTorch library call computing the same function
    where there is one, and the least time the card could take (bytes over
    the memory rate or operations over the peak rate of their type,
-   whichever is larger); the flash rows also carry the achieved TFLOP/s
-   and the share of the bound reached (`of_bound`, bound / time), and the
-   bf16 WKV row, whose products run on the tensor cores, its bound at the
-   bf16 peak with `of_bound` and, beside it, the bound at the fp32 rate;
+   whichever is larger); the flash and scan rows also carry the share of
+   the bound reached (`of_bound`, bound / time), the flash rows the
+   achieved TFLOP/s, the bf16 WKV row, whose products run on the tensor
+   cores, its bound at the bf16 peak and, beside it, the bound at the fp32
+   rate, and the RG-LRU rows whether they equal the plain version bit for
+   bit (`bit_equal`, which must hold) and, as a yardstick of the memory's
+   rate, the time of a `torch.add` that moves the same bytes (`stream_ms`);
 5. checks the engine, and five narrow fp32 models (a dense one,
    recurrentgemma-smoke and rwkv6-smoke with a prompt of 128,
    deepseek-v2-smoke and deepseek-v3-smoke with a prompt of 1040, whose
    2080 tokens take the MoE's sorted dispatch; 8 decode steps), on the GPU
    against the same code on the CPU (the plain path).
 
-The `build` line also carries nvcc's registers and spills of each flash
-and WKV instantiation, the count of HGMMA (wgmma) instructions in the
+The `build` line also carries nvcc's registers and spills of each flash,
+WKV and RG-LRU instantiation, the count of HGMMA (wgmma) instructions in the
 flash library's SASS and of HMMA (mma.sync) instructions in the WKV
 library's (cuobjdump); a count of 0 fails the run.
 
@@ -156,8 +163,19 @@ SCAN_TOL = {"rglru": {"fp32": 1e-5, "bf16": 3e-2},
             "rwkv6_wkv": {"fp32": 1e-4, "bf16": 3e-2}}
 # random inputs: the sweeps of tests/test_kernels.py, then a ragged T from
 # an initial state; rwkv6 also at the smoke configs' width (16)
+# (b, t, w, h0[, a[, offset]]); after the sweep, the edges of the RG-LRU
+# kernel's tiles (chunks of 32 steps, 64 channels): T = 1, 31, 32 and 33, W
+# = 40 and 130 from h0 (bf16 rows of 80 and 260 bytes), more blocks than
+# SMs, B * W under one tile, an `a` with a quarter exactly 0 and a quarter
+# exactly 1 ("zero-one"), and x and a as views an odd number of elements
+# into their storage (the narrowest copies)
 RGLRU_CHECKS = [(2, 256, 64, False), (1, 512, 128, False), (3, 128, 256, False),
-                (2, 200, 96, True)]                  # (b, t, w, h0)
+                (2, 200, 96, True),
+                (2, 1, 64, True), (1, 31, 64, False), (2, 32, 128, True),
+                (3, 33, 64, False), (2, 75, 40, True), (3, 70, 130, True),
+                (1, 66, 9000, True), (1, 45, 24, False),
+                (2, 100, 96, True, "zero-one"), (1, 65, 130, False, "zero-one"),
+                (2, 70, 130, True, "sigmoid", 1)]
 # (b, t, h, k, s0[, decay]); then the bf16 kernel's chunks of 16 rows (T
 # = 1, 63, 64, 65, 129), K = 128 from s0, more blocks than SMs, and the
 # decays of `wkv_decay` (w = 0 and w = 1 exactly, down to e^-30, near e^-1)
@@ -675,9 +693,22 @@ def scan_inputs(name, shape, dtype, seed, dev):
     g = torch.Generator(device="cpu").manual_seed(seed)
     rnd = lambda *sh: torch.randn(sh, generator=g)
     if name == "rglru":
-        b, t, w, h0 = shape
-        args = [rnd(b, t, w).to(dtype), torch.sigmoid(rnd(b, t, w)).to(dtype)]
+        b, t, w, h0 = shape[:4]
+        kind = shape[4] if len(shape) > 4 else "sigmoid"
+        offset = shape[5] if len(shape) > 5 else 0
+        x, a = rnd(b, t, w), torch.sigmoid(rnd(b, t, w))
+        if kind == "zero-one":
+            pick = torch.rand((b, t, w), generator=g)
+            a = torch.where(pick < 0.25, 0.0, torch.where(pick > 0.75, 1.0, a))
         kw = {"h0": rnd(b, w)} if h0 else {}
+        if offset:  # contiguous views `offset` elements into their storage
+            bufs = [torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+                    for _ in (x, a)]
+            for buf, v in zip(bufs, (x, a)):
+                buf[offset:] = v.flatten().to(dtype)
+            return ([buf[offset:].view(x.shape) for buf in bufs],
+                    {k: v.to(dev) for k, v in kw.items()})
+        args = [x.to(dtype), a.to(dtype)]
     else:
         b, t, h, k, s0 = shape[:5]
         args = [(rnd(b, t, h, k) * 0.5).to(dtype) for _ in range(3)]
@@ -709,8 +740,8 @@ def wkv_decay(shape, kind, g):
 
 def scan_checks(dev) -> list[dict]:
     """The scan kernels against their plain versions on random inputs, per
-    element within tol * (1 + |want|); the WKV kernel also gives the same
-    bits on a second call."""
+    element within tol * (1 + |want|); each gives the same bits on a second
+    call, and the RG-LRU kernel the plain version's bits."""
     table = kernel_table()
     checks = []
     for name, shapes in (("rglru", RGLRU_CHECKS), ("rwkv6_wkv", RWKV6_CHECKS)):
@@ -721,13 +752,16 @@ def scan_checks(dev) -> list[dict]:
                 got = kernel(*args, **kw)
                 torch.cuda.synchronize()
                 tol = SCAN_TOL[name][form]
-                err, rel, ok = compare(got, plain_fn(*args, **kw), tol)
+                want = plain_fn(*args, **kw)
+                err, rel, ok = compare(got, want, tol)
                 row = dict(kernel=name, form=form, shape=list(shape),
                            max_abs_err=err, max_rel_err=rel, tol=tol, ok=ok)
-                if name == "rwkv6_wkv":
-                    again = kernel(*args, **kw)
-                    row["repeats"] = all(torch.equal(a, b) for a, b in zip(got, again))
-                    row["ok"] = ok and row["repeats"]
+                again = kernel(*args, **kw)
+                row["repeats"] = all(torch.equal(a, b) for a, b in zip(got, again))
+                row["ok"] = ok and row["repeats"]
+                if name == "rglru":
+                    row["bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+                    row["ok"] = row["ok"] and row["bit_equal"]
                 checks.append(row)
     return checks
 
@@ -770,18 +804,31 @@ def scan_row(name, form, args, kw, launches, flush, checks, extra) -> dict:
     if not ok:
         fail(f"{name}[{form}]: kernel disagrees with its plain version on the "
              f"main path's inputs (max abs err {err}, relative {rel})")
+    if name == "rglru":  # the plain version's IEEE operations, in its order
+        extra = {**extra, "bit_equal": all(torch.equal(a, b) for a, b in zip(got, want))}
+        if not extra["bit_equal"]:
+            fail(f"rglru[{form}]: kernel not bit-equal to its plain version on "
+                 "the main path's inputs")
     del got, want
     ms = timed_ms(lambda: kernel(*args, **kw), 10, flush)
     plain_ms = timed_ms(lambda: plain_fn(*args, **kw), 2, flush)
+    if name == "rglru":
+        # what the card's memory gives a stream of the same bytes: one
+        # torch.add reading x and a and writing a tensor of out's size (not
+        # the same function, so not `library_ms`)
+        x, a = args
+        sink = torch.empty_like(x)
+        extra = {**extra, "stream_ms": timed_ms(lambda: torch.add(x, a, out=sink), 10, flush)}
+        del sink
     nbytes, flops = scan_work(name, args, kw)
     # the bf16 WKV kernel runs its products on the tensor cores; the RG-LRU
     # scan and every fp32 form do their math in fp32 on the CUDA cores
     tensor_cores = name == "rwkv6_wkv" and form == "bf16"
     peak = BF16_FLOPS if tensor_cores else FP32_FLOPS
     t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / peak
+    extra = {**extra, "of_bound": max(t_bytes, t_ops) / ms}
     if tensor_cores:
-        extra = {**extra, "of_bound": max(t_bytes, t_ops) / ms,
-                 "bound_ms_at_fp32_rate": max(t_bytes, 1e3 * flops / FP32_FLOPS)}
+        extra["bound_ms_at_fp32_rate"] = max(t_bytes, 1e3 * flops / FP32_FLOPS)
     source = "rglru_scan" if name == "rglru" else "rwkv6_scan"
     return {
         "name": f"{name}[{form}]", "route": "cuda",
@@ -1082,6 +1129,8 @@ def main() -> None:
                                 "flash_wgmma_serialized_reports": serialized,
                                 "wkv_ptxas": ptxas_rows(_build.LOG.get("rwkv6_scan", ""),
                                                         "wkv_chunk_kernel|rwkv6_kernel"),
+                                "rglru_ptxas": ptxas_rows(_build.LOG.get("rglru_scan", ""),
+                                                          "rglru_kernel"),
                                 "wkv_hmma": hmma}}),
           flush=True)
     if hgmma == 0:

@@ -3,8 +3,14 @@
 Replaces the TPU Pallas kernel `repro.kernels.rglru_scan.rglru`:
 h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0)) * x_t over [B, T, W], the
 state carried in fp32, from an optional h0 (which the TPU kernel does not
-take). It is bound by bytes, and by the latency of its walk along T; see
-the source's note for its design. Plain version: `kernels.ref.rglru`.
+take). It is bound by bytes. Its blocks split the work per element, not
+the order of the walk: producer warps stream chunks of x and a into
+shared memory and compute each step's a and gain times x, consumer threads
+(one per channel) walk the recurrence; see the source's note. It does the
+plain version's IEEE operations in its order, so it gives the plain
+version (`kernels.ref.rglru`) bit for bit, in fp32 and bf16. It takes any
+contiguous x and a, views at any storage offset included (narrower copies
+where rows are off 16 bytes).
 
 `rglru` launches the kernel on PyTorch's current stream for CUDA tensors
 only and raises on anything it does not take; the dispatcher

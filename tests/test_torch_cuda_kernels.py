@@ -15,7 +15,10 @@ key, and the edges of the bf16 kernel's tiles (S and T off the tile
 sizes, S = 1, head dims 32 to 256, windows with S < T). Scans: the
 sweeps of tests/test_kernels.py, ragged lengths, initial states (h0, s0)
 and the final WKV state, at the widths of
-recurrentgemma-9b and rwkv6-3b; for the chunked bf16 WKV kernel also T
+recurrentgemma-9b and rwkv6-3b; for the RG-LRU kernel also T and W across
+its chunks of 32 steps and 64 channels, more blocks than SMs, a = 0 and a
+= 1 exactly and views at an odd storage offset, each equal to the plain
+version bit for bit; for the chunked bf16 WKV kernel also T
 across its 16-row chunks, K = 128 from s0, more blocks than SMs, decays
 with w = 0 and w = 1 exactly and down to e^-30, and a view off 16 bytes. Router: the sweep of tests/test_kernels.py
 with and without bias, DeepSeek-v2's and -v3's shapes in prefill and
@@ -229,14 +232,28 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
 # bf16 outputs may differ by one rounding of the fp32 result
 SCAN_TOL = {"rglru": {"float32": 1e-5, "bfloat16": 3e-2},
             "rwkv6": {"float32": 1e-4, "bfloat16": 3e-2}}
-# (b, t, w, h0): the sweep of tests/test_kernels.py, a ragged T from an
-# initial state, T = 1 (shorter than one unrolled chunk), a W that is no
-# multiple of the block, and recurrentgemma-9b's width
+# (b, t, w, h0[, a[, offset]]): the sweep of tests/test_kernels.py, a
+# ragged T from an initial state, T = 1 (shorter than one chunk), a W that
+# is no multiple of the block, and recurrentgemma-9b's width; then the
+# edges of the kernel's tiles (chunks of 32 steps, 64 channels): T = 31, 32
+# and 33, W = 40 and 130 (bf16 rows of 80 and 260 bytes) from h0, more
+# blocks than SMs, B * W under one tile, an `a` with a quarter exactly 0
+# and a quarter exactly 1, and x and a as contiguous views an odd number of
+# elements into their storage (bf16 copied in 2-byte, fp32 in 4-byte
+# pieces)
 RGLRU_SHAPES = {
     "sweep0": (2, 256, 64, False), "sweep1": (1, 512, 128, False),
     "sweep2": (3, 128, 256, False), "ragged-200-h0": (2, 200, 96, True),
     "t1-h0": (3, 1, 40, True), "w130-t37-h0": (1, 37, 130, True),
     "recurrentgemma-width": (4, 256, 4096, False),
+    "t31": (2, 31, 64, False), "t32-h0": (1, 32, 128, True),
+    "t33": (3, 33, 64, False), "w40-h0": (2, 75, 40, True),
+    "w130-h0": (3, 70, 130, True), "blocks-over-sms-h0": (1, 66, 9000, True),
+    "under-one-tile": (1, 45, 24, False),
+    "a-zero-one-h0": (2, 100, 96, True, "zero-one"),
+    "a-zero-one-w130": (1, 65, 130, False, "zero-one"),
+    "offset1-w130-h0": (2, 70, 130, True, "sigmoid", 1),
+    "offset3-t33": (1, 33, 64, False, "sigmoid", 3),
 }
 # (b, t, h, k, s0[, decay]): the sweep of tests/test_kernels.py, the
 # smoke width (16) and 32 from an initial state over a ragged T, rwkv6-3b's
@@ -276,13 +293,22 @@ def _decay(shape, kind, g):
 
 
 def _rglru_inputs(shape, dtype, seed, dev):
-    b, t, w, h0 = shape
+    b, t, w, h0 = shape[:4]
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((b, t, w), generator=g)
     a = torch.sigmoid(torch.randn((b, t, w), generator=g))
+    kind = shape[4] if len(shape) > 4 else "sigmoid"
+    offset = shape[5] if len(shape) > 5 else 0
+    if kind == "zero-one":  # a quarter exactly 0, a quarter exactly 1
+        pick = torch.rand((b, t, w), generator=g)
+        a = torch.where(pick < 0.25, 0.0, torch.where(pick > 0.75, 1.0, a))
     h = torch.randn((b, w), generator=g) if h0 else None
     dt = getattr(torch, dtype)
-    return x.to(dt).to(dev), a.to(dt).to(dev), None if h is None else h.to(dev)
+    x, a = x.to(dt).to(dev), a.to(dt).to(dev)
+    if offset:  # contiguous views `offset` elements into their storage
+        x, a = (torch.cat([v.new_zeros(offset), v.flatten()])[offset:].view(v.shape)
+                for v in (x, a))
+    return x, a, None if h is None else h.to(dev)
 
 
 def _rwkv6_inputs(shape, dtype, seed, dev):
@@ -310,6 +336,8 @@ def test_rglru_kernel_matches_plain(dev, name, dtype):
     tol = SCAN_TOL["rglru"][dtype]
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h_t.float(), want_h.float(), atol=tol, rtol=tol)
+    # the kernel does the plain version's IEEE operations in its order
+    assert torch.equal(out, want) and torch.equal(h_t, want_h)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

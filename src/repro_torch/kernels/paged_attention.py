@@ -2,9 +2,9 @@
 
 Replaces the TPU Pallas kernel `repro.kernels.paged_attention` in both of
 its forms: fp32/bf16 pools, and int8 pools with per-page fp32 scales
-(dequantized inside the kernel, fp32 math). The kernel is bandwidth-bound
-on the live K/V bytes; see the source's note for its design. Plain
-version: `kernels.ref.paged_attention` / `paged_attention_quant`.
+(dequantized inside the kernel, fp32 math). See the source's note for
+its design and what sets its time. Plain version:
+`kernels.ref.paged_attention` / `paged_attention_quant`.
 
 `paged_attention` launches the kernel on PyTorch's current stream for
 CUDA tensors only and raises on anything it does not take; the dispatcher

@@ -9,7 +9,10 @@ nor `repro`, so the card's machine runs them as they are:
 Paged attention: the sweeps of tests/test_kernels.py plus the serving
 engine's default layer (H4/KV2/D32) and qwen3-14b's attention width
 (H40/KV8/D128), pages of 4, 8 and 16 slots, tables with holes and a row of
-length 0. Flash attention: the sweep of tests/test_kernels.py under its
+length 0; the engine step's pattern at qwen3-14b's width, length-0 rows
+with stale page ids, pages of 1 and 32 slots, group 1 and 8, head_dim 64,
+80, 256, 36 and 33 (bf16 rows off 16 bytes), full 16-page rows with holes
+and pools off 16 bytes, each call repeated and equal bit for bit. Flash attention: the sweep of tests/test_kernels.py under its
 three masks, head_dim 80 and 16, ragged lengths and rows with no valid
 key, and the edges of the bf16 kernel's tiles (S and T off the tile
 sizes, S = 1, head dims 32 to 256, windows with S < T). Scans: the
@@ -61,7 +64,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(form, shape, seed, dev):
+def _inputs(form, shape, seed, dev, pattern="random", offset=0):
+    """Random tables with holes and the last row of length 0; then per
+    ``pattern``: "main", the engine step's (rows 16k .. 16k + 8 of length
+    0 with all-hole tables, the rest one page, one row of exactly ``page``
+    tokens and one of page + 1); "stale", every other row of length 0 with
+    stale page ids (>= 0); "full", every row max_pages pages with 3 holes.
+    ``offset`` puts the pools ``offset`` elements into their storage."""
     b, h, kv, d, page, mp, n_pages = shape
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((b, h, d), generator=g)
@@ -74,6 +83,25 @@ def _inputs(form, shape, seed, dev):
         lengths[i] = int(torch.randint(1, n * page + 1, (1,), generator=g))
         if n > 1 and i % 2 == 0:
             table[i, int(torch.randint(0, n - 1, (1,), generator=g))] = -1
+    if pattern == "main":
+        table.fill_(-1)
+        lengths = torch.randint(1, page + 1, (b,), generator=g, dtype=torch.int32)
+        table[:, 0] = torch.randint(0, n_pages, (b,), generator=g, dtype=torch.int32)
+        idle = torch.arange(b) % 16 < 9
+        lengths[idle] = 0
+        table[idle] = -1
+        lengths[1], lengths[2] = page, page + 1
+        table[1, 0], table[2, :2] = 1, torch.tensor([2, 3], dtype=torch.int32)
+    elif pattern == "stale":
+        lengths[::2] = 0
+        table[::2] = torch.randint(0, n_pages, (len(table[::2]), mp), generator=g,
+                                   dtype=torch.int32)
+    elif pattern == "full":
+        for i in range(b):
+            table[i] = torch.randperm(n_pages, generator=g)[:mp].to(torch.int32)
+            table[i, torch.randperm(mp, generator=g)[:3]] = -1
+        lengths = (mp - 1) * page + torch.randint(1, page + 1, (b,), generator=g,
+                                                  dtype=torch.int32)
     lengths[-1] = 0
     kw = {}
     if form == "int8":
@@ -84,8 +112,23 @@ def _inputs(form, shape, seed, dev):
     else:
         dt = getattr(torch, form)
         q, planes = q.to(dt), [x.to(dt) for x in planes]
+    if offset:
+        views = []
+        for x in planes:
+            buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+            buf[offset:] = x.flatten().to(dev)
+            views.append(buf[offset:].view(x.shape))
+        planes = views
     args = [t.to(dev) for t in (q, *planes, table, lengths)]
     return args, kw
+
+
+def _plain(args, kw):
+    if kw:
+        q, k, v, table, lengths = args
+        return ref.paged_attention_quant(q, k, v, kw["k_scale"], kw["v_scale"],
+                                         table, lengths)
+    return ref.paged_attention(*args)
 
 
 @pytest.mark.parametrize("form", ["float32", "bfloat16", "int8"])
@@ -104,6 +147,51 @@ def test_kernel_matches_plain(dev, name, form):
         want = ref.paged_attention(*args)
     assert got.dtype == want.dtype and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[form], rtol=TOL[form])
+
+
+# the engine step's pattern and the edges of the kernel's design (its
+# warps-per-unit split, 128-dim output blocks, copy widths from 16 bytes
+# down): (b, h, kv, d, page, max_pages, pool pages, pattern of `_inputs`)
+PATTERNS = {
+    "main-path-H40-KV8-D128": (640, 40, 8, 128, 16, 16, 384, "main"),
+    "stale-ids": (64, 40, 8, 128, 16, 16, 384, "stale"),
+    "page1": (24, 8, 4, 64, 1, 40, 512, "random"),
+    "page32": (12, 8, 2, 128, 32, 8, 64, "random"),
+    "group1-D80": (16, 8, 8, 80, 16, 8, 96, "random"),
+    "group8-D256": (16, 16, 2, 256, 16, 8, 96, "random"),
+    "D64": (20, 8, 2, 64, 16, 8, 96, "random"),
+    "D36": (20, 8, 2, 36, 16, 8, 96, "random"),    # bf16 rows of 72 bytes
+    "D33": (20, 8, 2, 33, 16, 8, 96, "random"),    # bf16 rows of 66 bytes
+    "full-16-pages": (64, 40, 8, 128, 16, 16, 384, "full"),
+}
+
+
+@pytest.mark.parametrize("form", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", list(PATTERNS))
+def test_kernel_matches_plain_on_patterns(dev, name, form):
+    """The plain version's result within the gate, and a repeated call
+    equal bit for bit."""
+    *shape, pattern = PATTERNS[name]
+    args, kw = _inputs(form, tuple(shape), seed=len(name), dev=dev, pattern=pattern)
+    got = pa.paged_attention(*args, **kw)
+    again = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = _plain(args, kw)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[form], rtol=TOL[form])
+
+
+@pytest.mark.parametrize("form", ["float32", "bfloat16", "int8"])
+def test_kernel_takes_pools_off_16_bytes(dev, form):
+    """Pools one element into their storage: the narrowest copies (4, 2
+    and 1 bytes for fp32, bf16 and int8)."""
+    args, kw = _inputs(form, (9, 8, 2, 64, 8, 6, 24), seed=11, dev=dev, offset=1)
+    assert args[1].data_ptr() % 16 != 0
+    got = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), _plain(args, kw).float(),
                                atol=TOL[form], rtol=TOL[form])
 
 

@@ -20,16 +20,17 @@ tokens over 2 or 4 warps turned off), to time the split where it is
 taken.
 
 Each source is built with nvcc (the flags of `kernels/_build.py`, all
-builds at once) into `kernels/build/bench/`, and its ptxas report printed.
-The kernel wrapper (`kernels/paged_attention.py`) then launches each build
-in turn. `serving.engine.step` runs at `chip_smoke.py`'s FULL_WIDTH
+builds at once: `chip_smoke.bench_builds`) into `kernels/build/bench/`,
+and its ptxas report printed (registers and spills of each
+instantiation). The kernel wrapper (`kernels/paged_attention.py`) then
+launches each build in turn (`_build.use`). `serving.engine.step` runs at `chip_smoke.py`'s FULL_WIDTH
 (qwen3-14b's attention width, 8 replicas) for its two phases, fp32
 unmetered and int8 at 4 link pages a step, through
 `chip_smoke.engine_phase` (the reference's counts, one launch a step and
 no host sync are required); the inputs of the last step, captured from
 the first build's run, are the main-path inputs that every build is timed
 on. Per round the builds are walked forward, then backward (parent,
-change, change, parent for two), and each gives:
+change, change, parent for two: `chip_smoke.walk`), and each gives:
 
 - the engine's ms per step in both phases (host clock, STEPS steps);
 - per form: fp32; bf16 (the fp32 inputs cast); int8; fp32 with the main
@@ -60,45 +61,14 @@ launch. Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "paged_attention.cu"
-
-
-def build(sources: dict[str, Path], out_dir: Path, nvcc: str, flags) -> dict:
-    """Compile every source at once; {name: (library path, ptxas lines)}."""
-    procs = {}
-    for name, src in sources.items():
-        so = out_dir / f"{name}.so"
-        procs[name] = (so, subprocess.Popen([nvcc, *flags, "-o", str(so), str(src)],
-                                            stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True))
-    built = {}
-    for name, (so, proc) in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            sys.exit(f"paged_attention_bench: nvcc failed on {sources[name]}:\n{err}")
-        built[name] = (so, [ln.strip() for ln in (out + err).splitlines()
-                            if "entry function" in ln or "registers" in ln
-                            or "spill" in ln])
-    return built
-
-
-def load(so: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(so))
-    fn = lib.xbof_paged_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def write_rate(cs, like, flush) -> dict:
@@ -154,19 +124,16 @@ def main() -> None:
         copy = out_dir / f"{name}_nw1.cu"
         copy.write_text(text.replace(rule, "constexpr int kUnitsPerSm = 0;"))
         sources[f"{name}_nw1"] = copy
-    t0 = time.perf_counter()
-    built = build(sources, out_dir, _build.nvcc(), _build.NVCC_FLAGS)
-    seconds = time.perf_counter() - t0
+    built, seconds = cs.bench_builds(sources, "paged_decode_kernel", "paged_attention_bench")
     for name, (_, ptxas) in built.items():
         print(json.dumps({"build": {"name": name, "source": str(sources[name]),
                                     "seconds_all": seconds, "ptxas": ptxas}}), flush=True)
-    libs = {name: load(so) for name, (so, _) in built.items()}
 
     def use(name):
-        pa._lib = lambda: libs[name]
+        _build.use("paged_attention", built[name][0])
 
     # the main path's inputs, from the first build's engine run
-    use(next(iter(libs)))
+    use(next(iter(built)))
     inputs = {phase: cs.engine_phase(E, pa, phase, dev)[1] for phase in cs.PHASES}
     (fp_args, _), (i8_args, i8_kw) = inputs["fp32"], inputs["int8_metered"]
     forms = {"fp32": (list(fp_args), {}),
@@ -199,31 +166,30 @@ def main() -> None:
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     writes = write_rate(cs, fp_args[0], flush)
     print(json.dumps({"write_rate": writes}), flush=True)
-    order = list(libs)
+    order = list(built)
     runs = []
-    for rnd in range(args.rounds):
-        for name in order + order[::-1]:
-            use(name)
-            row = {"round": rnd, "name": name, "engine_ms_per_step": {}, "forms": {}}
-            for phase in cs.PHASES:
-                line, _ = cs.engine_phase(E, pa, phase, dev)
-                row["engine_ms_per_step"][phase] = line["ms_per_step"]
-            for f, (a, kw) in forms.items():
-                got = pa.paged_attention(*a, **kw)
-                again = pa.paged_attention(*a, **kw)
-                torch.cuda.synchronize()
-                err, rel, ok = cs.max_err(got, want[f], cs.TOL[f.split("_")[0]])
-                if f == "bf16":
-                    ok = rel <= cs.TOL[f] and bool(torch.isfinite(got).all())
-                ms = cs.timed_ms(lambda: pa.paged_attention(*a, **kw), 20, flush)
-                ms_spun, spin_ms, host_ms = cs.timed_spun_ms(
-                    lambda: pa.paged_attention(*a, **kw), 20, flush)
-                row["forms"][f] = dict(ms=ms, ms_spun=ms_spun, spin_ms=spin_ms,
-                                       host_ms_max=host_ms, max_abs_err=err,
-                                       max_rel_err=rel, ok=ok and host_ms < spin_ms,
-                                       repeat_equal=torch.equal(got, again))
-            print(json.dumps({"run": row}), flush=True)
-            runs.append(row)
+    for rnd, name in cs.walk(order, args.rounds):
+        use(name)
+        row = {"round": rnd, "name": name, "engine_ms_per_step": {}, "forms": {}}
+        for phase in cs.PHASES:
+            line, _ = cs.engine_phase(E, pa, phase, dev)
+            row["engine_ms_per_step"][phase] = line["ms_per_step"]
+        for f, (a, kw) in forms.items():
+            got = pa.paged_attention(*a, **kw)
+            again = pa.paged_attention(*a, **kw)
+            torch.cuda.synchronize()
+            err, rel, ok = cs.max_err(got, want[f], cs.TOL[f.split("_")[0]])
+            if f == "bf16":
+                ok = rel <= cs.TOL[f] and bool(torch.isfinite(got).all())
+            ms = cs.timed_ms(lambda: pa.paged_attention(*a, **kw), 20, flush)
+            ms_spun, spin_ms, host_ms = cs.timed_spun_ms(
+                lambda: pa.paged_attention(*a, **kw), 20, flush)
+            row["forms"][f] = dict(ms=ms, ms_spun=ms_spun, spin_ms=spin_ms,
+                                   host_ms_max=host_ms, max_abs_err=err,
+                                   max_rel_err=rel, ok=ok and host_ms < spin_ms,
+                                   repeat_equal=torch.equal(got, again))
+        print(json.dumps({"run": row}), flush=True)
+        runs.append(row)
     summary = {}
     for name in order:
         mine = [r for r in runs if r["name"] == name]

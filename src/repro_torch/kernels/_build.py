@@ -72,6 +72,13 @@ def build(names=SOURCES) -> dict[str, Path]:
     return {name: library_path(name) for name in names}
 
 
+def use(name: str, lib: ctypes.CDLL) -> None:
+    """Make the wrapper of ``csrc/<name>.cu`` launch ``lib`` from now on: a
+    build of another source with the same C entry, as the benches time
+    side by side (`chip_smoke.bench_builds`)."""
+    _LIBS[name] = lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _LIBS:

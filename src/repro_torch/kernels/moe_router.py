@@ -3,8 +3,8 @@
 Replaces the TPU Pallas kernel `repro.kernels.moe_router.topk_router`:
 per token row the k experts with the largest ``scores + bias``, ties to
 the lowest index, weighted by their UNBIASED scores over max(sum, 1e-9).
-It is bound by bytes (one warp per row; see the source's note). Plain
-version: `kernels.ref.topk_router`.
+One warp per row; latency, not bytes, sets its time (see the source's
+note). Plain version: `kernels.ref.topk_router`.
 
 `topk_router` launches the kernel on PyTorch's current stream for CUDA
 tensors only and raises on anything it does not take; the dispatcher

@@ -25,9 +25,14 @@ version bit for bit; for the chunked bf16 WKV kernel also T
 across its 16-row chunks, K = 128 from s0, more blocks than SMs, decays
 with w = 0 and w = 1 exactly and down to e^-30, and a view off 16 bytes. Router: the sweep of tests/test_kernels.py
 with and without bias, DeepSeek-v2's and -v3's shapes in prefill and
-decode, and rows with exact ties (indices exact, weights within 1e-6).
-FTL: the sweep of tests/test_kernels.py, PPNs past fp32's integers and
-out-of-range LPNs (exact)."""
+decode, rows with exact ties, and the edges of its redesign (E = 31, 32,
+33, 160, 256, 1024 with k = 1 and 16; T = 1, 4, 1000, 4096; rows of -0.0
+and +0.0, of one value, all-negative sel, rows off 16 bytes), each
+repeated bit for bit (indices exact, weights within 1e-6). FTL: the sweep
+of tests/test_kernels.py, PPNs past fp32's integers, out-of-range LPNs
+at entries 8 and 1000, N = 1, 3, 5 and 2^20 + 3, lpns views at offsets
+1-3, a directory of 70 000 segments and entries = 1000, each repeated
+bit for bit (exact)."""
 import pytest
 import torch
 
@@ -541,6 +546,59 @@ def test_router_kernel_matches_plain(dev, name, bias, ties):
     torch.testing.assert_close(w, want_w, atol=1e-6, rtol=0)
 
 
+# the edges of the router kernel: (t, e, k, pattern) — E around a lane's
+# slot count, DeepSeek's two counts and the limit, k = 1 and 16, T = 1, 4,
+# 1000 and 4096; rows of -0.0 and +0.0 ("zeros"), of one value ("equal"),
+# a bias that makes every sel negative ("negbias"), rows of E % 4 == 0 off
+# 16 bytes ("offset")
+ROUTER_EDGES = {f"e{e}-k{k}": (1000, e, k, "random") for e in (31, 32, 33, 160, 256, 1024)
+                for k in (1, 16)}
+ROUTER_EDGES.update({f"t{t}-e{e}": (t, e, k, "random") for t in (1, 4, 1000, 4096)
+                     for e, k in ((160, 6), (256, 8))})
+ROUTER_EDGES.update({f"{pattern}-e{e}-k{k}": (t, e, k, pattern)
+                     for t, e, k in ((64, 160, 6), (64, 256, 8), (64, 33, 16), (37, 1024, 16))
+                     for pattern in ("zeros", "equal", "negbias", "offset")})
+
+
+def _router_edge_inputs(t, e, pattern, bias, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    if pattern == "zeros":     # -0.0 and +0.0 tie; a small positive every 7th
+        scores = torch.where(torch.rand((t, e), generator=g) < 0.5,
+                             torch.tensor(-0.0), torch.tensor(0.0))
+        scores[:, ::7] = torch.rand((t, (e + 6) // 7), generator=g) * 0.01
+    elif pattern == "equal":
+        scores = torch.full((t, e), 1.0 / e)
+    elif pattern == "negbias":
+        scores = torch.sigmoid(torch.randn((t, e), generator=g))
+    else:
+        scores = torch.softmax(torch.randn((t, e), generator=g), -1)
+    b = torch.randn((e,), generator=g) * 0.1 - (2.0 if pattern == "negbias" else 0.0)
+    scores = scores.to(dev)
+    if pattern == "offset":    # a view one element into its storage
+        store = torch.empty(t * e + 1, device=dev)
+        store[1:] = scores.view(-1)
+        scores = store[1:].view(t, e)
+    return scores, b.to(dev) if bias else None
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("name", list(ROUTER_EDGES))
+def test_router_kernel_edges_match_plain_and_repeat(dev, name, bias):
+    t, e, k, pattern = ROUTER_EDGES[name]
+    scores, b = _router_edge_inputs(t, e, pattern, bias, len(name), dev)
+    before = mr.topk_router.launches
+    w, idx = mr.topk_router(scores, k, bias=b)
+    w2, idx2 = mr.topk_router(scores, k, bias=b)
+    torch.cuda.synchronize()
+    assert mr.topk_router.launches == before + 2
+    want_w, want_idx = ref.topk_router(scores, k, bias=b)
+    assert torch.equal(idx, want_idx)
+    torch.testing.assert_close(w, want_w, atol=1e-6, rtol=0)
+    assert torch.equal(idx2, idx) and torch.equal(w2.view(torch.int32), w.view(torch.int32))
+    if pattern == "equal" and b is None:   # one value: the lowest indices, in order
+        assert torch.equal(idx, torch.arange(k, dtype=torch.int32, device=dev).expand(t, k))
+
+
 def test_router_dispatcher_launches_for_cuda_tensors(dev):
     scores, b = _router_inputs(ROUTER_SHAPES["v3-decode"], True, 1, dev)
     before = mr.topk_router.launches
@@ -604,6 +662,51 @@ def test_ftl_kernel_out_of_range_lpns_match_plain(dev):
                          1000, 2**31 - 1, -2**31], dtype=torch.int32, device=dev)
     got = ftl.ftl_lookup(lpns, directory, cache, 8)
     want = ref.ftl_lookup(lpns, directory, cache, 8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the edges of the FTL kernel: (n_seg, n_slots, entries, n, offset) — N
+# of 1, 3 and 5 and past a whole number of blocks, lpns a view 1, 2 or 3
+# elements into its storage (off 16 bytes), a directory of 70 000
+# segments (280 KB, more than an SM holds), entries not a power of two
+FTL_EDGES = {"n1": (64, 16, 128, 1, 0), "n3": (64, 16, 128, 3, 0),
+             "n5": (64, 16, 128, 5, 0), "n2^20+3": (1862, 931, 512, (1 << 20) + 3, 0),
+             "offset1": (1862, 931, 512, 100_003, 1), "offset2": (64, 16, 128, 4097, 2),
+             "offset3": (64, 16, 128, 10, 3), "dir70000": (70_000, 4096, 64, 100_003, 0),
+             "entries1000": (300, 64, 1000, 50_001, 0)}
+
+
+@pytest.mark.parametrize("name", list(FTL_EDGES))
+def test_ftl_kernel_edges_match_plain_and_repeat(dev, name):
+    n_seg, n_slots, entries, n, offset = FTL_EDGES[name]
+    lpns, directory, cache = _ftl_inputs((n_seg, n_slots, entries, n + offset), len(name),
+                                         dev, (1 << 31) - 1)
+    lpns = lpns[offset:]
+    assert lpns.storage_offset() == offset and lpns.numel() == n
+    before = ftl.ftl_lookup.launches
+    ppn, hit = ftl.ftl_lookup(lpns, directory, cache, entries)
+    ppn2, hit2 = ftl.ftl_lookup(lpns, directory, cache, entries)
+    torch.cuda.synchronize()
+    assert ftl.ftl_lookup.launches == before + 2
+    want_ppn, want_hit = ref.ftl_lookup(lpns, directory, cache, entries)
+    assert torch.equal(ppn, want_ppn) and torch.equal(hit, want_hit)
+    assert torch.equal(ppn2, ppn) and torch.equal(hit2, hit)
+
+
+@pytest.mark.parametrize("entries", [8, 1000])
+def test_ftl_kernel_out_of_range_lpns_at_two_entry_counts(dev, entries):
+    """Negative and too-large LPNs at entries 8 (a power of two) and 1000,
+    with slots below -1 and past the cache."""
+    g = torch.Generator().manual_seed(entries)
+    n_seg, n_slots = 7, 3
+    directory = torch.tensor([2, 0, -1, 1, 5, 2, -7], dtype=torch.int32, device=dev)
+    cache = torch.randint(0, 1 << 30, (n_slots, entries), generator=g).int().to(dev)
+    span = n_seg * entries
+    lpns = torch.randint(-2 * span, 2 * span, (4099,), generator=g)
+    lpns[:2] = torch.tensor([-2**31, 2**31 - 1])
+    lpns = lpns.int().to(dev)
+    got = ftl.ftl_lookup(lpns, directory, cache, entries)
+    want = ref.ftl_lookup(lpns, directory, cache, entries)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

@@ -210,7 +210,8 @@ def _imports(path):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py")),
+              *sorted((ROOT / "scripts").glob("*_bench.py"))]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

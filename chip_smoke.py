@@ -49,13 +49,20 @@ nvcc per source, all at once), then:
    into their storage, a directory of 70 000 segments (280 KB, more than
    an SM holds) and entries = 1000 (each call repeated bit for bit);
 2. drives the serving engine's main path — `serving.engine.step` at
-   qwen3-14b's attention width, 8 replicas, 32 steps — twice: fp32 pages
-   unmetered, and int8 pages under a LINK_BW budget of 4 pages per step.
-   The harvesting counts must equal the JAX reference's on the same
-   configuration, the paged-attention kernel must have run once per step
-   (its launch count is zeroed just before each run and read just after),
-   and no step may synchronize with the host (`torch.cuda`'s sync debug
-   mode raises on one);
+   qwen3-14b's attention width, 8 replicas, 32 steps — in four phases:
+   one shard with fp32 pages unmetered (`fp32`) and int8 pages under a
+   LINK_BW budget of 4 pages per step (`int8_metered`); the hierarchical
+   engine with 2 shards of 4 replicas and fp32 pages (`sharded2_fp32`),
+   and with 4 shards of 2, two shards an enclosure, int8 pages, metered
+   (`enclosure4_int8_metered`). Each phase runs 3 times from the same
+   seeds. The harvesting counts, requests exchanged across shards
+   included (which must be > 0 with shards), must equal the JAX
+   reference's on the same configuration, the paged-attention kernel must
+   have run once per step (its launch count is zeroed just before each
+   run and read just after; all shards' rows go to one launch) and agree
+   with its plain version on the last step's inputs, and no step may
+   synchronize with the host (`torch.cuda`'s sync debug mode raises on
+   one);
 3. drives the model zoo's serve path through `launch.serve.run_model`:
    qwen3-14b at its full published width and depth (bf16, batch 4, prompt
    2048, 32 greedy tokens) and h2o-danube-1.8b at its full config (batch
@@ -103,7 +110,10 @@ nvcc per source, all at once), then:
    rate, and the RG-LRU rows whether they equal the plain version bit for
    bit (`bit_equal`, which must hold) and, as a yardstick of the memory's
    rate, the time of a `torch.add` that moves the same bytes (`stream_ms`);
-5. checks the engine, and five narrow fp32 models (a dense one,
+5. checks the engine (4 replicas with int8 pages; and 8 replicas in 2
+   shards, metered, with fp32 pages redirecting across shards and with
+   int8 pages borrowing link bytes across shards, whose integer and bool
+   state must equal bit for bit every step), and five narrow fp32 models (a dense one,
    recurrentgemma-smoke and rwkv6-smoke with a prompt of 128,
    deepseek-v2-smoke and deepseek-v3-smoke with a prompt of 1040, whose
    2080 tokens take the MoE's sorted dispatch; 8 decode steps), on the GPU
@@ -144,11 +154,23 @@ FULL_WIDTH = dict(n_replicas=8, seq_slots=64, shadow_slots=16,
                   n_heads=40, kv_heads=8, head_dim=128)
 ARRIVALS = [16, 4, 0, 0, 0, 0, 0, 0]
 STEPS = 32
+# each phase is driven this many times from the same seeds (every run held
+# to the same counts), for the spread of its host-bound ms per step
+REPEATS = 3
 # (redirected summed over the steps, offsite_pages and log_commits at the
-# last step) of the JAX reference engine on the same configurations
+# last step, cross_redirected summed over the steps) of the JAX reference
+# engine on the same configurations: `repro.serving.engine.step` on the
+# CPU, STEPS steps from `init(cfg, jax.random.key(0))` with ARRIVALS (the
+# counts do not depend on the weights or the activations)
 PHASES = {
-    "fp32": (dict(kv_quant="none"), (325, 88, 120)),
-    "int8_metered": (dict(kv_quant="int8", link_pages_per_step=4), (12, 20, 52)),
+    "fp32": (dict(kv_quant="none"), (325, 88, 120, 0)),
+    "int8_metered": (dict(kv_quant="int8", link_pages_per_step=4), (12, 20, 52, 0)),
+    # the hierarchical engine: 2 shards of 4 replicas, one flat exchange
+    "sharded2_fp32": (dict(kv_quant="none", n_shards=2), (203, 64, 96, 128)),
+    # depth 3: 4 shards of 2 replicas, 2 shards an enclosure, metered
+    "enclosure4_int8_metered": (dict(kv_quant="int8", link_pages_per_step=4,
+                                     n_shards=4, shards_per_enclosure=2),
+                                (0, 0, 16, 192)),
 }
 # kernel vs plain version (the gates of tests/test_kernels.py)
 TOL = {"fp32": 3e-5, "bf16": 3e-2, "int8": 1e-5}
@@ -1420,13 +1442,18 @@ def ftl_phase(dev, flush, floor_ms) -> tuple[dict, dict]:
 
 def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
     """One phase of the main path: `serving.engine.step` at FULL_WIDTH for
-    STEPS steps from fixed seeds, after a warm-up on a throwaway state.
-    The kernel's launch count is zeroed just before the run and read just
-    after. Returns the phase's line (harvesting counts, launches, the last
-    attention norm, host ms per step) and the last step's paged-attention
-    call (args, kw). Fails on counts other than the JAX reference's, on a
-    launch count other than one a step, on a non-finite norm, and on a
-    host sync inside a step."""
+    STEPS steps from fixed seeds, after a warm-up on a throwaway state,
+    driven REPEATS times. Each time the kernel's launch count is zeroed
+    just before the run and read just after. Returns the phase's line
+    (harvesting counts, launches, the last attention norm, host ms per
+    step: the median and every run's) and the last step's paged-attention
+    call (args, kw), which the kernel must also compute as its plain
+    version does. Fails on counts other than the JAX reference's, on a
+    launch count other than one a step, on a non-finite norm, on a host
+    sync inside a step, and on a phase with shards that exchanged no
+    request."""
+    from repro_torch.kernels import ref
+
     extra, expect = PHASES[phase]
     cfg = E.EngineConfig(**FULL_WIDTH, **extra)
     arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
@@ -1435,8 +1462,6 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
     for _ in range(2):
         warm, _ = E.step(cfg, warm, arrivals)
     del warm
-    state = E.init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    gen = torch.Generator(device=dev).manual_seed(7)
     captured = {}
     dispatch = E.kops.paged_attention
 
@@ -1444,40 +1469,138 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
         captured["call"] = (args, kw)
         return dispatch(*args, **kw)
 
-    redirected = torch.zeros((), dtype=torch.int32, device=dev)
-    norms = []
-    torch.cuda.synchronize()
-    E.kops.paged_attention = capture
-    pa.paged_attention.launches = 0
-    t0 = time.perf_counter()
-    # the step reads nothing back to the host: any synchronizing CUDA call
-    # inside it raises here
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for _ in range(STEPS):
-            state, stats = E.step(cfg, state, arrivals, generator=gen)
-            redirected += stats["redirected"]
-            norms.append(stats["attn_norm"])
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-        E.kops.paged_attention = dispatch
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = pa.paged_attention.launches
-    norms = torch.stack(norms).cpu()
-    got = (int(redirected), int(stats["offsite_pages"]), int(stats["log_commits"]))
+    runs = []
+    for _ in range(REPEATS):
+        state = E.init(cfg, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        redirected = torch.zeros((), dtype=torch.int32, device=dev)
+        cross = torch.zeros((), dtype=torch.float32, device=dev)
+        norms = []
+        torch.cuda.synchronize()
+        E.kops.paged_attention = capture
+        pa.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        # the step reads nothing back to the host: any synchronizing CUDA
+        # call inside it raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(STEPS):
+                state, stats = E.step(cfg, state, arrivals, generator=gen)
+                redirected += stats["redirected"]
+                cross += stats["cross_redirected"]
+                norms.append(stats["attn_norm"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            E.kops.paged_attention = dispatch
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = pa.paged_attention.launches
+        norms = torch.stack(norms).cpu()
+        got = (int(redirected), int(stats["offsite_pages"]),
+               int(stats["log_commits"]), int(cross))
+        runs.append(dict(got=got, launches=launches, norm=float(norms[-1]),
+                         finite=bool(torch.isfinite(norms).all()),
+                         ms_per_step=1e3 * seconds / STEPS))
+        if got != expect:
+            fail(f"{phase}: harvesting counts {got} != reference {expect}")
+        if launches != STEPS:
+            fail(f"{phase}: paged_attention launched {launches} times in {STEPS} steps")
+        if not runs[-1]["finite"]:
+            fail(f"{phase}: attn_norm not finite")
+        del state
+    if cfg.n_shards > 1 and expect[3] <= 0:
+        fail(f"{phase}: no request crossed shards")
+    args, kw = captured["call"]
+    err, _, ok = max_err(pa.paged_attention(*args, **kw), plain(ref, args, kw),
+                         TOL["int8" if kw else "fp32"])
+    if not ok:
+        fail(f"{phase}: kernel disagrees with its plain version on the phase's "
+             f"last step (max abs err {err})")
+    ms = sorted(r["ms_per_step"] for r in runs)
+    got = runs[0]["got"]
     line = dict(redirected=got[0], offsite_pages=got[1], log_commits=got[2],
-                expected=list(expect), launches=launches,
-                attn_norm_last=float(norms[-1]),
-                attn_norm_finite=bool(torch.isfinite(norms).all()),
-                ms_per_step=1e3 * seconds / STEPS)
-    if got != expect:
-        fail(f"{phase}: harvesting counts {got} != reference {expect}")
-    if launches != STEPS:
-        fail(f"{phase}: paged_attention launched {launches} times in {STEPS} steps")
-    if not line["attn_norm_finite"]:
-        fail(f"{phase}: attn_norm not finite")
+                cross_redirected=got[3], expected=list(expect),
+                n_shards=cfg.n_shards,
+                shards_per_enclosure=cfg.shards_per_enclosure,
+                launches=runs[0]["launches"],
+                launches_each_run=[r["launches"] for r in runs],
+                attn_norm_last=runs[0]["norm"],
+                attn_norm_finite=all(r["finite"] for r in runs),
+                kernel_max_abs_err=err,
+                # host clock, from a synchronize to a synchronize
+                ms_per_step=ms[len(ms) // 2],
+                ms_per_step_runs=[r["ms_per_step"] for r in runs],
+                ms_per_step_spread=[ms[0], ms[-1]])
     return line, captured["call"]
+
+
+def same_state(got, want, where: str) -> None:
+    """Fails unless two engine states agree: integer and bool leaves bit
+    for bit, int8 K/V codes within one step (a float32 product rounded on
+    the other side of .5), float leaves within 1e-4 relative. The K/V
+    planes' last page is scratch (masked writes land there), not state."""
+    for name, b in zip(want._fields, want):
+        a = getattr(got, name)
+        if b is None:
+            continue
+        if hasattr(b, "_fields"):
+            same_state(a, b, f"{where}.{name}")
+            continue
+        a = a.cpu()
+        if name in ("k", "v"):
+            a, b = a[:-1], b[:-1]
+        if b.dtype == torch.int8 and name in ("k", "v"):
+            ok = int((a.int() - b.int()).abs().max()) <= 1
+        elif b.is_floating_point():
+            ok = bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+        else:
+            ok = torch.equal(a, b)
+        if not ok:
+            fail(f"GPU engine {where}.{name} differs from the CPU plain path")
+
+
+def gpu_vs_cpu_engine(E, dev, cfg, arrivals, steps, check_state=False,
+                      pressured=()) -> dict:
+    """`serving.engine.step` on the GPU against the same code on the CPU
+    (the plain path) from the same state and activations: every stat each
+    step (integer stats equal, float stats within 1e-4 relative, the int8
+    read-back error within 2e-2), and with ``check_state`` the whole state.
+    ``pressured`` replicas start memory-full with two 16-token sequences
+    each. Returns the run's summed cross-shard stats."""
+    gs, cs = E.init(cfg, device=dev), E.init(cfg, device="cpu")
+    cs = cs._replace(wq=gs.wq.cpu(), wk=gs.wk.cpu(), wv=gs.wv.cpu(), wo=gs.wo.cpu())
+    rows = list(pressured)
+    if rows:
+        def pressure(state):
+            used, act = state.pool.used.clone(), state.pool.seq_active.clone()
+            rem = state.remaining.clone()
+            used[rows] = True
+            act[rows, :2] = True
+            rem[rows, :2] = 16
+            return state._replace(pool=state.pool._replace(used=used, seq_active=act),
+                                  remaining=rem)
+        gs, cs = pressure(gs), pressure(cs)
+    xg = torch.Generator(device="cpu").manual_seed(3)
+    arr = torch.tensor(arrivals, dtype=torch.int32)
+    totals = {"cross_redirected": 0.0, "cross_link_borrowed_bytes": 0.0}
+    for i in range(steps):
+        x = torch.randn((cfg.n_replicas, cfg.seq_slots + cfg.shadow_slots,
+                         cfg.n_heads * cfg.head_dim), generator=xg) * 0.1
+        gs, gst = E.step(cfg, gs, arr, x=x)
+        cs, cst = E.step(cfg, cs, arr, x=x)
+        for key in cst:
+            a, b = gst[key].cpu(), cst[key]
+            same = (torch.equal(a, b) if not b.is_floating_point()
+                    else bool(torch.allclose(a, b, rtol=2e-2 if key == "quant_err_norm" else 1e-4,
+                                             atol=1e-6)))
+            if not same:
+                fail(f"GPU engine step {i} stat {key} {a} != CPU plain path {b}")
+        if check_state:
+            same_state(gs, cs, f"step {i}")
+        for key in totals:
+            totals[key] += float(cst[key])
+    return totals
 
 
 def main() -> None:
@@ -1585,11 +1708,16 @@ def main() -> None:
     ftl_line, ftl_row = ftl_phase(dev, flush, floor_ms)
     print(json.dumps({"ftl": ftl_line}), flush=True)
 
-    # ---- 2. the main path: the engine at full width, two phases
+    # ---- 2. the main path: the engine at full width, four phases (one
+    # shard and the hierarchical engine, fp32 and int8 pages)
     engine_out, main_inputs = {}, {}
     for phase in PHASES:
         engine_out[phase], main_inputs[phase] = engine_phase(E, pa, phase, dev)
-    launches = {phase: line["launches"] for phase, line in engine_out.items()}
+    # each paged form's launches: the phases whose pages it reads
+    by_form = {form: {phase: line["launches"] for phase, line in engine_out.items()
+                      if (PHASES[phase][0]["kv_quant"] == "int8") == (form == "int8")}
+               for form in ("fp32", "int8")}
+    launches = {form: sum(v.values()) for form, v in by_form.items()}
     print(json.dumps({"engine": engine_out}), flush=True)
 
     # ---- 2b. the model zoo's serve path at full width, a sliding window
@@ -1617,7 +1745,7 @@ def main() -> None:
         "fp32": (list(fp_args), {}, launches["fp32"]),
         "bf16": ([fp_args[0].bfloat16(), fp_args[1].bfloat16(),
                   fp_args[2].bfloat16(), fp_args[3], fp_args[4]], {}, 0),
-        "int8": (list(int8_args), dict(int8_kw), launches["int8_metered"]),
+        "int8": (list(int8_args), dict(int8_kw), launches["int8"]),
     }
     kernels = []
     for form, (args, kw, n_launch) in forms.items():
@@ -1649,6 +1777,7 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:123",
             "launches": n_launch,
+            "launches_by_phase": by_form.get(form, {}),
             "on_main_path": form != "bf16",
             "shape": {"q": list(args[0].shape), "pool": list(args[1].shape),
                       "dtype": str(args[1].dtype).replace("torch.", "")},
@@ -1671,27 +1800,29 @@ def main() -> None:
             "library_ms": None,
         })
 
-    # ---- 4. the engine on the GPU against the same engine on the CPU
+    # ---- 4. the engine on the GPU against the same engine on the CPU:
+    # one shard (stats), then the hierarchical engine (stats and state)
     small = E.EngineConfig(n_replicas=4, seq_slots=4, shadow_slots=2,
                            pages_per_replica=32, page=8, max_pages=8,
                            kv_quant="int8")
-    gs, cs = E.init(small, device=dev), E.init(small, device="cpu")
-    cs = cs._replace(wq=gs.wq.cpu(), wk=gs.wk.cpu(), wv=gs.wv.cpu(), wo=gs.wo.cpu())
-    xg = torch.Generator(device="cpu").manual_seed(3)
-    for i in range(6):
-        x = torch.randn((4, 6, 128), generator=xg) * 0.1
-        arr = torch.tensor([5, 0, 0, 1], dtype=torch.int32)
-        gs, gst = E.step(small, gs, arr, x=x)
-        cs, cst = E.step(small, cs, arr, x=x)
-        for key in cst:
-            a, b = gst[key].cpu(), cst[key]
-            same = (torch.equal(a, b) if not b.is_floating_point()
-                    else bool(torch.allclose(a, b, rtol=2e-2 if key == "quant_err_norm" else 1e-4,
-                                             atol=1e-6)))
-            if not same:
-                fail(f"GPU engine step {i} stat {key} {a} != CPU plain path {b}")
-    print(json.dumps({"gpu_vs_cpu_engine": {"config": "4 replicas, int8",
-                                            "steps": 6, "ok": True}}), flush=True)
+    gpu_vs_cpu_engine(E, dev, small, [5, 0, 0, 1], 6)
+    sharded = E.EngineConfig(n_replicas=8, n_shards=2, seq_slots=2,
+                             shadow_slots=2, pages_per_replica=8, max_pages=8,
+                             link_pages_per_step=1)
+    cross = gpu_vs_cpu_engine(E, dev, sharded, [5, 5, 5, 5, 0, 0, 0, 0], 8,
+                              check_state=True)
+    borrowed = gpu_vs_cpu_engine(E, dev, sharded._replace(kv_quant="int8"),
+                                 [3, 3, 0, 0, 0, 0, 0, 0], 8, check_state=True,
+                                 pressured=range(4, 8))
+    if cross["cross_redirected"] <= 0 or borrowed["cross_link_borrowed_bytes"] <= 0:
+        fail(f"gpu_vs_cpu_engine: the sharded runs exchanged nothing ({cross}, "
+             f"{borrowed})")
+    print(json.dumps({"gpu_vs_cpu_engine": {
+        "configs": ["4 replicas, int8 (stats)",
+                    "8 replicas in 2 shards, metered, fp32 (stats and state)",
+                    "the same, int8, shard 1 memory-full (stats and state)"],
+        "steps": [6, 8, 8], "sharded_totals": [cross, borrowed], "ok": True}}),
+        flush=True)
     from repro_torch import configs
     from repro_torch.models.config import ArchConfig
     # the DeepSeek smoke configs at a prompt of 1040: 2080 tokens take the

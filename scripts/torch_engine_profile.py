@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
 """Where a step of the port's serving engine spends its time, on one GPU.
 
-    python3 scripts/torch_engine_profile.py [--quant int8 --link-pages 4]
+    python3 scripts/torch_engine_profile.py [--quant int8 --link-pages 4] \\
+        [--n-shards 4 --shards-per-enclosure 2]
 
 Runs `repro_torch.serving.engine.step` at the configuration `chip_smoke.py`
 drives (its FULL_WIDTH and ARRIVALS: qwen3-14b attention width, 8
-replicas, arrivals [16, 4, 0, ...]). After 6 steps of warm-up and sync
-checks it profiles steps 7 .. 6 + N (N = --steps) and reports, all from
-that one window:
+replicas, arrivals [16, 4, 0, ...]), with one shard or the hierarchical
+engine (``--n-shards``, ``--shards-per-enclosure``). After 6 steps of
+warm-up and sync checks it profiles steps 7 .. 6 + N (N = --steps) and
+reports, all from that one window:
 
 - wall ms per step: host clock around the window, from a synchronize to a
-  synchronize, with the profiler recording device activity only;
+  synchronize, with the profiler recording host and device activity;
 - device-busy ms per step and the idle share (1 - busy / wall): the summed
   duration of the CUDA kernels `torch.profiler` records in the window, on
   the one stream the step uses;
-- kernels launched per step, and the kernels that take most device time;
+- kernels launched per step, in all and by stage (below), and the
+  kernels that take most device time;
+- device ms and host ms per step for each stage of the step, from
+  `torch.profiler.record_function` ranges this script wraps around the
+  engine's functions: the management round (`round`), route (`route`),
+  the exchange across shards (`exchange`), admission (`admit`), the KV
+  pool's append (`append`), the paged-attention kernel
+  (`paged_attention`), release and the offsite scan (`release`), the
+  decode layer's products and the int8 read-back (`decode`), the shard
+  layout (`layout`) and the rest of the step (`step`: the LINK_BW
+  account, the spill budget, the stats). Each is exclusive of the labelled
+  ranges nested in it, as in `torch_model_profile.py`;
 - host syncs inside the step: the warnings `torch.cuda.set_sync_debug_mode`
   raises over 2 steps (the step is meant to have none);
 - for comparison, the wall ms per step of the next N steps run without the
@@ -43,6 +56,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quant", default="none", choices=["none", "int8"])
     ap.add_argument("--link-pages", type=int, default=0)
+    ap.add_argument("--n-shards", type=int, default=1)
+    ap.add_argument("--shards-per-enclosure", type=int, default=0)
     ap.add_argument("--steps", type=int, default=16)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -50,17 +65,35 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     from chip_smoke import ARRIVALS, FULL_WIDTH
+    from repro_torch.core import manager as mgr
+    from repro_torch.kernels import ops
     from repro_torch.serving import engine as E
+    from repro_torch.serving import kv_pool as kvp
+    from torch_model_profile import _label, _split
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
     cfg = E.EngineConfig(**FULL_WIDTH, kv_quant=args.quant,
-                         link_pages_per_step=args.link_pages)
+                         link_pages_per_step=args.link_pages,
+                         n_shards=args.n_shards,
+                         shards_per_enclosure=args.shards_per_enclosure)
     state = E.init(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
+
+    stages = {"round", "route", "exchange", "admit", "append",
+              "paged_attention", "release", "decode", "layout", "step"}
+    for module, attr, label in (
+            (mgr.ResourceManager, "round", "round"), (E, "_route", "route"),
+            (E, "_exchange", "exchange"), (E, "_admit", "admit"),
+            (kvp, "append_tokens", "append"),
+            (ops, "paged_attention", "paged_attention"),
+            (kvp, "release_sequences", "release"), (kvp, "offsite_pages", "release"),
+            (E, "_decode_all", "decode"), (E, "_to_shards", "layout"),
+            (E, "_from_shards", "layout"), (E, "_shard_step", "step")):
+        _label(module, attr, label)
 
     def run(n):
         nonlocal state
@@ -88,29 +121,30 @@ def main() -> None:
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / n
 
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
         wall_ms = timed(args.steps)
     wall_unprofiled_ms = timed(args.steps)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
-    busy_ms = sum(v[0] for v in by_name.values()) / args.steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    counts = {}
+    device_ms, host_ms, busy, n_kernels, top = _split(prof, stages, counts)
+    per = args.steps
     out = {
         "config": {"kv_quant": args.quant, "link_pages_per_step": args.link_pages,
+                   "n_shards": args.n_shards,
+                   "shards_per_enclosure": args.shards_per_enclosure,
                    "steps": args.steps},
         "window": f"steps 7..{6 + args.steps}",
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_unprofiled": wall_unprofiled_ms,
-        "device_busy_ms_per_step": busy_ms if kernels else "not measured",
-        "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else "not measured",
-        "kernels_per_step": len(kernels) / args.steps,
-        "top_kernels": [{"name": name[:80], "ms_per_step": ms / args.steps,
-                         "launches_per_step": n / args.steps}
+        "device_busy_ms_per_step": busy / per if n_kernels else "not measured",
+        "device_idle_share": (1.0 - busy / per / wall_ms) if n_kernels else "not measured",
+        "kernels_per_step": n_kernels / per,
+        "kernels_by_stage": {k: v / per for k, v in sorted(counts.items())},
+        "device_ms_by_stage": {k: v / per for k, v in sorted(device_ms.items())},
+        "host_ms_by_stage": {k: v / per for k, v in sorted(host_ms.items())},
+        "top_kernels": [{"name": name[:80], "ms_per_step": ms / per,
+                         "launches_per_step": n / per}
                         for name, (ms, n) in top],
         "host_syncs_in_2_steps": len(syncs),
         "host_sync_sites": sorted(collections.Counter(syncs).items()),

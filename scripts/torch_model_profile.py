@@ -75,11 +75,12 @@ def _label(module, attr: str, label: str) -> None:
     setattr(module, attr, wrapped)
 
 
-def _split(prof, labels) -> tuple[dict, dict, float, int, list]:
+def _split(prof, labels, counts=None) -> tuple[dict, dict, float, int, list]:
     """Per label: device ms of the kernels that ran inside it (and in no
     labelled range nested in it), and host ms spent inside it (likewise
     exclusive); then total busy ms, the number of kernels, and the top
-    kernels by device time.
+    kernels by device time. A ``counts`` dict receives each label's number
+    of kernels.
 
     A kernel belongs to the innermost labelled range whose span on the
     device timeline (the profiler's GPU-side copy of each
@@ -105,6 +106,8 @@ def _split(prof, labels) -> tuple[dict, dict, float, int, list]:
                 break
         ms = e.time_range.elapsed_us() / 1e3
         kernel_ms[owner] += ms
+        if counts is not None:
+            counts[owner] = counts.get(owner, 0) + 1
         kernels[e.name][0] += ms
         kernels[e.name][1] += 1
 

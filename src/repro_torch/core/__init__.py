@@ -6,7 +6,7 @@ modules (port of `repro.core`).
   manager      the unified management round every substrate runs
   loadbalance  holistic load-balance formula (paper §4.4)
   wal          log-page crash consistency (paper §4.5)
-  topology     the exchange-tree spec (DESIGN.md §11)
+  topology     the exchange tree and its level-by-level exchange (DESIGN.md §11)
   costs        per-op §4.6 remote-assist price table
 
 `shards_mrc` and `events` move with later slices.

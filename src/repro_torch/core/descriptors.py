@@ -19,6 +19,10 @@ Descriptor layout (paper Fig. 7):
 Resource types are data: each is a `ResourceSpec` in `REGISTRY` holding its
 claim-score weights and sync rules, and `claim_best` / `sync_utilization`
 loop over the registry.
+
+A table may carry leading axes ([..., N, S]): the hierarchical engine
+stacks one table per shard on a leading shard axis, the port's counterpart
+of the reference's `jax.vmap`. Node ids stay local to their table.
 """
 from __future__ import annotations
 
@@ -97,7 +101,7 @@ def _score_weights(device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class IdleResourceTable(NamedTuple):
-    """Struct-of-arrays descriptor table, shape [n_nodes, n_slots]."""
+    """Struct-of-arrays descriptor table, shape [..., n_nodes, n_slots]."""
 
     valid: torch.Tensor        # bool   [N, S]
     rtype: torch.Tensor        # int8   [N, S]
@@ -109,11 +113,11 @@ class IdleResourceTable(NamedTuple):
 
     @property
     def n_nodes(self) -> int:
-        return self.valid.shape[0]
+        return self.valid.shape[-2]
 
     @property
     def n_slots(self) -> int:
-        return self.valid.shape[1]
+        return self.valid.shape[-1]
 
 
 def make_table(n_nodes: int, n_slots: int = 2, *,
@@ -147,15 +151,24 @@ def publish(table: IdleResourceTable, node_id: int, slot: int, rtype: int,
     return IdleResourceTable(**out)
 
 
+def _node(table: IdleResourceTable, node_id):
+    """A node id to compare with [..., N, S]: a Python int as it is, a
+    tensor of one id per table (shape [..., 1]) as [..., 1, 1]."""
+    if isinstance(node_id, torch.Tensor):
+        return node_id.reshape(*table.valid.shape[:-2], 1, 1)
+    return node_id
+
+
 def claimable_mask(table: IdleResourceTable, borrower_id,
                    rtype: int) -> torch.Tensor:
-    """[N, S] bool — valid, unclaimed, right type, and not our own node."""
+    """[..., N, S] bool — valid, unclaimed, right type, and not our own
+    node."""
     node_ids = torch.arange(table.n_nodes, dtype=torch.int32,
                             device=table.valid.device)[:, None]
     return (table.valid
             & (table.borrower_id == FREE)
             & (table.rtype == rtype)
-            & (node_ids != borrower_id))
+            & (node_ids != _node(table, borrower_id)))
 
 
 def claim_best(table: IdleResourceTable, borrower_id, rtype: int):
@@ -164,46 +177,56 @@ def claim_best(table: IdleResourceTable, borrower_id, rtype: int):
     "Best" comes from the rtype's registered score weights. Masked scores
     are -inf and the argmax goes to the lowest flat index on ties, so
     every replica computing it on the same table picks the same lender.
-    ``borrower_id`` may be a one-element tensor (the claim sweep passes
-    one, so the sweep never reads a value back to the host).
+    ``borrower_id`` may be a tensor of one id per table (shape [..., 1]
+    for a table [..., N, S]; the claim sweep passes one, so the sweep never
+    reads a value back to the host).
 
-    Returns (table', lender_id, slot, success); lender/slot are -1 on
-    failure.
+    Returns (table', lender_id, slot, success), each of the table's
+    leading shape; lender/slot are -1 on failure.
     """
     dev = table.valid.device
+    lead = table.valid.shape[:-2]
     mask = claimable_mask(table, borrower_id, rtype)
     wa, wb = _score_weights(dev)
     rt = table.rtype.long().clamp(0, wa.shape[0] - 1)
     score = wa[rt] * table.amount_a + wb[rt] * table.amount_b
     score = torch.where(mask, score, float("-inf"))
-    flat = torch.argmax(score.reshape(-1)).reshape(1)
-    success = mask.any()
+    flat = torch.argmax(score.reshape(*lead, -1), dim=-1, keepdim=True)
+    success = mask.reshape(*lead, -1).any(dim=-1, keepdim=True)
     if isinstance(borrower_id, torch.Tensor):
-        me = borrower_id.reshape(1).to(torch.int32)
+        me = borrower_id.reshape(*lead, 1).to(torch.int32)
     else:
-        me = torch.full((1,), int(borrower_id), dtype=torch.int32, device=dev)
-    # gather/scatter with one-element index tensors: indexing by a 0-d
-    # tensor would read the index back to the host
-    bid = table.borrower_id.reshape(-1)
-    bid = bid.scatter(0, flat, torch.where(success, me, bid.gather(0, flat)))
+        me = torch.full((*lead, 1), int(borrower_id), dtype=torch.int32,
+                        device=dev)
+    # gather/scatter with index tensors: indexing by a 0-d tensor would
+    # read the index back to the host
+    bid = table.borrower_id.reshape(*lead, -1)
+    bid = bid.scatter(-1, flat, torch.where(success, me, bid.gather(-1, flat)))
     table = table._replace(borrower_id=bid.reshape(table.borrower_id.shape))
-    lender = torch.where(success, flat[0] // table.n_slots, -1).to(torch.int32)
-    slot = torch.where(success, flat[0] % table.n_slots, -1).to(torch.int32)
-    return table, lender, slot, success
+    lender = torch.where(success, flat // table.n_slots, -1).to(torch.int32)
+    slot = torch.where(success, flat % table.n_slots, -1).to(torch.int32)
+    return table, lender[..., 0], slot[..., 0], success[..., 0]
+
+
+def per_node(u: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``u[..., ids]`` per table: u [..., N], ids [..., N, S] local ids."""
+    lead = u.shape[:-1]
+    return u.gather(-1, ids.reshape(*lead, -1)).reshape(ids.shape)
 
 
 def sync_utilization(table: IdleResourceTable, node_utils=None,
                      amounts: dict | None = None) -> IdleResourceTable:
     """Per-step descriptor refresh, per rtype via the registry.
 
-    ``node_utils``: float32[N] (shorthand for ``{PROCESSOR: utils}``) or a
-    dict ``{rtype: float32[N]}``; ``amounts``: dict ``{rtype: float32[N]}``
-    of each node's current lendable amount for capacity resources.
+    ``node_utils``: float32[..., N] (shorthand for ``{PROCESSOR: utils}``)
+    or a dict ``{rtype: float32[..., N]}``; ``amounts``: dict ``{rtype:
+    float32[..., N]}`` of each node's current lendable amount for capacity
+    resources.
     lender_util syncs amount_b to the owner's util; borrower_util syncs
     amount_a to the claimant's util; amount syncs amount_a to the current
     lendable amount.
     """
-    n, s = table.valid.shape
+    n = table.n_nodes
     if node_utils is None:
         utils: dict = {}
     elif isinstance(node_utils, dict):
@@ -222,21 +245,21 @@ def sync_utilization(table: IdleResourceTable, node_utils=None,
         if u is not None:
             u = u.to(torch.float32)
             if spec.sync_b == "lender_util":
-                amount_b = torch.where(is_r & table.valid,
-                                       u[:, None].expand(n, s), amount_b)
+                amount_b = torch.where(is_r & table.valid, u[..., None],
+                                       amount_b)
             if spec.sync_a == "borrower_util":
                 amount_a = torch.where(is_r & table.valid & claimed,
-                                       u[safe_bid], amount_a)
+                                       per_node(u, safe_bid), amount_a)
         amt = amounts.get(rtype)
         if amt is not None and spec.sync_a == "amount":
             amount_a = torch.where(is_r & table.valid,
-                                   amt.to(torch.float32)[:, None].expand(n, s),
-                                   amount_a)
+                                   amt.to(torch.float32)[..., None], amount_a)
     return table._replace(amount_a=amount_a, amount_b=amount_b)
 
 
 def lenders_of(table: IdleResourceTable, borrower_id, rtype: int) -> torch.Tensor:
-    """bool[N] — which nodes currently lend ``rtype`` to ``borrower_id``."""
-    m = (table.valid & (table.borrower_id == borrower_id)
+    """bool[..., N] — which nodes currently lend ``rtype`` to
+    ``borrower_id`` (an int, or one id per table as in `claim_best`)."""
+    m = (table.valid & (table.borrower_id == _node(table, borrower_id))
          & (table.rtype == rtype))
-    return m.any(dim=1)
+    return m.any(dim=-1)

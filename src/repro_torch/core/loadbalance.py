@@ -55,22 +55,24 @@ def split_commands(n_commands: torch.Tensor, u_borrow: torch.Tensor,
                    **weights):
     """Split each borrower's command count across itself and its lenders.
 
-    Batched over borrowers: ``n_commands`` int[B], ``u_borrow`` float[B],
-    ``u_lends`` float[N] (every node's utilization), ``lender_mask``
-    bool[B, N] (which nodes lend to each borrower). Returns
-    (n_kept int32[B], n_sent int32[B, N]). Shares are proportional to each
-    lender's redirect probability, capped at 0.95 in total so the borrower
-    is never starved; the count is conserved exactly (floors go to the
-    lenders, the remainder stays local). The reference's one-borrower call
-    is the B=1 row.
+    Batched over borrowers: ``n_commands`` int[..., B], ``u_borrow``
+    float[..., B], ``u_lends`` float[..., N] (every node's utilization),
+    ``lender_mask`` bool[..., B, N] (which nodes lend to each borrower);
+    leading axes are independent pools (the hierarchical engine's shards).
+    Returns (n_kept int32[..., B], n_sent int32[..., B, N]). Shares are
+    proportional to each lender's redirect probability, capped at 0.95 in
+    total so the borrower is never starved; the count is conserved exactly
+    (floors go to the lenders, the remainder stays local). The reference's
+    one-borrower call is the B=1 row.
     """
-    p = redirect_probability(u_borrow[:, None], u_lends[None, :], **weights)
+    p = redirect_probability(u_borrow[..., :, None], u_lends[..., None, :],
+                             **weights)
     p = torch.where(lender_mask, p, 0.0)
-    p_sum = p.sum(dim=1)
+    p_sum = p.sum(dim=-1)
     total_p = torch.clamp(p_sum, max=0.95)
     scale = torch.where(p_sum > 0, total_p / torch.clamp(p_sum, min=_EPS), 0.0)
-    n_sent = torch.floor(n_commands[:, None] * p * scale[:, None]).to(torch.int32)
-    n_kept = (n_commands - n_sent.sum(dim=1)).to(torch.int32)
+    n_sent = torch.floor(n_commands[..., None] * p * scale[..., None]).to(torch.int32)
+    n_kept = (n_commands - n_sent.sum(dim=-1)).to(torch.int32)
     return n_kept, n_sent
 
 

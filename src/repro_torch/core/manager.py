@@ -18,17 +18,31 @@ policy (DESIGN.md §2):
   sync        `descriptors.sync_utilization` refreshes the amounts
 
 Everything is a function of (table, inputs) that reads no value back to
-the host, so the round can run inside a captured CUDA graph later.
+the host, so the round can run inside a captured CUDA graph later. A table
+and its inputs may carry leading axes ([..., N, S] and [..., N]): one
+table per shard, the port's counterpart of the reference's `jax.vmap`, so
+a claim sweep takes N steps, not N times the shard count.
+
+`shard_exchange` is the inter-shard half of the hierarchical round
+(DESIGN.md §9). The reference runs it compiled, where XLA divides by a
+constant as a product with its float32 reciprocal, multiplies two scalar
+factors together before it applies them to a vector, sums a short axis
+left to right and contracts a product fused into a sum into FMAs; the port
+does the same (`recip32`, `seq_sum`, `fma_sum`), so the floors the engine
+takes of its grants land on the same integers.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from . import descriptors as d
 from . import harvest as hv
+
+_EPS = 1e-9
 
 
 class ResourcePolicy(NamedTuple):
@@ -78,10 +92,113 @@ class ManagerConfig(NamedTuple):
         raise KeyError(f"no policy registered for rtype {rtype}")
 
 
+def recip32(c: float) -> float:
+    """float32 reciprocal of a constant divisor: the factor the reference's
+    compiled code multiplies by where its source divides by ``c``."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis left to right, one add at a time: the order
+    XLA's compiled reduction takes over a short axis, so a float total
+    lands on the reference's bits (and on the same bits on every device)."""
+    parts = x.unbind(-1)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def fma_sum(a: torch.Tensor, c: float) -> torch.Tensor:
+    """Σ a·c over the last axis (``c`` a constant) as XLA's compiled
+    reduction takes it when the product is fused into it: left to right,
+    each step one fused multiply-add rounded once to float32. Emulated in
+    float64, where the product of two float32 values is exact and so is
+    its sum with a running total up to 16 times larger (the exchange sums
+    at most 8 summaries of like size); past that a float32 tie could
+    round twice."""
+    prod = a.to(torch.float64) * float(np.float32(c))
+    parts = prod.unbind(-1)
+    out = parts[0].to(torch.float32)
+    for part in parts[1:]:
+        out = (part + out.to(torch.float64)).to(torch.float32)
+    return out
+
+
+def _fma32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c rounded once to float32, as an FMA gives it (emulated in
+    float64 as in `fma_sum`: exact while |c| is at most 16 |a·b|)."""
+    b = b.to(torch.float64) if isinstance(b, torch.Tensor) else float(np.float32(b))
+    return (a.to(torch.float64) * b + c.to(torch.float64)).to(torch.float32)
+
+
+class Settled(NamedTuple):
+    grants: torch.Tensor     # [..., lender, borrower]
+    received: torch.Tensor   # [..., S]
+    spare_net: torch.Tensor  # [..., S] spare after local netting
+    want_left: torch.Tensor  # [..., S] net want not received
+
+
+def settle(spare: torch.Tensor, want: torch.Tensor,
+           overhead: float) -> Settled:
+    """`shard_exchange`, with what each shard is left with for the next
+    level of a hierarchical exchange."""
+    spare = spare.to(torch.float32)
+    want = want.to(torch.float32)
+    spare_net = torch.clamp(spare - want, min=0.0)
+    want_net = torch.clamp(want - spare, min=0.0)
+    total_spare = seq_sum(spare_net)[..., None]
+    # the product fused into the sum: one FMA a step (no-op factor at 0)
+    total_draw = fma_sum(want_net, 1.0 + overhead)[..., None]
+    scale = torch.where(
+        total_draw > 0,
+        torch.clamp(total_spare / torch.clamp(total_draw, min=_EPS), max=1.0),
+        0.0)
+    frac = torch.where(
+        total_spare > 0, spare_net / torch.clamp(total_spare, min=_EPS), 0.0)
+    if overhead == 0.0:
+        # XLA drops the factors of 1: received is want_net * scale, and
+        # what is left of the want is one FMA
+        draw = received = want_net * scale
+        want_left = _fma32(-want_net, scale, want_net)
+    else:
+        # XLA folds the two scalar factors first: want_net * (scale * (1 +
+        # oh)); the division by the constant is a product with its
+        # reciprocal, which the want left over takes as one FMA
+        inv = recip32(1.0 + overhead)
+        draw = want_net * (scale * (1.0 + overhead))
+        received = draw * inv
+        want_left = _fma32(-draw, inv, want_net)
+    grants = frac[..., :, None] * draw[..., None, :]
+    return Settled(grants, received, spare_net, want_left)
+
+
+def shard_exchange(spare: torch.Tensor, want: torch.Tensor,
+                   overhead: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inter-shard half of a hierarchical management round (DESIGN.md
+    §9), over the last axis.
+
+    ``spare`` / ``want``: float32[..., S] per-shard aggregate post-local
+    leftovers for one rtype. ``overhead``: fractional cross-shard tax — a
+    borrower draws ``1 + overhead`` units of lender surplus per unit
+    received. Local-first netting: a shard with both spare and want nets
+    them first; total net demand is scaled to what net surplus can fund,
+    and each lender shard contributes in proportion to its net spare.
+
+    Returns ``(grants, received)``: grants float32[..., lender, borrower]
+    drawn from each lender's surplus, received float32[..., S] usable
+    units at each borrower. Σ_b grants[l, b] ≤ spare[l], received[b] ≤
+    want[b], grants[s, s] == 0."""
+    settled = settle(spare, want, overhead)
+    return settled.grants, settled.received
+
+
 def fill_by_rank(capacity: torch.Tensor, total) -> torch.Tensor:
-    """Split ``total`` across nodes by filling ``capacity`` in index order:
-    out[i] = clip(total − Σ_{j<i} cap[j], 0, cap[i])."""
-    cum = torch.cumsum(capacity, 0).to(capacity.dtype) - capacity
+    """Split ``total`` across nodes by filling ``capacity`` in index order
+    along the last axis: out[i] = clip(total − Σ_{j<i} cap[j], 0, cap[i]).
+    ``total`` broadcasts against ``capacity`` (one total per row: shape
+    [..., 1])."""
+    cum = torch.cumsum(capacity, -1).to(capacity.dtype) - capacity
     return torch.minimum(torch.clamp(total - cum, min=0), capacity)
 
 
@@ -109,8 +226,8 @@ class ResourceManager:
               inputs: dict[int, RoundInputs]) -> d.IdleResourceTable:
         """One full management round: each registered policy through
         trigger → publish → release → claim, then one per-rtype sync."""
-        n = table.n_nodes
-        zeros = torch.zeros(n, dtype=torch.float32, device=table.valid.device)
+        zeros = torch.zeros(table.valid.shape[:-1], dtype=torch.float32,
+                            device=table.valid.device)
         utils: dict[int, torch.Tensor] = {}
         amounts: dict[int, torch.Tensor] = {}
         for pol in self.cfg.policies:
@@ -127,7 +244,7 @@ class ResourceManager:
                     raise ValueError(
                         f"amount_gated policy for rtype {pol.rtype} needs an amount")
                 lend = amount > pol.min_amount
-                borrow = torch.zeros(n, dtype=torch.bool, device=zeros.device)
+                borrow = torch.zeros_like(zeros, dtype=torch.bool)
                 keep = borrow
             else:
                 lend, borrow = hv.harvest_triggers(
@@ -162,22 +279,22 @@ class ResourceManager:
 
     def _publish(self, table, pol, lend, util, amount):
         """Every node writes the policy's slots at once."""
-        n, s = table.valid.shape
-        sel = self._slot_mask(pol, s, table.valid.device)[None, :].expand(n, s)
+        sel = self._slot_mask(pol, table.n_slots, table.valid.device)
+        sel = sel.expand(table.valid.shape)
         if pol.preserve_claims:
             # only claims sitting on a withdrawn descriptor drop
-            drop = sel & (~lend)[:, None] & (table.rtype == pol.rtype)
+            drop = sel & (~lend)[..., None] & (table.rtype == pol.rtype)
             borrower = torch.where(drop, d.FREE, table.borrower_id)
         else:
             borrower = torch.where(sel, d.FREE, table.borrower_id)
         amount_a = table.amount_a
         if amount is not None:
-            amount_a = torch.where(sel, amount[:, None], amount_a)
+            amount_a = torch.where(sel, amount[..., None], amount_a)
         return table._replace(
-            valid=torch.where(sel, lend[:, None], table.valid),
+            valid=torch.where(sel, lend[..., None], table.valid),
             rtype=torch.where(sel, pol.rtype, table.rtype),
             amount_a=amount_a,
-            amount_b=torch.where(sel, util[:, None], table.amount_b),
+            amount_b=torch.where(sel, util[..., None], table.amount_b),
             borrower_id=borrower,
         )
 
@@ -187,7 +304,7 @@ class ResourceManager:
         n = table.n_nodes
         safe_bid = table.borrower_id.long().clamp(0, n - 1)
         mine = (table.borrower_id != d.FREE) & (table.rtype == pol.rtype)
-        keep = ~mine | borrow[safe_bid]
+        keep = ~mine | d.per_node(borrow, safe_bid)
         return table._replace(
             borrower_id=torch.where(keep, table.borrower_id, d.FREE))
 
@@ -196,39 +313,41 @@ class ResourceManager:
         """``claim_rounds`` sequential sweeps over the nodes in a stable
         busiest-first order; in each, a borrowing node under its
         distinct-lender cap claims its best lender via
-        `descriptors.claim_best`. A Python loop over node positions — the
-        node id and the take/skip decision stay on the device, so nothing
-        syncs with the host. ``lender_cap`` bounds DISTINCT lender nodes
-        (the any-slot `lenders_of` reduction); claimed slots are bounded
-        separately by ``claim_rounds``."""
+        `descriptors.claim_best`. A Python loop over node positions, every
+        table of the leading axes at once — the node ids and the take/skip
+        decisions stay on the device, so nothing syncs with the host.
+        ``lender_cap`` bounds DISTINCT lender nodes (the any-slot
+        `lenders_of` reduction); claimed slots are bounded separately by
+        ``claim_rounds``."""
         cap = pol.lender_cap
-        order = torch.argsort(-util, stable=True)
+        order = torch.argsort(-util, dim=-1, stable=True)
         for _ in range(pol.claim_rounds):
             for i in range(table.n_nodes):
-                # a one-element slice: indexing with it stays on the device
-                # (a 0-d tensor index would be read back to the host)
-                node = order[i : i + 1]
-                have = d.lenders_of(table, node, pol.rtype).sum()
+                # a one-element slice per table: indexing with it stays on
+                # the device (a 0-d tensor index would be read back)
+                node = order[..., i : i + 1]
+                have = d.lenders_of(table, node, pol.rtype).sum(dim=-1)
                 claimed, _, _, _ = d.claim_best(table, node, pol.rtype)
-                take = borrow[node] & (have < cap)
+                take = borrow.gather(-1, node) & (have < cap)[..., None]
                 # claim_best only ever rewrites borrower_id
                 table = table._replace(borrower_id=torch.where(
-                    take, claimed.borrower_id, table.borrower_id))
+                    take[..., None], claimed.borrower_id, table.borrower_id))
         return table
 
     # ------------------------------------------------------------ derive
     def assist_matrix(self, table: d.IdleResourceTable,
                       rtype: int) -> torch.Tensor:
-        """float32[lender, borrower] — fraction of each lender's surplus
-        pledged to each borrower (claimed slots / the policy's slots)."""
+        """float32[..., lender, borrower] — fraction of each lender's
+        surplus pledged to each borrower (claimed slots / the policy's
+        slots)."""
         pol = self.cfg.policy(rtype)
-        n, s = table.valid.shape
+        n = table.n_nodes
         claimed = (table.valid & (table.borrower_id != d.FREE)
                    & (table.rtype == rtype))
         b = table.borrower_id.long().clamp(0, n - 1)
         nodes = torch.arange(n, device=b.device)
         onehot = ((b[..., None] == nodes) & claimed[..., None]).to(torch.float32)
-        return onehot.sum(dim=1) / float(pol.slots)
+        return onehot.sum(dim=-2) / float(pol.slots)
 
     @staticmethod
     def sync_utilization(table, node_utils, amounts=None):

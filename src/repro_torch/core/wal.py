@@ -8,6 +8,7 @@ lender failure the borrower replays its log over its last durable image.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -27,6 +28,9 @@ class LogPages(NamedTuple):
     count: torch.Tensor    # int32[n_segments] valid entries per page
     flushes: torch.Tensor  # int32[] segment flush-backs (cost accounting)
     commits: torch.Tensor  # int32[] total log commits (cost accounting)
+    # A log may carry leading axes: keys [..., n_segments, epp] with
+    # counters [...] — one log per shard of the hierarchical engine, each
+    # counting its own commits and flushes.
 
 
 def make_log(n_segments: int, entries_per_page: int = ENTRIES_PER_PAGE, *,
@@ -53,48 +57,56 @@ def commit_batch(log: LogPages, segments: torch.Tensor, keys: torch.Tensor,
     the last ``(count + n) % entries_per_page`` of its stream. A stable
     sort by segment gives each entry its arrival rank within its segment.
 
-    ``mask`` skips entries. Skipped and flushed-away entries are written to
-    one scratch slot past the end of a temporary copy of the pages and
-    dropped with it; the surviving slots are distinct by construction, so
-    no two live writes meet and no value is read back to the host.
+    A log with leading axes takes entries with the same leading axes
+    (segments [..., B], local to each log); each log's counters count its
+    own entries. ``mask`` skips entries. Skipped and flushed-away entries
+    are written to one scratch slot past the end of a temporary copy of
+    the pages and dropped with it; the surviving slots are distinct by
+    construction, so no two live writes meet and no value is read back to
+    the host.
     """
-    nseg, epp = log.keys.shape
+    lead = log.count.shape[:-1]
+    nseg, epp = log.keys.shape[-2:]
+    nall = math.prod(lead) * nseg                    # segments of every log
     dev = log.keys.device
-    b = segments.shape[0]
-    m = (torch.ones(b, dtype=torch.bool, device=dev) if mask is None
-         else mask.to(torch.bool))
-    seg = torch.where(m, segments.long(), nseg)      # masked -> dummy row
+    m = (torch.ones(segments.shape, dtype=torch.bool, device=dev)
+         if mask is None else mask.to(torch.bool))
+    base = (torch.arange(math.prod(lead), device=dev) * nseg).reshape(*lead, 1)
+    seg = torch.where(m, segments.long() + base, nall).reshape(-1)  # masked -> dummy
+    b = seg.shape[0]
 
     order = torch.argsort(seg, stable=True)
     sseg = seg[order]
     rank_sorted = torch.arange(b, device=dev) - torch.searchsorted(sseg, sseg)
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
 
-    per_seg = torch.zeros(nseg + 1, dtype=torch.long, device=dev)
+    per_seg = torch.zeros(nall + 1, dtype=torch.long, device=dev)
     per_seg.scatter_add_(0, seg, torch.ones_like(seg))
-    c0 = torch.cat([log.count.long(), per_seg.new_zeros(1)])
+    c0 = torch.cat([log.count.reshape(-1).long(), per_seg.new_zeros(1)])
     pos = c0[seg] + rank                             # absolute stream position
     total = c0[:-1] + per_seg[:-1]
     n_flushes = total // epp
     new_count = total % epp
 
     # an entry survives iff it lands in its segment's final (partial) page
-    survive = m & (pos // epp == torch.cat([n_flushes, n_flushes.new_zeros(1)])[seg])
+    survive = (m.reshape(-1)
+               & (pos // epp == torch.cat([n_flushes, n_flushes.new_zeros(1)])[seg]))
     flushed = n_flushes > 0                          # pre-batch contents cleared
-    target = torch.where(survive, seg * epp + pos % epp, nseg * epp)
+    target = torch.where(survive, seg * epp + pos % epp, nall * epp)
 
     def write(rows, new):
+        rows = rows.reshape(nall, epp)
         flat = torch.cat([torch.where(flushed[:, None], INVALID, rows).reshape(-1),
                           rows.new_full((1,), INVALID)])
-        flat[target] = new.to(torch.int32)
-        return flat[:-1].reshape(nseg, epp)
+        flat[target] = new.reshape(-1).to(torch.int32)
+        return flat[:-1].reshape(log.keys.shape)
 
     return LogPages(
         keys=write(log.keys, keys),
         vals=write(log.vals, vals),
-        count=new_count.to(torch.int32),
-        flushes=log.flushes + n_flushes.sum().to(torch.int32),
-        commits=log.commits + m.sum().to(torch.int32),
+        count=new_count.reshape(log.count.shape).to(torch.int32),
+        flushes=log.flushes + n_flushes.reshape(*lead, nseg).sum(-1).to(torch.int32),
+        commits=log.commits + m.sum(-1).to(torch.int32),
     )
 
 

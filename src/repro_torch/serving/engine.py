@@ -1,7 +1,7 @@
 """Continuous-batching serving engine with XBOF inter-replica harvesting.
 
-Port of `repro.serving.engine`, single shard. The runtime maps the paper
-onto data-parallel serving replicas:
+Port of `repro.serving.engine`. The runtime maps the paper onto
+data-parallel serving replicas:
 
   paper                         | engine
   ------------------------------+------------------------------------------
@@ -16,22 +16,45 @@ onto data-parallel serving replicas:
                                 |   spill pages AND §4.4 redirect commands
                                 |   debit it, commands first (DESIGN.md §8)
   10 ms descriptor poll         | every engine step
+  CXL pool locality tiers       | the shard axis: full descriptor machinery
+                                |   within a shard, one aggregate summary
+                                |   across shards (DESIGN.md §9)
 
-One `step` runs, in order: the management round (`core.manager`); route
-and admit; one `kv_pool.append_tokens` over every active sequence (offsite
-grants WAL-committed); one paged attention over the flattened (replica,
+The management round is HIERARCHICAL (DESIGN.md §9, §11): with
+``n_shards > 1`` the replicas split into shards of ``n_replicas /
+n_shards``; each shard runs the full management round over its own pool
+and descriptor table, and shards exchange one aggregate spare/want summary
+per rtype, settled level by level through `core.topology.
+hierarchical_exchange` (flat, or enclosures of ``shards_per_enclosure``
+shards with a pricier fabric tier above them). Every cross-level assist
+pays its tier's price, so nearer lenders win.
+
+One `step` runs, in order: the management round (`core.manager`); route;
+the LINK_BW account; the exchange across shards; admit; one
+`kv_pool.append_tokens` over every active sequence (offsite grants
+WAL-committed); one paged attention over the flattened (shard, replica,
 slot) batch — the hand-written CUDA kernel on a GPU, its plain version on
 the CPU (`kernels.ops`). The model is one paged-attention decode layer,
 the runtime's unit of work.
+
+The reference runs the shards under `jax.vmap`; the port carries the same
+leading shard axis through every function of the step ([S, nl, ...],
+`_to_shards`), so one step launches the same kernels for any shard count
+and its claim sweep walks ``nl`` node positions, not ``n_replicas``. Ids
+the step stores are local to a shard, as the reference's are; ``home_of``
+is global.
 
 The step reads no value back to the host (no `.item()`, `int(t)` or
 `bool(t)`), so it can later be captured in a CUDA graph. It updates the
 pool's K/V planes in place: rebind the returned state and do not reuse the
 old one (`step` in the reference donates its state for the same reason).
 
-This slice runs one shard. Configurations that need a later slice —
-``n_shards > 1``, ``trace_driven``, ``obs.enabled``, ``track_failures``,
-``migrate_pages_per_step > 0`` — raise ``NotImplementedError``.
+Configurations that need a later slice — ``trace_driven``,
+``obs.enabled``, ``track_failures``, ``migrate_pages_per_step > 0`` —
+raise ``NotImplementedError``; the multi-GPU sharded step is not ported.
+Where the reference divides by a constant, the port multiplies by the
+float32 reciprocal (`manager.recip32`), as XLA compiles the reference, so
+every floor and threshold on such a quotient lands identically.
 """
 from __future__ import annotations
 
@@ -73,7 +96,11 @@ class EngineConfig(NamedTuple):
     # redirection commands both debit (commands first); 0 = unmetered
     link_pages_per_step: int = 0
     trace_driven: bool = False      # later slice (telemetry plane)
-    n_shards: int = 1               # later slice (hierarchical engine)
+    # hierarchical round: n_shards shards of n_replicas / n_shards replicas;
+    # cross_shard=False keeps them independent (no exchange);
+    # shards_per_enclosure (a proper divisor of n_shards) groups shards into
+    # enclosures that settle before the fabric tier (0: one flat level)
+    n_shards: int = 1
     cross_shard: bool = True
     shards_per_enclosure: int = 0
     # KV page storage: "none" = fp32 pages; "int8" = int8 codes + per-page
@@ -88,7 +115,7 @@ class EngineConfig(NamedTuple):
 class EngineState(NamedTuple):
     pool: kvp.PagedPool
     table: desc.IdleResourceTable
-    home_of: torch.Tensor     # [R, S_total] int32 — original replica of the seq
+    home_of: torch.Tensor     # [R, S_total] int32 — original replica (global id)
     remaining: torch.Tensor   # [R, S_total] int32 — tokens left to decode
     queue: torch.Tensor       # [R] int32 — backlog of unadmitted requests
     step_count: torch.Tensor  # int32[]
@@ -116,11 +143,14 @@ def shard_topology(cfg: EngineConfig) -> topo.Topology:
     return topo.flat(cfg.n_shards)
 
 
+def local_replicas(cfg: EngineConfig) -> int:
+    return cfg.n_replicas // cfg.n_shards
+
+
 def _check_slice(cfg: EngineConfig) -> None:
     """Raise for configurations this slice of the port does not run, so
     nothing else runs in their place."""
     later = [name for name, on in (
-        ("n_shards>1", cfg.n_shards != 1),
         ("trace_driven", cfg.trace_driven),
         ("obs.enabled", cfg.obs.enabled),
         ("track_failures", cfg.track_failures),
@@ -178,6 +208,11 @@ def init(cfg: EngineConfig, weights: dict | None = None, *, device=None,
     pool = kvp.make_pool(cfg.n_replicas, cfg.pages_per_replica, cfg.page,
                          cfg.kv_heads, cfg.head_dim, st, cfg.max_pages,
                          dtype=torch.float32, quant=cfg.kv_quant, device=dev)
+    if cfg.n_shards > 1:
+        # one WAL cost counter per shard, as the reference carries them
+        pool = pool._replace(logs=pool.logs._replace(
+            flushes=torch.zeros(cfg.n_shards, dtype=torch.int32, device=dev),
+            commits=torch.zeros(cfg.n_shards, dtype=torch.int32, device=dev)))
     return EngineState(
         pool=pool,
         table=_manager(cfg).init_table(cfg.n_replicas, device=dev),
@@ -194,9 +229,10 @@ def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
     """Port state holding the values of a reference `EngineState` whose
     leaves are numpy arrays (``jax.tree.map(np.asarray, state)``): the
     decode weights, the pool (K/V planes, scales, allocation, page table,
-    lengths, WAL), the descriptor table, ``home_of``, ``remaining``,
-    ``queue`` and ``step_count``. Read by attribute, so any object with the
-    reference's field names will do."""
+    lengths, WAL with its [n_shards] counters when sharded), the
+    descriptor table, ``home_of``, ``remaining``, ``queue`` and
+    ``step_count``. Read by attribute, so any object with the reference's
+    field names will do."""
     state = init(cfg, {n: getattr(arrays, n) for n in ("wq", "wk", "wv", "wo")},
                  device=device)
     dev = state.queue.device
@@ -223,24 +259,16 @@ def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
     return like(state, arrays, ("home_of", "remaining", "queue", "step_count"))
 
 
-def _inv(c: float) -> float:
-    """float32 reciprocal of a constant divisor. The reference's compiled
-    step divides by a constant as a product with its float32 reciprocal
-    (XLA rewrites ``x / c`` that way); the port does the same so every
-    threshold and floor taken on such a quotient lands identically."""
-    return float(np.float32(1.0) / np.float32(c))
-
-
 def utilization(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
     """Processor-descriptor utilization = normal-slot occupancy (+queue)."""
-    occ = state.pool.seq_active[:, : cfg.seq_slots].sum(dim=1)
+    occ = state.pool.seq_active[..., : cfg.seq_slots].sum(dim=-1)
     util = (occ + torch.clamp(state.queue, max=4)).to(torch.float32)
-    return torch.clamp(util * _inv(cfg.seq_slots), 0.0, 1.5)
+    return torch.clamp(util * mgr.recip32(cfg.seq_slots), 0.0, 1.5)
 
 
 def hbm_pressure(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
     free = kvp.free_pages(state.pool).to(torch.float32)
-    return 1.0 - free * _inv(cfg.pages_per_replica)
+    return 1.0 - free * mgr.recip32(cfg.pages_per_replica)
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,49 +298,74 @@ def _manager(cfg: EngineConfig) -> mgr.ResourceManager:
 def _route(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor):
     """§4.4 transparent redirection: split each replica's (queue +
     arrivals) between itself and its claimed lenders with the load-balance
-    formula, every replica at once. Returns (kept int32[n], sent int32[n
-    borrower, n lender])."""
+    formula, every replica of every shard at once. Returns (kept
+    int32[..., n], sent int32[..., n borrower, n lender])."""
     util = utilization(cfg, state)
     demand = state.queue + arrivals
     assist = _manager(cfg).assist_matrix(state.table, desc.PROCESSOR)
     return lb.split_commands(
-        demand, util, util, (assist > 0).T,
+        demand, util, util, (assist > 0).transpose(-1, -2),
         w_borrow_sq=cfg.normal_weight, w_shadow_sq=cfg.shadow_weight,
         sum_w_borrow=cfg.normal_weight * cfg.seq_slots,
         sum_w_lend=cfg.normal_weight * cfg.seq_slots)
 
 
 def _admit(cfg: EngineConfig, state: EngineState, kept: torch.Tensor,
-           sent: torch.Tensor) -> EngineState:
+           sent: torch.Tensor, home_base=0, imported=None, import_src=None,
+           import_home=None) -> EngineState:
     """Prefix-sum admission, every replica at once: the first ``kept[r]``
     free normal slots take local work, the first ``sum(sent[:, r])`` free
     shadow slots take redirected work. The j-th redirected request at
     lender r belongs to the borrower whose cumulative ``sent[:, r]`` count
-    covers j — one batched `searchsorted` (right side) over the lenders."""
+    covers j — one batched `searchsorted` (right side) over the lenders.
+
+    Works on [n, ...] or on a shard axis ([S, n, ...]). ``home_of`` holds
+    GLOBAL replica ids: ``home_base`` is the global id of each shard's
+    replica 0 ([S, 1, 1]; 0 with one shard). Cross-shard imports
+    (``imported`` int[S, n] per host replica) take shadow slots AFTER the
+    shard's own redirects; their home is the source shard's base
+    ``import_home[src]``, src found through the per-source counts
+    ``import_src`` ([S host, S source], the exchange matrix) — the
+    aggregate exchange hides per-replica provenance (DESIGN.md §9)."""
     pool = state.pool
     st = total_slots(cfg)
-    n = state.queue.shape[0]
+    n = state.queue.shape[-1]
     dev = state.queue.device
-    free = ~pool.seq_active                                   # [R, St]
-    is_shadow = (torch.arange(st, device=dev) >= cfg.seq_slots)[None, :]
+    free = ~pool.seq_active                                   # [..., n, St]
+    is_shadow = torch.arange(st, device=dev) >= cfg.seq_slots
     normal_free = free & ~is_shadow
     shadow_free = free & is_shadow
     nf, sf = normal_free.long(), shadow_free.long()
-    nrank = torch.cumsum(nf, dim=1) - nf
-    srank = torch.cumsum(sf, dim=1) - sf
+    nrank = torch.cumsum(nf, dim=-1) - nf
+    srank = torch.cumsum(sf, dim=-1) - sf
     sent = sent.long()
-    n_remote = sent.sum(dim=0)                                # [R] redirected here
-    admit_local = normal_free & (nrank < kept[:, None])
-    admit_remote = shadow_free & (srank < n_remote[:, None])
+    n_remote = sent.sum(dim=-2)                               # [..., n] redirected here
+    admit_local = normal_free & (nrank < kept[..., None])
+    admit_remote = shadow_free & (srank < n_remote[..., None])
     admit = admit_local | admit_remote
 
-    cum = torch.cumsum(sent, dim=0)                           # [B, R] per lender
-    from_rep = torch.searchsorted(cum.T.contiguous(), srank,
-                                  right=True).clamp(0, n - 1)  # [R, St]
-    home = torch.where(is_shadow, from_rep,
-                       torch.arange(n, device=dev)[:, None])
-    leftover = (kept - admit_local.sum(dim=1)
-                + n_remote - admit_remote.sum(dim=1))
+    cum = torch.cumsum(sent, dim=-2)                          # [..., B, R] per lender
+    from_rep = torch.searchsorted(cum.transpose(-1, -2).contiguous(), srank,
+                                  right=True).clamp(0, n - 1)  # [..., R, St]
+    home = torch.where(is_shadow, home_base + from_rep,
+                       home_base + torch.arange(n, device=dev)[:, None])
+    leftover = (kept - admit_local.sum(dim=-1)
+                + n_remote - admit_remote.sum(dim=-1))
+    if imported is not None:
+        # cross-shard arrivals rank behind the local redirects in the
+        # shadow-slot order (local work keeps §4.4 priority)
+        imported = imported.long()
+        admit_import = (shadow_free & (srank >= n_remote[..., None])
+                        & (srank < (n_remote + imported)[..., None]))
+        admit = admit | admit_import
+        ioff = torch.cumsum(imported, dim=-1) - imported      # exclusive
+        j = srank - n_remote[..., None] + ioff[..., None]     # import rank
+        ns = import_src.shape[-1]
+        scum = torch.cumsum(import_src.long(), dim=-1)        # [S host, S src]
+        src = torch.searchsorted(scum, j.reshape(j.shape[0], -1),
+                                 right=True).clamp(0, ns - 1).reshape(j.shape)
+        home = torch.where(admit_import, import_home[src], home)
+        leftover = leftover + imported - admit_import.sum(dim=-1)
     return state._replace(
         pool=pool._replace(seq_active=pool.seq_active | admit),
         home_of=torch.where(admit, home, state.home_of).to(torch.int32),
@@ -322,16 +375,17 @@ def _admit(cfg: EngineConfig, state: EngineState, kept: torch.Tensor,
 
 def _decode_all(cfg: EngineConfig, state: EngineState, dram_lenders,
                 spill_budget, x: torch.Tensor):
-    """One decode token for every active slot, batched: one
-    `kv_pool.append_tokens` grows every sequence and one paged attention
-    over the flattened (replica, slot) batch does the compute. ``x`` [R,
-    St, d] holds the step's activations."""
+    """One decode token for every active slot, batched over every shard:
+    one `kv_pool.append_tokens` grows every sequence and one paged
+    attention over the flattened (shard, replica, slot) batch does the
+    compute. ``x`` [S, nl, St, d] holds the step's activations."""
     pool = state.pool
     st = total_slots(cfg)
-    r = state.queue.shape[0]
-    q = (x @ state.wq).reshape(r * st, cfg.n_heads, cfg.head_dim)
-    k_t = (x @ state.wk).reshape(r, st, cfg.kv_heads, cfg.head_dim)
-    v_t = (x @ state.wv).reshape(r, st, cfg.kv_heads, cfg.head_dim)
+    ns, r = state.queue.shape
+    rows = ns * r * st
+    q = (x @ state.wq).reshape(rows, cfg.n_heads, cfg.head_dim)
+    k_t = (x @ state.wk).reshape(ns, r, st, cfg.kv_heads, cfg.head_dim)
+    v_t = (x @ state.wv).reshape(ns, r, st, cfg.kv_heads, cfg.head_dim)
 
     active = pool.seq_active
     length_before = pool.seq_len
@@ -340,7 +394,13 @@ def _decode_all(cfg: EngineConfig, state: EngineState, dram_lenders,
                                           spill_budget=spill_budget)
 
     p = cfg.pages_per_replica
-    k_flat, v_flat = pool.k[: r * p], pool.v[: r * p]   # without the scratch page
+    k_flat, v_flat = pool.k[: ns * r * p], pool.v[: ns * r * p]  # no scratch page
+    # a shard's stored page ids are local: its plane rows start at
+    # s * nl * P. Clip a hole to the shard's page 0 THEN offset, as the
+    # reference clips within the shard's own pool
+    base = (torch.arange(ns, device=x.device, dtype=torch.int32)
+            * (r * p))[:, None, None]
+    table = pool.page_table.clamp(min=0) + base[..., None]
     scales = {}
     if kvp.quantized(pool):
         # int8 pool: codes + per-page scales go to the fused-dequant kernel
@@ -348,8 +408,8 @@ def _decode_all(cfg: EngineConfig, state: EngineState, dram_lenders,
                       v_scale=pool.v_scale.reshape(-1))
     out = kops.paged_attention(
         q, k_flat, v_flat,
-        pool.page_table.reshape(r * st, cfg.max_pages),
-        pool.seq_len.reshape(r * st),
+        table.reshape(rows, cfg.max_pages),
+        pool.seq_len.reshape(rows),
         **scales,
     )
     out = torch.where(active.reshape(-1)[:, None, None], out, 0.0)
@@ -359,11 +419,11 @@ def _decode_all(cfg: EngineConfig, state: EngineState, dram_lenders,
     if cfg.kv_quant != "none":
         # write-side quantization error: read this step's token rows back
         # through the dequant path and compare with what decode produced
-        wrote = pool.seq_len > length_before                  # [R, St]
+        wrote = pool.seq_len > length_before                  # [S, nl, St]
         lp = torch.div(pool.seq_len - 1, cfg.page, rounding_mode="floor")
         lp = lp.clamp(0, cfg.max_pages - 1)
-        phys = torch.gather(pool.page_table, 2, lp[..., None].long())[..., 0]
-        safe = phys.long().clamp(0, r * p - 1).reshape(-1)
+        phys = torch.gather(pool.page_table, -1, lp[..., None].long())[..., 0]
+        safe = (phys.clamp(0, r * p - 1) + base).reshape(-1).long()
         slot = ((pool.seq_len - 1) % cfg.page).clamp(0, cfg.page - 1)
         slot = slot.reshape(-1).long()
         ks = pool.k_scale.reshape(-1)[safe][:, None, None]
@@ -371,8 +431,8 @@ def _decode_all(cfg: EngineConfig, state: EngineState, dram_lenders,
         kr = k_flat[safe, slot].float() * ks
         vr = v_flat[safe, slot].float() * vs
         m = (wrote & (phys >= 0)).reshape(-1)[:, None, None]
-        kt = k_t.reshape(r * st, cfg.kv_heads, cfg.head_dim)
-        vt = v_t.reshape(r * st, cfg.kv_heads, cfg.head_dim)
+        kt = k_t.reshape(rows, cfg.kv_heads, cfg.head_dim)
+        vt = v_t.reshape(rows, cfg.kv_heads, cfg.head_dim)
         quant_err = (torch.where(m, (kr - kt) ** 2, 0.0).sum()
                      + torch.where(m, (vr - vt) ** 2, 0.0).sum())
 
@@ -383,7 +443,7 @@ def _decode_all(cfg: EngineConfig, state: EngineState, dram_lenders,
     # post-release offsite footprint — the one offsite scan of the step
     offsite_after = kvp.offsite_pages(pool)
     return (state._replace(pool=pool, remaining=torch.clamp(remaining, min=0)),
-            pool.seq_active.sum(dim=1, dtype=torch.int32), attn_norm,
+            pool.seq_active.sum(dim=-1, dtype=torch.int32), attn_norm,
             spill_pages, offsite_after, quant_err)
 
 
@@ -425,18 +485,139 @@ def _finish_stats(stats: dict) -> dict:
     return out
 
 
+def _level_split_bytes(exports: torch.Tensor, n_exp_l: torch.Tensor,
+                       cmd_x: tuple[float, ...]) -> torch.Tensor:
+    """Price each replica's exported requests at the level that granted
+    them. ``exports`` int[..., R] (fill_by_rank order), ``n_exp_l``
+    int[..., L] grants per exchange level (nearest first), ``cmd_x`` the
+    command bytes per export at each level. Both partition the same rank
+    order [0, Σ exports), so the [R, L] overlap of their cumulative ranges
+    attributes every export to exactly one level. The prices stay Python
+    numbers (a tensor made from them would be a copy the step waits for);
+    the byte counts are whole numbers, so any order of the sum is exact."""
+    cr = torch.cumsum(exports, dim=-1)
+    cr0 = cr - exports
+    cl = torch.cumsum(n_exp_l, dim=-1)
+    cl0 = cl - n_exp_l
+    overlap = torch.clamp(
+        torch.minimum(cr[..., :, None], cl[..., None, :])
+        - torch.maximum(cr0[..., :, None], cl0[..., None, :]), min=0)
+    overlap = overlap.to(torch.float32)
+    out = overlap[..., 0] * cmd_x[0]
+    for lv in range(1, len(cmd_x)):
+        out = out + overlap[..., lv] * cmd_x[lv]
+    return out
+
+
+class _Exchange(NamedTuple):
+    """What the exchange across shards hands back to the step."""
+
+    kept: torch.Tensor              # [S, nl] local work after exports
+    redirect_bytes: torch.Tensor    # [S, nl] with the exports' command bytes
+    budget_bytes: torch.Tensor      # [S, nl] net of LINK_BW allowance lent
+    extra_link: torch.Tensor        # [S, nl] LINK_BW bytes borrowed
+    imports: torch.Tensor           # [S, nl] requests each replica hosts
+    import_src: torch.Tensor        # [S host, S source] granted requests
+    import_home: torch.Tensor       # [S] home id of each source shard
+    cross_redirected: torch.Tensor  # requests exchanged (float32 scalar)
+    cross_borrowed: torch.Tensor    # LINK_BW bytes borrowed (float32 scalar)
+
+
+def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
+              sent, budget_bytes, redirect_bytes, link_amt,
+              page_b: float) -> _Exchange:
+    """The exchange across shards (DESIGN.md §9, §11): only the post-local
+    leftovers cross, as ONE (spare, want) pair per shard per rtype, settled
+    nearest level first through `topology.hierarchical_exchange`, each
+    level's grants priced at its tier. Every shard's summary is in hand
+    (the reference all-gathers them), so the settlement runs once."""
+    ns, n = state.queue.shape
+    dev = state.queue.device
+    metered = cfg.link_pages_per_step > 0
+    shard_topo = shard_topology(cfg)
+    levels = range(len(shard_topo.group_sizes))
+    # PROCESSOR: requests beyond a shard's normal-slot capacity export to
+    # shards with watermark-idle replicas holding free shadow slots (after
+    # their own inbound redirects) and spare DRAM
+    cmd_x = tuple(
+        float(costs.tier_link_bytes(desc.PROCESSOR,
+                                    level=shard_topo.level_tier(lv)))
+        for lv in levels)
+    free_slots = ~state.pool.seq_active
+    free_normal = free_slots[..., : cfg.seq_slots].sum(dim=-1)
+    free_shadow = free_slots[..., cfg.seq_slots:].sum(dim=-1)
+    overflow = torch.clamp(kept - free_normal, min=0)
+    if metered:
+        # each export debits its level's command price from the same byte
+        # account, before spill; the cap assumes the priciest tier
+        afford = torch.floor((budget_bytes - redirect_bytes)
+                             * mgr.recip32(max(cmd_x))).to(torch.int32)
+        overflow = torch.minimum(overflow, torch.clamp(afford, min=0))
+    inbound = sent.sum(dim=-2)
+    host_ok = (util <= WATERMARK) & (free > DRAM_MIN_PAGES)
+    host_cap = torch.where(host_ok, torch.clamp(free_shadow - inbound, min=0), 0)
+    grants, _ = topo.hierarchical_exchange(
+        host_cap.sum(dim=-1).to(torch.float32),
+        overflow.sum(dim=-1).to(torch.float32), shard_topo)
+    g_int = torch.floor(grants).to(torch.int32)        # [level, host, source]
+    n_exp_l = g_int.sum(dim=1).T                       # [source, level]
+    exports = mgr.fill_by_rank(overflow, n_exp_l.sum(dim=-1, keepdim=True))
+    kept = kept - exports
+    if metered:
+        redirect_bytes = redirect_bytes + _level_split_bytes(
+            exports, n_exp_l, cmd_x)
+    import_src = g_int.sum(dim=0)                      # [host, source]
+    imports = mgr.fill_by_rank(host_cap, import_src.sum(dim=-1, keepdim=True))
+    import_home = torch.arange(ns, dtype=torch.int32, device=dev) * n
+    extra_link = torch.zeros_like(budget_bytes)
+    cross_borrowed = torch.zeros((), dtype=torch.float32, device=dev)
+    if metered:
+        # LINK_BW: pressured shards borrow idle shards' leftover byte
+        # allowance; each level's detour pays its extra-hop command bytes
+        # as the exchange overhead
+        link_ohs = tuple(
+            float(costs.tier_link_bytes(
+                desc.LINK_BW, 0.0, level=shard_topo.level_tier(lv))) / page_b
+            for lv in levels)
+        l_spare = torch.where(
+            mem <= WATERMARK, torch.clamp(budget_bytes - redirect_bytes, min=0.0),
+            0.0)
+        l_want = torch.where(mem > WATERMARK, link_amt, 0.0)
+        spare_tot = l_spare.sum(dim=-1)                # integer bytes: exact
+        want_tot = l_want.sum(dim=-1)
+        lgrants, lrecv = topo.hierarchical_exchange(
+            spare_tot, want_tot, shard_topo, link_ohs)
+        # per shard: its row over (level, borrower), its column over
+        # levels, in the reference's order
+        lent_x = mgr.seq_sum(lgrants.permute(1, 0, 2).reshape(ns, -1))
+        recv_x = mgr.seq_sum(lrecv.T)
+        lent_each = torch.where(
+            spare_tot[:, None] > 0,
+            l_spare * (lent_x / torch.clamp(spare_tot, min=1e-9))[:, None], 0.0)
+        extra_link = torch.where(
+            want_tot[:, None] > 0,
+            l_want * (recv_x / torch.clamp(want_tot, min=1e-9))[:, None], 0.0)
+        budget_bytes = budget_bytes - lent_each
+        cross_borrowed = mgr.seq_sum(recv_x)
+    return _Exchange(kept, redirect_bytes, budget_bytes, extra_link, imports,
+                     import_src, import_home, g_int.sum().to(torch.float32),
+                     cross_borrowed)
+
+
 def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
                 x: torch.Tensor):
-    """One engine step over the whole (single) shard — the reference's
-    `_shard_step` with ``axis=None``: round -> route -> LINK_BW account ->
-    admit -> decode -> stats."""
-    n = state.queue.shape[0]
+    """One engine step over every shard at once — the reference's
+    `_shard_step` under `jax.vmap`, with the shard axis leading every
+    per-replica tensor ([S, nl, ...]): round -> route -> LINK_BW account ->
+    exchange across shards -> admit -> decode -> stats."""
+    ns, n = state.queue.shape
     dev = state.queue.device
     manager = _manager(cfg)
     util = utilization(cfg, state)
     mem = hbm_pressure(cfg, state)
     free = kvp.free_pages(state.pool).to(torch.float32)
-    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    zeros = torch.zeros((ns, n), dtype=torch.float32, device=dev)
+    scalar0 = torch.zeros((), dtype=torch.float32, device=dev)
     metered = cfg.link_pages_per_step > 0
     page_b = float(kvp.page_nbytes(state.pool))
     inputs = {
@@ -447,7 +628,7 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
         # a replica under HBM pressure is about to spill: it borrows idle
         # peers' link budgets; relaxed replicas lend theirs
         inputs[desc.LINK_BW] = mgr.RoundInputs(
-            util=mem, amount=torch.full((n,), float(cfg.link_pages_per_step),
+            util=mem, amount=torch.full((ns, n), float(cfg.link_pages_per_step),
                                         dtype=torch.float32, device=dev))
     table = manager.round(state.table, inputs)
     state = state._replace(table=table)
@@ -455,55 +636,71 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
     # DRAM descriptors are amount-gated capacity, never claimed: a replica
     # lends KV pages iff its descriptor is live with pages above threshold
     dmask = manager.slot_mask(desc.DRAM, table.n_slots, device=dev)
-    dram_lenders = (table.valid & dmask[None, :]
-                    & (table.amount_a > DRAM_MIN_PAGES)).any(dim=1)
+    dram_lenders = (table.valid & dmask
+                    & (table.amount_a > DRAM_MIN_PAGES)).any(dim=-1)
     spill_budget = None
-    budget_bytes = redirect_bytes = zeros
+    link_amt = budget_bytes = redirect_bytes = extra_link = zeros
     if metered:
         # ONE LINK_BW byte account per borrower (§4.6): own allowance plus
         # what idle-link peers pledged through the round, minus what it
         # pledged away. Redirect commands debit it first; redirects beyond
         # the budget stay home and retry via the queue.
         link_m = manager.assist_matrix(table, desc.LINK_BW)
-        link_amt = torch.full((n,), float(cfg.link_pages_per_step) * page_b,
+        link_amt = torch.full((ns, n), float(cfg.link_pages_per_step) * page_b,
                               dtype=torch.float32, device=dev)
-        borrowed = link_amt @ link_m
-        lent = link_amt * link_m.sum(dim=1)
+        borrowed = (link_amt[..., None, :] @ link_m)[..., 0, :]
+        lent = link_amt * link_m.sum(dim=-1)
         budget_bytes = link_amt - lent + borrowed
         cmd_b = float(costs.REDIRECT_CMD_BYTES)
-        red_cap = torch.floor(budget_bytes * _inv(cmd_b)).to(torch.int32)
-        cum = torch.cumsum(sent, dim=1, dtype=torch.int32)
-        capped = torch.clamp(torch.minimum(cum, red_cap[:, None])
+        red_cap = torch.floor(budget_bytes * mgr.recip32(cmd_b)).to(torch.int32)
+        cum = torch.cumsum(sent, dim=-1, dtype=torch.int32)
+        capped = torch.clamp(torch.minimum(cum, red_cap[..., None])
                              - (cum - sent), min=0)
-        kept = kept + (sent - capped).sum(dim=1, dtype=torch.int32)
+        kept = kept + (sent - capped).sum(dim=-1, dtype=torch.int32)
         sent = capped
-        redirect_bytes = sent.sum(dim=1).to(torch.float32) * cmd_b
-        # spill pages get whatever bytes the command stream left over
+        redirect_bytes = sent.sum(dim=-1).to(torch.float32) * cmd_b
+    # the exchange across shards: post-local leftovers only
+    xch = None
+    if cfg.cross_shard and ns > 1:
+        xch = _exchange(cfg, state, util, mem, free, kept, sent, budget_bytes,
+                        redirect_bytes, link_amt, page_b)
+        kept, redirect_bytes = xch.kept, xch.redirect_bytes
+        budget_bytes, extra_link = xch.budget_bytes, xch.extra_link
+    if metered:
+        # spill pages get whatever bytes the command stream left over, plus
+        # any cross-shard borrowed allowance (already net of the hop tax)
         spill_budget = torch.floor(
-            (budget_bytes - redirect_bytes) * _inv(page_b)).to(torch.int32)
+            (budget_bytes - redirect_bytes + extra_link) * mgr.recip32(page_b)
+        ).to(torch.int32)
+        budget_bytes = budget_bytes + extra_link
 
-    state = _admit(cfg, state, kept, sent)
+    home_base = (torch.arange(ns, dtype=torch.int32, device=dev) * n)[:, None, None]
+    state = _admit(cfg, state, kept, sent, home_base=home_base,
+                   **({} if xch is None else dict(
+                       imported=xch.imports, import_src=xch.import_src,
+                       import_home=xch.import_home)))
     (state, active, attn_norm, spill_pages, offsite_after,
      quant_err) = _decode_all(cfg, state, dram_lenders, spill_budget, x)
     stats = {
         "active": active,
-        "redirected": sent.sum(dim=1, dtype=torch.int32),
+        "redirected": sent.sum(dim=-1, dtype=torch.int32),
         "queued": state.queue,
         "util": utilization(cfg, state),
         "attn_norm": attn_norm,
         "offsite_pages": offsite_after,
-        "log_commits": state.pool.logs.commits,
+        "log_commits": state.pool.logs.commits.sum(dtype=torch.int32),
         "want_pages": zeros,
         # unified LINK_BW account per replica: with metering, spill +
-        # redirect <= budget every step; unmetered, budget and redirect
-        # bytes are zero and spill bytes report the offsite page traffic
+        # redirect <= budget every step (budget includes cross-shard
+        # borrowed bytes, net of the hop tax); unmetered, budget and
+        # redirect bytes are zero and spill bytes report the offsite page
+        # traffic
         "link_budget_bytes": budget_bytes,
         "link_redirect_bytes": redirect_bytes,
         "link_spill_bytes": spill_pages.to(torch.float32) * page_b,
-        # cross-shard traffic: none with one shard
-        "cross_redirected": torch.zeros((), dtype=torch.float32, device=dev),
-        "cross_link_borrowed_bytes": torch.zeros((), dtype=torch.float32,
-                                                 device=dev),
+        # requests exchanged and LINK bytes borrowed across shards this step
+        "cross_redirected": scalar0 if xch is None else xch.cross_redirected,
+        "cross_link_borrowed_bytes": scalar0 if xch is None else xch.cross_borrowed,
         # write-side int8 quantization error (sum of squared read-back
         # error over this step's token rows); zero for fp32 pages
         "quant_err_norm": quant_err,
@@ -511,15 +708,62 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
     return state, stats
 
 
+# the pool's fields with a replica axis, and the state's
+_POOL_FIELDS = ("k_scale", "v_scale", "used", "owner_seq", "page_table",
+                "seq_len", "seq_active")
+_STATE_FIELDS = ("home_of", "remaining", "queue")
+
+
+def _to_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
+    """Canonical [R, ...] layout -> [S, R/S, ...] for every field a shard
+    owns: pool metadata, WAL (one log per shard, its counters [S]),
+    descriptor table, home_of, remaining, queue. The K/V planes stay flat
+    by global page id."""
+    s = cfg.n_shards
+
+    def split(x):
+        return x.reshape(s, x.shape[0] // s, *x.shape[1:])
+
+    pool, logs = state.pool, state.pool.logs
+    logs = logs._replace(keys=split(logs.keys), vals=split(logs.vals),
+                         count=split(logs.count),
+                         flushes=logs.flushes.reshape(s),
+                         commits=logs.commits.reshape(s))
+    pool = pool._replace(logs=logs,
+                         **{f: split(getattr(pool, f)) for f in _POOL_FIELDS})
+    return state._replace(
+        pool=pool, table=desc.IdleResourceTable(*map(split, state.table)),
+        **{f: split(getattr(state, f)) for f in _STATE_FIELDS})
+
+
+def _from_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
+    def merge(x):
+        return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+    # one shard keeps the reference's scalar counters
+    counter = (lambda c: c.reshape(())) if cfg.n_shards == 1 else (lambda c: c)
+    pool, logs = state.pool, state.pool.logs
+    logs = logs._replace(keys=merge(logs.keys), vals=merge(logs.vals),
+                         count=merge(logs.count),
+                         flushes=counter(logs.flushes),
+                         commits=counter(logs.commits))
+    pool = pool._replace(logs=logs,
+                         **{f: merge(getattr(pool, f)) for f in _POOL_FIELDS})
+    return state._replace(
+        pool=pool, table=desc.IdleResourceTable(*map(merge, state.table)),
+        **{f: merge(getattr(state, f)) for f in _STATE_FIELDS})
+
+
 def step(cfg: EngineConfig, state: EngineState, arrivals, *,
          x: torch.Tensor | None = None,
          generator: torch.Generator | None = None):
-    """One engine step: management round -> route -> admit -> decode ->
-    stats. ``arrivals`` int[R] new requests per replica. ``x`` [R, St, d]
-    float32 is the step's decode activations; when None they are drawn
-    N(0, 0.1^2) from ``generator`` (a generator on the state's device; the
-    default generator when None). Returns (state', stats); the input state
-    must not be reused (its K/V planes are updated in place)."""
+    """One engine step: management round(s) -> route -> exchange -> admit
+    -> decode -> stats, every shard at once. ``arrivals`` int[R] new
+    requests per replica. ``x`` [R, St, d] float32 is the step's decode
+    activations; when None they are drawn N(0, 0.1^2) from ``generator``
+    (a generator on the state's device; the default generator when None).
+    Returns (state', stats); the input state must not be reused (its K/V
+    planes are updated in place)."""
     _check_slice(cfg)
     dev = state.queue.device
     if isinstance(arrivals, torch.Tensor):
@@ -532,8 +776,11 @@ def step(cfg: EngineConfig, state: EngineState, arrivals, *,
                         generator=generator, device=dev) * 0.1
     else:
         x = x.to(device=dev, dtype=torch.float32)
-    out, stats = _shard_step(cfg, state, arrivals, x)
-    out = out._replace(step_count=state.step_count + 1)
+    ns, nl = cfg.n_shards, local_replicas(cfg)
+    out, stats = _shard_step(cfg, _to_shards(cfg, state),
+                             arrivals.reshape(ns, nl),
+                             x.reshape(ns, nl, *x.shape[1:]))
+    out = _from_shards(cfg, out)._replace(step_count=state.step_count + 1)
     return out, _finish_stats(stats)
 
 

@@ -21,6 +21,15 @@ KV, Dh]), and their last page is scratch: rows that must not write
 needs neither a filter (a host sync) nor a rebuilt pool, and no two live
 writes ever meet. Readers take ``k[:R*P]``. The small metadata arrays are
 rebuilt functionally the same way, through a temporary one-slot tail.
+
+The hierarchical engine splits the replicas into shards of ``nl`` and
+hands these functions a pool whose metadata carries a leading shard axis
+([S, nl, ...]; the WAL one log per shard): the port's counterpart of the
+reference's `jax.vmap`. Every id a shard stores is local to it, as in the
+reference — page ids ``owner * P + idx`` with ``owner < nl``, sequence ids
+``home * S_slots + slot``, lenders ranked within the shard — while the K/V
+planes stay flat by global page id, so a plane row is the stored id plus
+the shard's base ``s * nl * P``.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ _INV_QMAX = float(np.float32(1.0) / np.float32(QMAX))
 
 
 class PagedPool(NamedTuple):
+    # metadata shapes are [R, ...], or [S, nl, ...] with a shard axis
     k: torch.Tensor           # [R*P + 1, page, KV, Dh] fp storage or int8
     v: torch.Tensor           #   codes by global page id; the last is scratch
     k_scale: torch.Tensor     # [R, P] fp32 per-page dequant scale (0 = empty;
@@ -85,9 +95,26 @@ def quantized(pool: PagedPool) -> bool:
     return pool.k.dtype == torch.int8
 
 
+# the pool's fields with a replica axis (k and v are flat by global id)
+_META = ("k_scale", "v_scale", "used", "owner_seq", "page_table", "seq_len",
+         "seq_active")
+
+
+def _with_shard_axis(pool: PagedPool) -> PagedPool:
+    """The pool as one shard: a leading axis of 1 on the metadata and the
+    WAL."""
+    return pool._replace(logs=wal.LogPages(*(x[None] for x in pool.logs)),
+                         **{f: getattr(pool, f)[None] for f in _META})
+
+
+def _without_shard_axis(pool: PagedPool) -> PagedPool:
+    return pool._replace(logs=wal.LogPages(*(x[0] for x in pool.logs)),
+                         **{f: getattr(pool, f)[0] for f in _META})
+
+
 def free_pages(pool: PagedPool) -> torch.Tensor:
-    """int32[R] — unallocated pages per replica (descriptor amount)."""
-    return (~pool.used).sum(dim=1).to(torch.int32)
+    """int32[..., R] — unallocated pages per replica (descriptor amount)."""
+    return (~pool.used).sum(dim=-1).to(torch.int32)
 
 
 def page_nbytes(pool: PagedPool) -> int:
@@ -130,14 +157,14 @@ def _requant_write(pages32: torch.Tensor, old_s: torch.Tensor,
 
 
 def offsite_pages(pool: PagedPool) -> torch.Tensor:
-    """int32[R] — pages each HOME replica maps in peer pools (the §4.5
-    spill footprint)."""
-    r, p = pool.used.shape
+    """int32[..., R] — pages each HOME replica maps in peer pools (the §4.5
+    spill footprint). Owner and home are both local to a shard."""
+    r, p = pool.used.shape[-2:]
     owner = torch.div(pool.page_table, p, rounding_mode="floor")
     mapped = pool.page_table >= 0
     home = torch.arange(r, dtype=pool.page_table.dtype,
                         device=pool.used.device)[:, None, None]
-    return (mapped & (owner != home)).sum(dim=(1, 2)).to(torch.int32)
+    return (mapped & (owner != home)).sum(dim=(-2, -1)).to(torch.int32)
 
 
 def _scatter(flat: torch.Tensor, target: torch.Tensor, values, fill):
@@ -163,7 +190,9 @@ def append_tokens(pool: PagedPool, k_toks: torch.Tensor, v_toks: torch.Tensor,
     ``k_toks``/``v_toks``: [R, S, KV, Dh]; ``active``: bool[R, S];
     ``lender_mask``: bool[R] DRAM lenders for offsite spill;
     ``spill_budget``: optional int32[R] LINK_BW cap on offsite grants per
-    home replica (None leaves spill unmetered).
+    home replica (None leaves spill unmetered). With a shard axis every
+    argument leads with it too ([S, nl, ...]) and each shard allocates
+    from its own pools only.
 
     Allocation, with no per-slot loop:
       * page-boundary slots rank themselves by slot index and the j-th
@@ -177,92 +206,110 @@ def append_tokens(pool: PagedPool, k_toks: torch.Tensor, v_toks: torch.Tensor,
 
     The K/V planes are written in place (see the module doc).
     """
-    r, p = pool.used.shape
-    s_slots = pool.seq_len.shape[1]
+    if pool.used.dim() == 2:
+        out, spilled = _append(
+            _with_shard_axis(pool), k_toks[None], v_toks[None], active[None],
+            lender_mask[None], None if spill_budget is None else spill_budget[None])
+        return _without_shard_axis(out), spilled[0]
+    return _append(pool, k_toks, v_toks, active, lender_mask, spill_budget)
+
+
+def _append(pool, k_toks, v_toks, active, lender_mask, spill_budget):
+    """`append_tokens` on a pool with a shard axis: [ns, r, ...]."""
+    ns, r, p = pool.used.shape
+    s_slots = pool.seq_len.shape[-1]
     page_sz = pool.k.shape[1]
-    mp = pool.page_table.shape[2]
+    mp = pool.page_table.shape[-1]
     dev = pool.used.device
-    if pool.k.shape[0] != r * p + 1 or pool.v.shape != pool.k.shape:
+    if pool.k.shape[0] != ns * r * p + 1 or pool.v.shape != pool.k.shape:
         raise ValueError(
-            f"K/V planes must be [R*P + 1, page, KV, Dh] = [{r * p + 1}, ...] "
-            f"(make_pool's, with the scratch page); got {tuple(pool.k.shape)}, "
-            f"{tuple(pool.v.shape)}")
-    length = pool.seq_len.long()                        # [R, S]
+            f"K/V planes must be [R*P + 1, page, KV, Dh] = [{ns * r * p + 1}, "
+            f"...] (make_pool's, with the scratch page); got "
+            f"{tuple(pool.k.shape)}, {tuple(pool.v.shape)}")
+    length = pool.seq_len.long()                        # [ns, r, S]
     need = active & (length % page_sz == 0)
     need_i = need.long()
 
     # ---- local allocation: j-th requester <- j-th lowest free home page
-    free_cnt = (~pool.used).sum(dim=1)                  # [R]
-    rank = torch.cumsum(need_i, dim=1) - need_i         # [R, S] exclusive
-    local_ok = need & (rank < free_cnt[:, None])
-    free_order = torch.argsort(pool.used.to(torch.uint8), dim=1, stable=True)
-    local_idx = torch.gather(free_order, 1, rank.clamp(0, p - 1))
+    free_cnt = (~pool.used).sum(dim=-1)                 # [ns, r]
+    rank = torch.cumsum(need_i, dim=-1) - need_i        # [ns, r, S] exclusive
+    local_ok = need & (rank < free_cnt[..., None])
+    free_order = torch.argsort(pool.used.to(torch.uint8), dim=-1, stable=True)
+    local_idx = torch.gather(free_order, -1, rank.clamp(0, p - 1))
 
-    # ---- overflow -> lender spare pages, most-spare lender first
-    consumed = torch.minimum(need_i.sum(dim=1), free_cnt)
+    # ---- overflow -> lender spare pages of the shard, most-spare first
+    consumed = torch.minimum(need_i.sum(dim=-1), free_cnt)
     spare = torch.where(lender_mask, free_cnt - consumed, 0)
-    lorder = torch.argsort(-spare, stable=True)
-    spare_sorted = spare[lorder]
-    bounds = torch.cumsum(spare_sorted, dim=0)          # inclusive
+    lorder = torch.argsort(-spare, dim=-1, stable=True)
+    spare_sorted = torch.gather(spare, -1, lorder)
+    bounds = torch.cumsum(spare_sorted, dim=-1)         # inclusive
     offs = bounds - spare_sorted                        # exclusive
-    total_spare = bounds[-1]
+    total_spare = bounds[:, -1]                         # [ns]
 
     ov = need & ~local_ok
     if spill_budget is not None:
         ov_i = ov.long()
-        ov_rank = torch.cumsum(ov_i, dim=1) - ov_i
-        ov = ov & (ov_rank < spill_budget.long()[:, None])
-    ovf = ov.reshape(-1).long()
-    g = (torch.cumsum(ovf, dim=0) - ovf).reshape(r, s_slots)
+        ov_rank = torch.cumsum(ov_i, dim=-1) - ov_i
+        ov = ov & (ov_rank < spill_budget.long()[..., None])
+    ovf = ov.reshape(ns, -1).long()
+    g = torch.cumsum(ovf, dim=-1) - ovf                 # [ns, r*S]
     lpos = torch.searchsorted(bounds, g, right=True).clamp(0, r - 1)
-    lender = lorder[lpos]                               # [R, S]
-    within = consumed[lender] + g - offs[lpos]
-    lender_idx = free_order[lender, within.clamp(0, p - 1)]
-    ov_ok = ov & (g < total_spare)
+    lender = torch.gather(lorder, -1, lpos)             # [ns, r*S]
+    within = torch.gather(consumed, -1, lender) + g - torch.gather(offs, -1, lpos)
+    lender_idx = torch.gather(free_order.reshape(ns, r * p), -1,
+                              lender * p + within.clamp(0, p - 1))
+    lender = lender.reshape(ns, r, s_slots)
+    lender_idx = lender_idx.reshape(ns, r, s_slots)
+    ov_ok = ov & (g.reshape(ns, r, s_slots) < total_spare[:, None, None])
 
-    homes = torch.arange(r, device=dev)[:, None].expand(r, s_slots)
-    slots = torch.arange(s_slots, device=dev)[None, :]
+    homes = torch.arange(r, device=dev)[None, :, None].expand(ns, r, s_slots)
+    slots = torch.arange(s_slots, device=dev)[None, None, :]
+    shard = torch.arange(ns, device=dev)[:, None, None]
     owner = torch.where(local_ok, homes, torch.where(ov_ok, lender, -1))
     idx = torch.where(local_ok, local_idx, lender_idx)
     ok = owner >= 0
-    phys = torch.where(ok, owner * p + idx, NO_PAGE)    # [R, S]
+    phys = torch.where(ok, owner * p + idx, NO_PAGE)    # shard-local ids
 
     okf = ok.reshape(-1)
-    target = torch.where(okf, (owner * p + idx).reshape(-1), r * p)
+    target = torch.where(okf, (shard * (r * p) + owner * p + idx).reshape(-1),
+                         ns * r * p)
     gid = (homes * s_slots + slots).reshape(-1)
-    used = _scatter(pool.used.reshape(-1), target, True, False).reshape(r, p)
+    used = _scatter(pool.used.reshape(-1), target, True, False).reshape(ns, r, p)
     owner_seq = _scatter(pool.owner_seq.reshape(-1), target,
-                         gid.to(torch.int32), -1).reshape(r, p)
+                         gid.to(torch.int32), -1).reshape(ns, r, p)
 
-    lpage = (length // page_sz).clamp(0, mp - 1)        # [R, S]
-    pt_target = torch.where(okf, ((homes * s_slots + slots) * mp
-                                  + lpage).reshape(-1), r * s_slots * mp)
+    lpage = (length // page_sz).clamp(0, mp - 1)        # [ns, r, S]
+    pt_target = torch.where(
+        okf, (((shard * r + homes) * s_slots + slots) * mp + lpage).reshape(-1),
+        ns * r * s_slots * mp)
     table = _scatter(pool.page_table.reshape(-1), pt_target,
                      phys.reshape(-1).to(torch.int32), NO_PAGE)
-    table = table.reshape(r, s_slots, mp)
+    table = table.reshape(ns, r, s_slots, mp)
 
-    # ---- WAL commits for the offsite grants (§4.5)
+    # ---- WAL commits for the offsite grants (§4.5), into each shard's log
     offsite = ok & (owner != homes)
     logs = wal.commit_batch(
         pool.logs,
-        (homes * p + idx % p).reshape(-1),
-        (slots * mp + lpage).reshape(-1),
-        phys.reshape(-1),
-        mask=offsite.reshape(-1),
+        (homes * p + idx % p).reshape(ns, -1),
+        (slots * mp + lpage).reshape(ns, -1),
+        phys.reshape(ns, -1),
+        mask=offsite.reshape(ns, -1),
     )
 
-    # ---- token write into (page, slot) of every active sequence
-    tphys = torch.gather(table, 2, lpage[..., None])[..., 0].long()
+    # ---- token write into (page, slot) of every active sequence; the
+    # plane row is the shard's base plus the stored id
+    tphys = torch.gather(table, -1, lpage[..., None])[..., 0].long()
     valid_t = active & (tphys >= 0)
     t_page = torch.where(
         valid_t,
-        torch.div(tphys, p, rounding_mode="floor").clamp(0, r - 1) * p
-        + (tphys % p).clamp(0, p - 1), r * p).reshape(-1)
+        shard * (r * p)
+        + torch.div(tphys, p, rounding_mode="floor").clamp(0, r - 1) * p
+        + (tphys % p).clamp(0, p - 1), ns * r * p).reshape(-1)
     t_slot = (length % page_sz).reshape(-1)
     kd = pool.k.shape[2:]
     kx, vx = pool.k, pool.v
-    k_rows = k_toks.reshape(r * s_slots, *kd)
-    v_rows = v_toks.reshape(r * s_slots, *kd)
+    k_rows = k_toks.reshape(-1, *kd)
+    v_rows = v_toks.reshape(-1, *kd)
     k_scale, v_scale = pool.k_scale, pool.v_scale
     if quantized(pool):
         # rescale-on-write: distinct active slots hold distinct pages
@@ -277,8 +324,8 @@ def append_tokens(pool: PagedPool, k_toks: torch.Tensor, v_toks: torch.Tensor,
         vx[t_page] = vc
         ks_flat[t_page] = ks_new
         vs_flat[t_page] = vs_new
-        k_scale = ks_flat[:-1].reshape(r, p)
-        v_scale = vs_flat[:-1].reshape(r, p)
+        k_scale = ks_flat[:-1].reshape(k_scale.shape)
+        v_scale = vs_flat[:-1].reshape(v_scale.shape)
     else:
         kx[t_page, t_slot] = k_rows.to(kx.dtype)
         vx[t_page, t_slot] = v_rows.to(vx.dtype)
@@ -286,22 +333,26 @@ def append_tokens(pool: PagedPool, k_toks: torch.Tensor, v_toks: torch.Tensor,
         used=used, owner_seq=owner_seq, page_table=table, logs=logs,
         k_scale=k_scale, v_scale=v_scale,
         seq_len=pool.seq_len + valid_t.to(torch.int32))
-    return pool, offsite.sum(dim=1).to(torch.int32)
+    return pool, offsite.sum(dim=-1).to(torch.int32)
 
 
 def release_sequences(pool: PagedPool, done: torch.Tensor) -> PagedPool:
     """Free every page (local and offsite) of the finished sequences in
-    the bool[R, S] mask ``done``; freed pages drop their scales."""
-    r, p = pool.used.shape
-    s_slots = pool.seq_len.shape[1]
+    the bool[..., R, S] mask ``done``; freed pages drop their scales. With
+    a shard axis, owner_seq holds shard-local sequence ids."""
+    r = pool.used.shape[-2]
+    s_slots = pool.seq_len.shape[-1]
+    lead = pool.used.shape[:-2]
     owner = pool.owner_seq.long().clamp(0, r * s_slots - 1)
-    page_done = (pool.owner_seq >= 0) & done.reshape(-1)[owner]
+    done_of = done.reshape(*lead, -1).gather(
+        -1, owner.reshape(*lead, -1)).reshape(owner.shape)
+    page_done = (pool.owner_seq >= 0) & done_of
     return pool._replace(
         used=pool.used & ~page_done,
         owner_seq=torch.where(page_done, -1, pool.owner_seq),
         k_scale=torch.where(page_done, 0.0, pool.k_scale),
         v_scale=torch.where(page_done, 0.0, pool.v_scale),
-        page_table=torch.where(done[:, :, None], NO_PAGE, pool.page_table),
+        page_table=torch.where(done[..., None], NO_PAGE, pool.page_table),
         seq_len=torch.where(done, 0, pool.seq_len),
         seq_active=pool.seq_active & ~done,
     )

@@ -49,20 +49,29 @@ nvcc per source, all at once), then:
    into their storage, a directory of 70 000 segments (280 KB, more than
    an SM holds) and entries = 1000 (each call repeated bit for bit);
 2. drives the serving engine's main path — `serving.engine.step` at
-   qwen3-14b's attention width, 8 replicas, 32 steps — in four phases:
+   qwen3-14b's attention width, 8 replicas, 32 steps — in six phases:
    one shard with fp32 pages unmetered (`fp32`) and int8 pages under a
    LINK_BW budget of 4 pages per step (`int8_metered`); the hierarchical
    engine with 2 shards of 4 replicas and fp32 pages (`sharded2_fp32`),
    and with 4 shards of 2, two shards an enclosure, int8 pages, metered
-   (`enclosure4_int8_metered`). Each phase runs 3 times from the same
-   seeds. The harvesting counts, requests exchanged across shards
+   (`enclosure4_int8_metered`); the telemetry plane on one shard
+   (`trace_fp32`: the page-access stream through the SHARDS window
+   kernel, its want reserving lendable pages), and both the telemetry and
+   the observability planes on the 4-shard hierarchy
+   (`trace_enclosure4_int8_metered_obs`: metric rings of 32 windows, an
+   event log of 4096 rows per shard). Each phase runs 3 times from the
+   same seeds. The harvesting counts, requests exchanged across shards
    included (which must be > 0 with shards), must equal the JAX
    reference's on the same configuration, the paged-attention kernel must
    have run once per step (its launch count is zeroed just before each
-   run and read just after; all shards' rows go to one launch) and agree
-   with its plain version on the last step's inputs, and no step may
-   synchronize with the host (`torch.cuda`'s sync debug mode raises on
-   one);
+   run and read just after; all shards' rows go to one launch), and with
+   the telemetry plane the SHARDS window kernel too (all shards' nodes in
+   one launch); each kernel must agree with its plain version on the last
+   step's inputs (the window kernel bit for bit); the last step's
+   want_pages must equal the reference's (`WANT_PAGES_LAST`, > 0 on the
+   loaded replicas), the event log must hold rows and some of the
+   exchange (level >= 1); and no step may synchronize with the host
+   (`torch.cuda`'s sync debug mode raises on one);
 3. drives the model zoo's serve path through `launch.serve.run_model`:
    qwen3-14b at its full published width and depth (bf16, batch 4, prompt
    2048, 32 greedy tokens) and h2o-danube-1.8b at its full config (batch
@@ -110,17 +119,23 @@ nvcc per source, all at once), then:
    rate, and the RG-LRU rows whether they equal the plain version bit for
    bit (`bit_equal`, which must hold) and, as a yardstick of the memory's
    rate, the time of a `torch.add` that moves the same bytes (`stream_ms`);
+   The SHARDS window kernel's row (`shards_window`, not a TPU kernel: it
+   stands for the reference's `lax.scan`) is timed on `trace_fp32`'s
+   last window, spun and unspun, beside one run of its plain loop on the
+   card and its byte bound;
 5. checks the engine (4 replicas with int8 pages; and 8 replicas in 2
    shards, metered, with fp32 pages redirecting across shards and with
-   int8 pages borrowing link bytes across shards, whose integer and bool
-   state must equal bit for bit every step), and five narrow fp32 models (a dense one,
+   int8 pages borrowing link bytes across shards, and the fp32 one
+   trace-driven with the observability plane on, whose integer and bool
+   state — the SHARDS table and clock, the rings' cursor and the event
+   log's count included — must equal bit for bit every step), and five narrow fp32 models (a dense one,
    recurrentgemma-smoke and rwkv6-smoke with a prompt of 128,
    deepseek-v2-smoke and deepseek-v3-smoke with a prompt of 1040, whose
    2080 tokens take the MoE's sorted dispatch; 8 decode steps), on the GPU
    against the same code on the CPU (the plain path).
 
 The `build` line also carries nvcc's registers and spills of each flash,
-WKV, RG-LRU, paged-attention, router and FTL instantiation, the count of HGMMA (wgmma)
+WKV, RG-LRU, paged-attention, router, FTL and SHARDS window instantiation, the count of HGMMA (wgmma)
 instructions in the flash library's SASS and of HMMA (mma.sync)
 instructions in the WKV library's (cuobjdump); a count of 0 fails the run.
 
@@ -157,6 +172,16 @@ STEPS = 32
 # each phase is driven this many times from the same seeds (every run held
 # to the same counts), for the spread of its host-bound ms per step
 REPEATS = 3
+# the reference's counts of the two trace-driven phases: the same as those
+# of `fp32` and `enclosure4_int8_metered` (the want reserves pages only on
+# replicas that lend none), so the telemetry plane's gate is the want
+# itself: WANT_PAGES_LAST, the reference's want_pages at the last step
+TRACE_FP32_COUNTS = (325, 88, 120, 0)
+TRACE_ENCLOSURE_COUNTS = (0, 0, 16, 192)
+WANT_PAGES_LAST = {
+    "trace_fp32": [48.0, 48.0, 48.0, 48.0, 5.0, 0.0, 0.0, 0.0],
+    "trace_enclosure4_int8_metered_obs": [48.0, 48.0] + [16.0] * 6,
+}
 # (redirected summed over the steps, offsite_pages and log_commits at the
 # last step, cross_redirected summed over the steps) of the JAX reference
 # engine on the same configurations: `repro.serving.engine.step` on the
@@ -171,6 +196,16 @@ PHASES = {
     "enclosure4_int8_metered": (dict(kv_quant="int8", link_pages_per_step=4,
                                      n_shards=4, shards_per_enclosure=2),
                                 (0, 0, 16, 192)),
+    # the telemetry plane: one shard, the page-access stream through the
+    # SHARDS window kernel, its want reserving lendable pages
+    "trace_fp32": (dict(kv_quant="none", trace_driven=True), TRACE_FP32_COUNTS),
+    # both planes on the depth-3 hierarchy: telemetry, and the metric rings
+    # and grant-event log (the obs dict becomes the port's ObsConfig)
+    "trace_enclosure4_int8_metered_obs": (
+        dict(kv_quant="int8", link_pages_per_step=4, n_shards=4,
+             shards_per_enclosure=2, trace_driven=True,
+             obs=dict(enabled=True, ring_depth=32, event_capacity=4096)),
+        TRACE_ENCLOSURE_COUNTS),
 }
 # kernel vs plain version (the gates of tests/test_kernels.py)
 TOL = {"fp32": 3e-5, "bf16": 3e-2, "int8": 1e-5}
@@ -460,6 +495,14 @@ def launch_floor_ms(flush) -> float:
     """The least time a launch takes on this card: `timed_spun_ms` of one
     trivial kernel (`torch.cuda._sleep(1)`), the host kept out of the window."""
     return spun_ms("floor_ms", lambda: torch.cuda._sleep(1), 50, flush)[0]
+
+
+def exact_err(got, want) -> float:
+    """The largest absolute difference between two calls' outputs (tuples
+    of integer, bool or float tensors), each element taken as float64:
+    0.0 exactly when they agree value for value."""
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+               for a, b in zip(got, want))
 
 
 def same_bits(got, again) -> bool:
@@ -1351,6 +1394,7 @@ def ftl_phase(dev, flush, floor_ms) -> tuple[dict, dict]:
     want_ppn, want_hit = ref.ftl_lookup(lpns, directory, cache, entries)
     torch.cuda.synchronize()
     exact = torch.equal(ppn, want_ppn) and torch.equal(hit, want_hit)
+    burst_err = exact_err((ppn, hit), (want_ppn, want_hit))
     repeat_equal = same_bits((ppn, hit), fk.ftl_lookup(lpns, directory, cache, entries))
     n_hits = int(hit.sum())
     big = int((ppn >= 1 << 24).sum())
@@ -1419,7 +1463,7 @@ def ftl_phase(dev, flush, floor_ms) -> tuple[dict, dict]:
         "launches": launches,
         "shape": {"lpns": FTL_BURST, "directory": n_seg,
                   "mapping_cache": [n_slots, entries]},
-        "max_abs_err": 0, "gate": "bit for bit (PPNs and hits)",
+        "max_abs_err": burst_err, "gate": "bit for bit (PPNs and hits)",
         "checks": sweep, "repeat_equal": repeat_equal,
         "ms": ms, "ms_spun": ms_spun, "spin_ms": spin_ms, "host_ms_max": host_ms,
         "plain_ms": plain_ms, "floor_ms": floor_ms,
@@ -1440,21 +1484,28 @@ def ftl_phase(dev, flush, floor_ms) -> tuple[dict, dict]:
     return line, row
 
 
-def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
+def engine_phase(E, pa, phase, dev) -> tuple[dict, dict]:
     """One phase of the main path: `serving.engine.step` at FULL_WIDTH for
     STEPS steps from fixed seeds, after a warm-up on a throwaway state,
-    driven REPEATS times. Each time the kernel's launch count is zeroed
+    driven REPEATS times. Each time the kernels' launch counts are zeroed
     just before the run and read just after. Returns the phase's line
     (harvesting counts, launches, the last attention norm, host ms per
-    step: the median and every run's) and the last step's paged-attention
-    call (args, kw), which the kernel must also compute as its plain
+    step: the median and every run's) and the last step's kernel calls
+    {name: (args, kw)}, which each kernel must also compute as its plain
     version does. Fails on counts other than the JAX reference's, on a
-    launch count other than one a step, on a non-finite norm, on a host
+    launch count other than one a step (paged attention; with
+    trace_driven also the SHARDS window), on a non-finite norm, on a host
     sync inside a step, and on a phase with shards that exchanged no
-    request."""
+    request; with trace_driven on a last-step want other than the
+    reference's (WANT_PAGES_LAST), or none on a loaded replica; with obs
+    on an empty event log or one without a row of the exchange (level
+    >= 1)."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels import shards_window as sw
 
     extra, expect = PHASES[phase]
+    if "obs" in extra:
+        extra = {**extra, "obs": E.obs_m.ObsConfig(**extra["obs"])}
     cfg = E.EngineConfig(**FULL_WIDTH, **extra)
     arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
     # warm-up on a throwaway state (cuBLAS handles, the kernel library)
@@ -1464,10 +1515,15 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
     del warm
     captured = {}
     dispatch = E.kops.paged_attention
+    window = E.kops.shards_window
 
     def capture(*args, **kw):
-        captured["call"] = (args, kw)
+        captured["paged_attention"] = (args, kw)
         return dispatch(*args, **kw)
+
+    def capture_window(*args, **kw):
+        captured["shards_window"] = (args, kw)
+        return window(*args, **kw)
 
     runs = []
     for _ in range(REPEATS):
@@ -1479,7 +1535,9 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
         norms = []
         torch.cuda.synchronize()
         E.kops.paged_attention = capture
+        E.kops.shards_window = capture_window
         pa.paged_attention.launches = 0
+        sw.shards_window.launches = 0
         t0 = time.perf_counter()
         # the step reads nothing back to the host: any synchronizing CUDA
         # call inside it raises here
@@ -1493,30 +1551,65 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
         finally:
             torch.cuda.set_sync_debug_mode("default")
             E.kops.paged_attention = dispatch
+            E.kops.shards_window = window
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = pa.paged_attention.launches
+        window_launches = sw.shards_window.launches
         norms = torch.stack(norms).cpu()
         got = (int(redirected), int(stats["offsite_pages"]),
                int(stats["log_commits"]), int(cross))
-        runs.append(dict(got=got, launches=launches, norm=float(norms[-1]),
+        runs.append(dict(got=got, launches=launches, window_launches=window_launches,
+                         norm=float(norms[-1]),
                          finite=bool(torch.isfinite(norms).all()),
                          ms_per_step=1e3 * seconds / STEPS))
         if got != expect:
             fail(f"{phase}: harvesting counts {got} != reference {expect}")
         if launches != STEPS:
             fail(f"{phase}: paged_attention launched {launches} times in {STEPS} steps")
+        if window_launches != (STEPS if cfg.trace_driven else 0):
+            fail(f"{phase}: shards_window launched {window_launches} times in "
+                 f"{STEPS} steps")
         if not runs[-1]["finite"]:
             fail(f"{phase}: attn_norm not finite")
+        planes = {}
+        if cfg.trace_driven:
+            want = stats["want_pages"].cpu().tolist()
+            loaded = [i for i, a in enumerate(ARRIVALS) if a > 0]
+            if want != WANT_PAGES_LAST[phase] or min(want[i] for i in loaded) <= 0:
+                fail(f"{phase}: want_pages at the last step {want} != the "
+                     f"reference's {WANT_PAGES_LAST[phase]}")
+            planes["want_pages_last"] = want
+        if cfg.obs.enabled:
+            records, dropped = E.obs_events(state)
+            level1 = sum(r["level"] >= 1 for r in records)
+            if not records or not level1:
+                fail(f"{phase}: the event log holds {len(records)} rows, "
+                     f"{level1} of the exchange")
+            history = E.obs_history(state)
+            planes.update(events=len(records), events_level_ge1=level1,
+                          events_dropped=dropped,
+                          event_count=state.obs.events.count.cpu().tolist(),
+                          ring_windows=int(history["util"].shape[0]),
+                          obs_cursor=state.obs.metrics.cursor.cpu().tolist())
+        runs[-1]["planes"] = planes
         del state
     if cfg.n_shards > 1 and expect[3] <= 0:
         fail(f"{phase}: no request crossed shards")
-    args, kw = captured["call"]
+    args, kw = captured["paged_attention"]
     err, _, ok = max_err(pa.paged_attention(*args, **kw), plain(ref, args, kw),
                          TOL["int8" if kw else "fp32"])
     if not ok:
         fail(f"{phase}: kernel disagrees with its plain version on the phase's "
              f"last step (max abs err {err})")
+    window_equal = None
+    if cfg.trace_driven:
+        args, kw = captured["shards_window"]
+        got_w, want_w = sw.shards_window(*args, **kw), ref.shards_window(*args, **kw)
+        window_equal = all(torch.equal(a, b) for a, b in zip(got_w, want_w))
+        if not window_equal:
+            fail(f"{phase}: the shards_window kernel differs from its plain "
+                 "version on the phase's last window")
     ms = sorted(r["ms_per_step"] for r in runs)
     got = runs[0]["got"]
     line = dict(redirected=got[0], offsite_pages=got[1], log_commits=got[2],
@@ -1525,6 +1618,9 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
                 shards_per_enclosure=cfg.shards_per_enclosure,
                 launches=runs[0]["launches"],
                 launches_each_run=[r["launches"] for r in runs],
+                shards_window_launches=runs[0]["window_launches"],
+                shards_window_bit_equal=window_equal,
+                **runs[0]["planes"],
                 attn_norm_last=runs[0]["norm"],
                 attn_norm_finite=all(r["finite"] for r in runs),
                 kernel_max_abs_err=err,
@@ -1532,7 +1628,69 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, tuple]:
                 ms_per_step=ms[len(ms) // 2],
                 ms_per_step_runs=[r["ms_per_step"] for r in runs],
                 ms_per_step_spread=[ms[0], ms[-1]])
-    return line, captured["call"]
+    return line, captured
+
+
+def window_bytes(args) -> int:
+    """Bytes one SHARDS window must move: the references (int64) and the
+    mask (one byte) read once, the state (table int64 + int32 per row,
+    histogram, clock, cold, total) read once and written once."""
+    addrs, _, _, hist = args[:4]
+    refs = args[6]
+    n, k = addrs.shape
+    state = n * (k * 12 + hist.shape[1] * 4 + 12)
+    return refs.numel() * 9 + 2 * state
+
+
+def window_row(call, by_phase, flush, floor_ms) -> dict:
+    """The `kernels` entry of the SHARDS window kernel on the main path's
+    last window (`trace_fp32`): equal to its plain version bit for bit,
+    repeated bit for bit, its time spun and unspun beside `floor_ms`, and
+    the plain loop's time once on the card as a yardstick (it launches
+    some 30 kernels per reference)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import shards_window as sw
+    args, kw = call
+    got = sw.shards_window(*args, **kw)
+    want = ref.shards_window(*args, **kw)
+    again = sw.shards_window(*args, **kw)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = exact_err(got, want)
+    repeat_equal = same_bits(got, again)
+    if not (equal and repeat_equal):
+        fail(f"shards_window: kernel differs from its plain version ({equal}) or "
+             f"from itself ({repeat_equal}) on the main path's last window")
+    ms = timed_ms(lambda: sw.shards_window(*args, **kw), 20, flush)
+    ms_spun, spin_ms, host_ms = spun_ms(
+        "shards_window", lambda: sw.shards_window(*args, **kw), 20, flush)
+    plain_ms = timed_ms(lambda: ref.shards_window(*args, **kw), 1, flush)
+    nbytes = window_bytes(args)
+    t_bytes = 1e3 * nbytes / HBM_BPS
+    refs, mask = args[6], args[7]
+    return {
+        "name": "shards_window", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/shards_window.cu",
+        # not a TPU kernel: the reference's lax.scan of the SHARDS update
+        "replaces": "src/repro/core/shards_mrc.py:115",
+        "replaces_kind": "lax.scan (no Pallas kernel)",
+        "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+        "on_main_path": True,
+        "shape": {"nodes": int(refs.shape[0]), "refs": int(refs.shape[1]),
+                  "valid_refs": int(mask.sum()), "k": int(args[0].shape[1]),
+                  "buckets": int(args[3].shape[1])},
+        "max_abs_err": err, "gate": "bit for bit (all six state tensors)",
+        "repeat_equal": repeat_equal,
+        "ms": ms, "ms_spun": ms_spun, "spin_ms": spin_ms, "host_ms_max": host_ms,
+        "plain_ms": plain_ms, "floor_ms": floor_ms,
+        # a serial chain of warp reductions per sampled reference: bytes are
+        # the only bound the table gives, and the kernel is far from it
+        "bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes,
+        "of_bound": t_bytes / ms_spun,
+        "of_bound_floor": max(t_bytes, floor_ms) / ms_spun,
+        # no single PyTorch call computes a SHARDS scan
+        "library_ms": None,
+    }
 
 
 def same_state(got, want, where: str) -> None:
@@ -1540,11 +1698,12 @@ def same_state(got, want, where: str) -> None:
     for bit, int8 K/V codes within one step (a float32 product rounded on
     the other side of .5), float leaves within 1e-4 relative. The K/V
     planes' last page is scratch (masked writes land there), not state."""
-    for name, b in zip(want._fields, want):
-        a = getattr(got, name)
+    items = want.items() if isinstance(want, dict) else zip(want._fields, want)
+    for name, b in items:
+        a = got[name] if isinstance(got, dict) else getattr(got, name)
         if b is None:
             continue
-        if hasattr(b, "_fields"):
+        if hasattr(b, "_fields") or isinstance(b, dict):
             same_state(a, b, f"{where}.{name}")
             continue
         a = a.cpu()
@@ -1643,6 +1802,8 @@ def main() -> None:
                                                            "router_kernel"),
                                 "ftl_ptxas": ptxas_rows(_build.LOG.get("ftl_lookup", ""),
                                                         "ftl_kernel"),
+                                "window_ptxas": ptxas_rows(_build.LOG.get("shards_window", ""),
+                                                           "shards_window_kernel"),
                                 "wkv_hmma": hmma}}),
           flush=True)
     if hgmma == 0:
@@ -1718,6 +1879,8 @@ def main() -> None:
                       if (PHASES[phase][0]["kv_quant"] == "int8") == (form == "int8")}
                for form in ("fp32", "int8")}
     launches = {form: sum(v.values()) for form, v in by_form.items()}
+    by_window = {phase: line["shards_window_launches"]
+                 for phase, line in engine_out.items() if line["shards_window_launches"]}
     print(json.dumps({"engine": engine_out}), flush=True)
 
     # ---- 2b. the model zoo's serve path at full width, a sliding window
@@ -1739,8 +1902,8 @@ def main() -> None:
     print(json.dumps({"model_moe_v3": moe_v3_line}), flush=True)
 
     # ---- 3. each kernel form on the inputs the main path gave it
-    fp_args, _ = main_inputs["fp32"]
-    int8_args, int8_kw = main_inputs["int8_metered"]
+    fp_args, _ = main_inputs["fp32"]["paged_attention"]
+    int8_args, int8_kw = main_inputs["int8_metered"]["paged_attention"]
     forms = {
         "fp32": (list(fp_args), {}, launches["fp32"]),
         "bf16": ([fp_args[0].bfloat16(), fp_args[1].bfloat16(),
@@ -1800,6 +1963,10 @@ def main() -> None:
             "library_ms": None,
         })
 
+    # the SHARDS window kernel on the trace-driven phases' last window
+    kernels.append(window_row(main_inputs["trace_fp32"]["shards_window"],
+                              by_window, flush, floor_ms))
+
     # ---- 4. the engine on the GPU against the same engine on the CPU:
     # one shard (stats), then the hierarchical engine (stats and state)
     small = E.EngineConfig(n_replicas=4, seq_slots=4, shadow_slots=2,
@@ -1814,14 +1981,22 @@ def main() -> None:
     borrowed = gpu_vs_cpu_engine(E, dev, sharded._replace(kv_quant="int8"),
                                  [3, 3, 0, 0, 0, 0, 0, 0], 8, check_state=True,
                                  pressured=range(4, 8))
-    if cross["cross_redirected"] <= 0 or borrowed["cross_link_borrowed_bytes"] <= 0:
+    # both planes: the SHARDS state (table, clock, histogram), the rings'
+    # cursor and the event log's count compared as state
+    planes = gpu_vs_cpu_engine(E, dev, sharded._replace(
+        trace_driven=True, obs=E.obs_m.ObsConfig(enabled=True, ring_depth=8,
+                                                 event_capacity=256)),
+        [5, 5, 5, 5, 0, 0, 0, 0], 8, check_state=True)
+    if cross["cross_redirected"] <= 0 or borrowed["cross_link_borrowed_bytes"] <= 0 \
+            or planes["cross_redirected"] <= 0:
         fail(f"gpu_vs_cpu_engine: the sharded runs exchanged nothing ({cross}, "
-             f"{borrowed})")
+             f"{borrowed}, {planes})")
     print(json.dumps({"gpu_vs_cpu_engine": {
         "configs": ["4 replicas, int8 (stats)",
                     "8 replicas in 2 shards, metered, fp32 (stats and state)",
-                    "the same, int8, shard 1 memory-full (stats and state)"],
-        "steps": [6, 8, 8], "sharded_totals": [cross, borrowed], "ok": True}}),
+                    "the same, int8, shard 1 memory-full (stats and state)",
+                    "the fp32 2-shard config, trace-driven with obs (stats and state)"],
+        "steps": [6, 8, 8, 8], "sharded_totals": [cross, borrowed, planes], "ok": True}}),
         flush=True)
     from repro_torch import configs
     from repro_torch.models.config import ArchConfig

@@ -134,7 +134,8 @@ def main() -> None:
 
     # the main path's inputs, from the first build's engine run
     use(next(iter(built)))
-    inputs = {phase: cs.engine_phase(E, pa, phase, dev)[1] for phase in cs.PHASES}
+    inputs = {phase: cs.engine_phase(E, pa, phase, dev)[1]["paged_attention"]
+              for phase in cs.PHASES}
     (fp_args, _), (i8_args, i8_kw) = inputs["fp32"], inputs["int8_metered"]
     forms = {"fp32": (list(fp_args), {}),
              "bf16": ([a.bfloat16() for a in fp_args[:3]] + list(fp_args[3:]), {}),

@@ -2,12 +2,14 @@
 """Where a step of the port's serving engine spends its time, on one GPU.
 
     python3 scripts/torch_engine_profile.py [--quant int8 --link-pages 4] \\
-        [--n-shards 4 --shards-per-enclosure 2]
+        [--n-shards 4 --shards-per-enclosure 2] [--trace-driven] [--obs]
 
 Runs `repro_torch.serving.engine.step` at the configuration `chip_smoke.py`
 drives (its FULL_WIDTH and ARRIVALS: qwen3-14b attention width, 8
 replicas, arrivals [16, 4, 0, ...]), with one shard or the hierarchical
-engine (``--n-shards``, ``--shards-per-enclosure``). After 6 steps of
+engine (``--n-shards``, ``--shards-per-enclosure``), with the telemetry
+plane (``--trace-driven``) and the observability plane (``--obs``: rings
+of 32 windows, a log of 4096 rows, as `chip_smoke.py`'s obs phase). After 6 steps of
 warm-up and sync checks it profiles steps 7 .. 6 + N (N = --steps) and
 reports, all from that one window:
 
@@ -25,8 +27,12 @@ reports, all from that one window:
   pool's append (`append`), the paged-attention kernel
   (`paged_attention`), release and the offsite scan (`release`), the
   decode layer's products and the int8 read-back (`decode`), the shard
-  layout (`layout`) and the rest of the step (`step`: the LINK_BW
-  account, the spill budget, the stats). Each is exclusive of the labelled
+  layout (`layout`), the telemetry plane (`telemetry`: the SHARDS window
+  with its decay, the want), the SHARDS window kernel alone
+  (`shards_window`), the obs plane's record (`obs_record`, the engine's
+  own range: rings and the event append) and the rest of the step
+  (`step`: the LINK_BW account, the spill budget, the stats). Each is
+  exclusive of the labelled
   ranges nested in it, as in `torch_model_profile.py`;
 - host syncs inside the step: the warnings `torch.cuda.set_sync_debug_mode`
   raises over 2 steps (the step is meant to have none);
@@ -58,6 +64,8 @@ def main() -> None:
     ap.add_argument("--link-pages", type=int, default=0)
     ap.add_argument("--n-shards", type=int, default=1)
     ap.add_argument("--shards-per-enclosure", type=int, default=0)
+    ap.add_argument("--trace-driven", action="store_true")
+    ap.add_argument("--obs", action="store_true")
     ap.add_argument("--steps", type=int, default=16)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -78,13 +86,17 @@ def main() -> None:
     cfg = E.EngineConfig(**FULL_WIDTH, kv_quant=args.quant,
                          link_pages_per_step=args.link_pages,
                          n_shards=args.n_shards,
-                         shards_per_enclosure=args.shards_per_enclosure)
+                         shards_per_enclosure=args.shards_per_enclosure,
+                         trace_driven=args.trace_driven,
+                         obs=E.obs_m.ObsConfig(enabled=args.obs, ring_depth=32,
+                                               event_capacity=4096))
     state = E.init(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
 
     stages = {"round", "route", "exchange", "admit", "append",
-              "paged_attention", "release", "decode", "layout", "step"}
+              "paged_attention", "release", "decode", "layout", "step",
+              "telemetry", "shards_window", "obs_record"}
     for module, attr, label in (
             (mgr.ResourceManager, "round", "round"), (E, "_route", "route"),
             (E, "_exchange", "exchange"), (E, "_admit", "admit"),
@@ -92,7 +104,10 @@ def main() -> None:
             (ops, "paged_attention", "paged_attention"),
             (kvp, "release_sequences", "release"), (kvp, "offsite_pages", "release"),
             (E, "_decode_all", "decode"), (E, "_to_shards", "layout"),
-            (E, "_from_shards", "layout"), (E, "_shard_step", "step")):
+            (E, "_from_shards", "layout"), (E, "_shard_step", "step"),
+            (E.tele_win, "update_window", "telemetry"),
+            (E.tele_want, "want_entries", "telemetry"),
+            (ops, "shards_window", "shards_window")):
         _label(module, attr, label)
 
     def run(n):
@@ -133,6 +148,7 @@ def main() -> None:
         "config": {"kv_quant": args.quant, "link_pages_per_step": args.link_pages,
                    "n_shards": args.n_shards,
                    "shards_per_enclosure": args.shards_per_enclosure,
+                   "trace_driven": args.trace_driven, "obs": args.obs,
                    "steps": args.steps},
         "window": f"steps 7..{6 + args.steps}",
         "wall_ms_per_step": wall_ms,

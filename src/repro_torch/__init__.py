@@ -13,8 +13,11 @@ Ported so far:
 - the serving-engine step (`serving.engine.step`, fp32 and int8 KV
   pages), on one shard or as the hierarchical engine (``n_shards > 1``,
   flat or grouped into enclosures), with the paged-attention kernel
-  (`kernels/csrc/paged_attention.cu`), and the link-account scenario
-  (`serving.scenarios`);
+  (`kernels/csrc/paged_attention.cu`), with its telemetry plane
+  (``trace_driven``: `core.shards_mrc`, `telemetry`, and the SHARDS
+  window kernel `kernels/csrc/shards_window.cu`) and its observability
+  plane (``obs``: `obs.metrics`, `obs.spans`, `obs.export`), and the
+  link-account scenario (`serving.scenarios`);
 - the dense model zoo's serve path (`models.transformer.init_params`,
   `models.decode.prefill` and `decode_step`, driven by
   `launch.serve.run_model`) for qwen3-14b, granite-8b, internlm2-20b and

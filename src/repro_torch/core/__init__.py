@@ -8,10 +8,12 @@ modules (port of `repro.core`).
   wal          log-page crash consistency (paper §4.5)
   topology     the exchange tree and its level-by-level exchange (DESIGN.md §11)
   costs        per-op §4.6 remote-assist price table
+  shards_mrc   SHARDS online miss-ratio-curve estimation (§4.5)
 
-`shards_mrc` and `events` move with later slices.
+`events` moves with the failure plane.
 """
-from . import costs, descriptors, harvest, loadbalance, manager, topology, wal
+from . import (costs, descriptors, harvest, loadbalance, manager, shards_mrc,
+               topology, wal)
 
 __all__ = ["costs", "descriptors", "harvest", "loadbalance", "manager",
-           "topology", "wal"]
+           "shards_mrc", "topology", "wal"]

@@ -193,6 +193,21 @@ def shard_exchange(spare: torch.Tensor, want: torch.Tensor,
     return settled.grants, settled.received
 
 
+def table_transitions(prev: d.IdleResourceTable, new: d.IdleResourceTable):
+    """Grant-lifecycle transitions between two table snapshots (the obs
+    plane's events are this diff of the table entering a round against
+    the table leaving it). Returns bool [..., n, s] masks ``(published,
+    withdrawn, claimed, released)``: invalid -> valid; valid -> invalid;
+    ``borrower_id`` landed on a (new) borrower; a standing claim dropped
+    or changed hands."""
+    changed = new.borrower_id != prev.borrower_id
+    published = new.valid & ~prev.valid
+    withdrawn = prev.valid & ~new.valid
+    claimed = (new.borrower_id != d.FREE) & changed
+    released = (prev.borrower_id != d.FREE) & changed
+    return published, withdrawn, claimed, released
+
+
 def fill_by_rank(capacity: torch.Tensor, total) -> torch.Tensor:
     """Split ``total`` across nodes by filling ``capacity`` in index order
     along the last axis: out[i] = clip(total − Σ_{j<i} cap[j], 0, cap[i]).

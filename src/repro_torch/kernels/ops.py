@@ -15,6 +15,7 @@ from . import paged_attention as _pa
 from . import ref
 from . import rglru_scan as _rg
 from . import rwkv6_scan as _wkv
+from . import shards_window as _sw
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,3 +93,18 @@ def ftl_lookup(lpns: torch.Tensor, directory: torch.Tensor,
     if lpns.device.type == "cpu":
         return ref.ftl_lookup(lpns, directory, mapping_cache, entries_per_segment)
     return _ftl.ftl_lookup(lpns, directory, mapping_cache, entries_per_segment)
+
+
+def shards_window(addrs: torch.Tensor, last_seen: torch.Tensor,
+                  clock: torch.Tensor, hist: torch.Tensor, cold: torch.Tensor,
+                  total: torch.Tensor, refs: torch.Tensor, mask: torch.Tensor,
+                  sample_mod: int, sample_thresh: int, bucket_width: int):
+    """Fixed-size SHARDS over one window of references for every node:
+    state addrs int64 [N, K], last_seen int32 [N, K], clock int32 [N],
+    hist float32 [N, B], cold and total float32 [N]; refs int64 [N, A]
+    and mask bool [N, A] -> the six updated tensors."""
+    args = (addrs, last_seen, clock, hist, cold, total, refs, mask,
+            sample_mod, sample_thresh, bucket_width)
+    if addrs.device.type == "cpu":
+        return ref.shards_window(*args)
+    return _sw.shards_window(*args)

@@ -2,12 +2,13 @@
 
 Port of `repro.kernels.ref`: prefill attention (dense and chunked
 forms), decode attention, paged attention, the RG-LRU and RWKV6
-recurrences with their single decode steps, the FTL lookup and the MoE
-top-k router. The CPU path runs these; on the GPU `chip_smoke.py` and the
+recurrences with their single decode steps, the FTL lookup, the MoE
+top-k router and the SHARDS window scan of the telemetry plane. The CPU path runs these; on the GPU `chip_smoke.py` and the
 CUDA tests hold each kernel against them on the same inputs.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -289,3 +290,91 @@ def topk_router(scores: torch.Tensor, k: int, bias: torch.Tensor | None = None):
     picked = torch.gather(scores, -1, idx)
     w = picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9)
     return w, idx.to(torch.int32)
+
+
+# --------------------------------------------------------- shards window
+EMPTY_ADDR = 0xFFFFFFFF   # SHARDS empty-table marker (uint32 all ones)
+_HASH_MULT = 2654435761   # Knuth multiplicative hashing constant
+_U32 = 0xFFFFFFFF
+
+
+def shards_hash(addr: torch.Tensor) -> torch.Tensor:
+    """The reference's uint32 hash ``h = addr * 2654435761 (mod 2^32); h ^
+    (h >> 16)`` on int64 addresses in [0, 2^32). The product would pass
+    int64's range, so the low 32 bits are taken from 16-bit halves: addr
+    = hi * 2^16 + lo gives addr * M = lo * M + ((hi * M) mod 2^16) * 2^16
+    (mod 2^32), each term below 2^49."""
+    a = addr & _U32
+    lo, hi = a & 0xFFFF, a >> 16
+    h = (lo * _HASH_MULT + (((hi * _HASH_MULT) & 0xFFFF) << 16)) & _U32
+    return h ^ (h >> 16)
+
+
+def shards_constants(sample_mod: int, sample_thresh: int,
+                     bucket_width: int) -> tuple[float, float]:
+    """(scale, inv_rate) of the SHARDS scan, as the reference's compiled
+    code holds them in float32. Its source computes ``dist / rate /
+    bucket_width``; XLA turns each division by a constant into a product
+    with the constant's float32 reciprocal and folds the two into one
+    factor: scale = f32(1 / f32(rate)) * f32(1 / bucket_width), rounded to
+    float32. inv_rate = f32(1.0 / rate), the weight of one sampled
+    reference (``1.0 / rate`` is a Python double)."""
+    f = np.float32
+    rate = sample_thresh / sample_mod
+    scale = (f(1.0) / f(rate)) * (f(1.0) / f(bucket_width))
+    return float(f(scale)), float(f(1.0 / rate))
+
+
+def shards_window(addrs: torch.Tensor, last_seen: torch.Tensor,
+                  clock: torch.Tensor, hist: torch.Tensor, cold: torch.Tensor,
+                  total: torch.Tensor, refs: torch.Tensor, mask: torch.Tensor,
+                  sample_mod: int, sample_thresh: int, bucket_width: int):
+    """Fixed-size SHARDS over one window of references, every node at once
+    (the reference's `shards_mrc.update`, vmapped over nodes): per node
+    the table ``addrs`` int64 [N, K] (values in [0, 2^32), EMPTY_ADDR
+    empty) and ``last_seen`` int32 [N, K], ``clock`` int32 [N], the
+    reuse-distance histogram ``hist`` float32 [N, B], ``cold`` and
+    ``total`` float32 [N]; ``refs`` int64 [N, A] (taken mod 2^32) and
+    ``mask`` bool [N, A]. Returns the six updated tensors.
+
+    Each reference in order: a masked one changes nothing; a valid one
+    advances ``clock``; it is sampled iff ``hash % sample_mod <
+    sample_thresh``. A sampled reference finds its row (the first match),
+    its previous time ``my_last`` (the largest ``last_seen`` among
+    matches, -1 on a miss), and its distance, the count of non-empty rows
+    seen after ``my_last``; a hit adds ``inv_rate`` to bucket ``clip(int(
+    dist * scale), 0, B - 1)``, a miss to ``cold``, either to ``total``;
+    then the row (a miss evicts the first row of least ``last_seen``)
+    takes the address and the clock."""
+    scale, inv = shards_constants(sample_mod, sample_thresh, bucket_width)
+    n, k = addrs.shape
+    b_n = hist.shape[-1]
+    dev = addrs.device
+    refs = refs & _U32
+    mask = mask.to(torch.bool)
+    sampled = mask & (torch.remainder(shards_hash(refs), sample_mod)
+                      < sample_thresh)
+    kidx = torch.arange(k, device=dev)
+    bidx = torch.arange(b_n, device=dev)
+    for j in range(refs.shape[-1]):
+        a, s = refs[:, j], sampled[:, j]
+        match = addrs == a[:, None]
+        hit = match.any(dim=-1)
+        my_last = torch.where(
+            hit, torch.where(match, last_seen, -1).amax(dim=-1), -1)
+        dist = ((last_seen > my_last[:, None])
+                & (addrs != EMPTY_ADDR)).sum(dim=-1)
+        b = (dist.to(torch.float32) * scale).to(torch.int32).clamp(0, b_n - 1)
+        add = (s & hit)[:, None] & (bidx == b[:, None])
+        hist = torch.where(add, hist + inv, hist)
+        cold = torch.where(s & ~hit, cold + inv, cold)
+        total = torch.where(s, total + inv, total)
+        first = torch.where(match, kidx, k).amin(dim=-1)
+        least = last_seen.amin(dim=-1, keepdim=True)
+        evict = torch.where(last_seen == least, kidx, k).amin(dim=-1)
+        row = torch.where(hit, first, evict)
+        put = s[:, None] & (kidx == row[:, None])
+        addrs = torch.where(put, a[:, None], addrs)
+        last_seen = torch.where(put, clock[:, None], last_seen)
+        clock = clock + mask[:, j].to(torch.int32)
+    return addrs, last_seen, clock, hist, cold, total

@@ -10,7 +10,11 @@ data-parallel serving replicas:
                                 |   replicas send admitted requests to idle
                                 |   replicas' SHADOW slots via the §4.4
                                 |   load-balance split
-  DRAM harvesting (§4.5)        | kv_pool peer-page spill + WAL
+  DRAM harvesting (§4.5)        | kv_pool peer-page spill + WAL; with
+                                |   trace_driven, the page-access stream
+                                |   feeds the telemetry plane's windowed
+                                |   SHARDS and the online want reserves
+                                |   lendable pages (DESIGN.md §7)
   link-bandwidth harvesting     | LINK_BW descriptors fund ONE byte account
                                 |   per replica (§4.6 cost table): lender-
                                 |   spill pages AND §4.4 redirect commands
@@ -29,13 +33,17 @@ hierarchical_exchange` (flat, or enclosures of ``shards_per_enclosure``
 shards with a pricier fabric tier above them). Every cross-level assist
 pays its tier's price, so nearer lenders win.
 
-One `step` runs, in order: the management round (`core.manager`); route;
-the LINK_BW account; the exchange across shards; admit; one
-`kv_pool.append_tokens` over every active sequence (offsite grants
-WAL-committed); one paged attention over the flattened (shard, replica,
-slot) batch — the hand-written CUDA kernel on a GPU, its plain version on
-the CPU (`kernels.ops`). The model is one paged-attention decode layer,
-the runtime's unit of work.
+One `step` runs, in order: with ``trace_driven``, one SHARDS window over
+every replica's page-access stream (`telemetry.windows`, one
+`shards_window` kernel launch for all shards) and the online want; the
+management round (`core.manager`); route; the LINK_BW account; the
+exchange across shards; admit; one `kv_pool.append_tokens` over every
+active sequence (offsite grants WAL-committed); one paged attention over
+the flattened (shard, replica, slot) batch — the hand-written CUDA
+kernels on a GPU, their plain versions on the CPU (`kernels.ops`); with
+``obs.enabled``, one record of the metric rings and one append of the
+round's grant events to the bounded log (DESIGN.md §12). The model is one
+paged-attention decode layer, the runtime's unit of work.
 
 The reference runs the shards under `jax.vmap`; the port carries the same
 leading shard axis through every function of the step ([S, nl, ...],
@@ -49,9 +57,9 @@ The step reads no value back to the host (no `.item()`, `int(t)` or
 pool's K/V planes in place: rebind the returned state and do not reuse the
 old one (`step` in the reference donates its state for the same reason).
 
-Configurations that need a later slice — ``trace_driven``,
-``obs.enabled``, ``track_failures``, ``migrate_pages_per_step > 0`` —
-raise ``NotImplementedError``; the multi-GPU sharded step is not ported.
+Configurations that need a later slice — ``track_failures``,
+``migrate_pages_per_step > 0`` — raise ``NotImplementedError``; the
+multi-GPU sharded step is not ported.
 Where the reference divides by a constant, the port multiplies by the
 float32 reciprocal (`manager.recip32`), as XLA compiles the reference, so
 every floor and threshold on such a quotient lands identically.
@@ -71,12 +79,37 @@ from repro_torch.core import loadbalance as lb
 from repro_torch.core import manager as mgr
 from repro_torch.core import topology as topo
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import export as obs_x
 from repro_torch.obs import metrics as obs_m
+from repro_torch.obs import spans as obs_s
+from repro_torch.telemetry import want as tele_want
+from repro_torch.telemetry import windows as tele_win
 from . import kv_pool as kvp
 
 WATERMARK = 0.75
 DRAM_MIN_PAGES = 4.0  # publish/consume threshold for lendable KV pages
 REQUEST_TOKENS = 16   # tokens each admitted request decodes
+
+# the reference's 1-entry estimator when trace_driven is off; the port
+# carries no estimator then (``mrc`` None)
+_NO_TELEMETRY = tele_win.TelemetryConfig(k=1, buckets=1)
+
+
+def _telemetry(cfg: "EngineConfig") -> tele_win.TelemetryConfig:
+    """Telemetry plane (DESIGN.md §7), engine side: the kv_pool page-access
+    stream (every physical page the decode batch attends over) feeds a
+    windowed-SHARDS estimator per replica at page granularity and full
+    sample rate. Coverage comes from the pool geometry: the table holds
+    every local page (k = pages_per_replica) and the curve spans the pool
+    (buckets * bucket_width >= pages_per_replica). On the card the window
+    kernel holds that table in shared memory, which bounds trace_driven at
+    pages_per_replica <= 29,048 on an H100 (227 KB a block;
+    `kernels.shards_window.MAX_K_H100`); past it the launch raises
+    ValueError. The CPU path takes any size."""
+    return tele_win.TelemetryConfig(
+        k=cfg.pages_per_replica, buckets=16,
+        bucket_width=max(-(-cfg.pages_per_replica // 16), 1),
+        sample_mod=1, sample_thresh=1, decay=0.9, min_total=2.0)
 
 
 class EngineConfig(NamedTuple):
@@ -95,7 +128,10 @@ class EngineConfig(NamedTuple):
     # transfers, kept as ONE byte account that lender-spill pages and §4.4
     # redirection commands both debit (commands first); 0 = unmetered
     link_pages_per_step: int = 0
-    trace_driven: bool = False      # later slice (telemetry plane)
+    # telemetry-driven DRAM publishing: each replica's page want, from its
+    # kv_pool page-access stream (windowed SHARDS), is reserved out of the
+    # lendable amount (off: lend every free page)
+    trace_driven: bool = False
     # hierarchical round: n_shards shards of n_replicas / n_shards replicas;
     # cross_shard=False keeps them independent (no exchange);
     # shards_per_enclosure (a proper divisor of n_shards) groups shards into
@@ -106,7 +142,9 @@ class EngineConfig(NamedTuple):
     # KV page storage: "none" = fp32 pages; "int8" = int8 codes + per-page
     # fp32 scales (rescale-on-write), ~4x smaller page_nbytes
     kv_quant: str = "none"
-    obs: obs_m.ObsConfig = obs_m.ObsConfig()   # enabled: later slice
+    # observability plane (DESIGN.md §12): metric rings + grant-lifecycle
+    # event log in the state; off leaves the state without them (None)
+    obs: obs_m.ObsConfig = obs_m.ObsConfig()
     track_failures: bool = False    # later slice (failure plane)
     migrate_pages_per_step: int = 0  # later slice (live migration)
     reclaim: object = None          # reclaim-predictor knobs (later slice)
@@ -119,15 +157,26 @@ class EngineState(NamedTuple):
     remaining: torch.Tensor   # [R, S_total] int32 — tokens left to decode
     queue: torch.Tensor       # [R] int32 — backlog of unadmitted requests
     step_count: torch.Tensor  # int32[]
-    mrc: object               # telemetry state: None in this slice
+    # per-replica windowed-SHARDS state over the page-access stream
+    # (`core.shards_mrc.ShardsState`) when cfg.trace_driven, else None
+    mrc: object
     # params of the demo decode layer (shared across replicas)
     wq: torch.Tensor
     wk: torch.Tensor
     wv: torch.Tensor
     wo: torch.Tensor
-    obs: object = None        # observability state: None in this slice
+    obs: object = None        # EngineObs when cfg.obs.enabled, else None
     dead: object = None       # failure-plane mask: None in this slice
     reclaim: object = None    # reclaim-predictor state: None in this slice
+
+
+class EngineObs(NamedTuple):
+    """Metric rings + grant-lifecycle event log (DESIGN.md §12). Node
+    metrics lead with the replica axis, scalar metrics and event lanes
+    with the shard axis, so they split by shard like any other field."""
+
+    metrics: obs_m.MetricsState
+    events: obs_s.EventLog
 
 
 def total_slots(cfg: EngineConfig) -> int:
@@ -149,10 +198,11 @@ def local_replicas(cfg: EngineConfig) -> int:
 
 def _check_slice(cfg: EngineConfig) -> None:
     """Raise for configurations this slice of the port does not run, so
-    nothing else runs in their place."""
+    nothing else runs in their place. Not checked here, because it
+    depends on the card: trace_driven on CUDA takes pages_per_replica up
+    to the window kernel's shared-memory limit (29,048 on an H100, see
+    `_telemetry`)."""
     later = [name for name, on in (
-        ("trace_driven", cfg.trace_driven),
-        ("obs.enabled", cfg.obs.enabled),
         ("track_failures", cfg.track_failures),
         ("migrate_pages_per_step>0", cfg.migrate_pages_per_step > 0),
     ) if on]
@@ -174,10 +224,27 @@ def _validate(cfg: EngineConfig) -> None:
 
 
 def _copy(x, dtype, dev) -> torch.Tensor:
-    """A fresh tensor on ``dev`` from a tensor or an array-like."""
+    """A fresh tensor on ``dev`` from a tensor or an array-like (uint32
+    addresses widen to int64 values)."""
     if isinstance(x, torch.Tensor):
         return x.detach().to(device=dev, dtype=dtype, copy=True)
-    return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.tensor(a, dtype=dtype, device=dev)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of NamedTuples / dicts (None stays None)."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if hasattr(t, "_fields"):
+        return type(t)(*(_tree_map(fn, *(getattr(x, f) for x in trees))
+                         for f in t._fields))
+    return fn(*trees)
 
 
 def init(cfg: EngineConfig, weights: dict | None = None, *, device=None,
@@ -213,6 +280,13 @@ def init(cfg: EngineConfig, weights: dict | None = None, *, device=None,
         pool = pool._replace(logs=pool.logs._replace(
             flushes=torch.zeros(cfg.n_shards, dtype=torch.int32, device=dev),
             commits=torch.zeros(cfg.n_shards, dtype=torch.int32, device=dev)))
+    obs = None
+    if cfg.obs.enabled:
+        obs = EngineObs(
+            metrics=ENGINE_METRICS.init(cfg.n_replicas, cfg.obs,
+                                        lead=cfg.n_shards, device=dev),
+            events=obs_s.make_log(cfg.obs.event_capacity, lead=cfg.n_shards,
+                                  device=dev))
     return EngineState(
         pool=pool,
         table=_manager(cfg).init_table(cfg.n_replicas, device=dev),
@@ -222,7 +296,9 @@ def init(cfg: EngineConfig, weights: dict | None = None, *, device=None,
                               device=dev),
         queue=torch.zeros(cfg.n_replicas, dtype=torch.int32, device=dev),
         step_count=torch.zeros((), dtype=torch.int32, device=dev),
-        mrc=None, **w)
+        mrc=(tele_win.init_batch(cfg.n_replicas, _telemetry(cfg), device=dev)
+             if cfg.trace_driven else None),
+        obs=obs, **w)
 
 
 def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
@@ -230,9 +306,11 @@ def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
     leaves are numpy arrays (``jax.tree.map(np.asarray, state)``): the
     decode weights, the pool (K/V planes, scales, allocation, page table,
     lengths, WAL with its [n_shards] counters when sharded), the
-    descriptor table, ``home_of``, ``remaining``, ``queue`` and
-    ``step_count``. Read by attribute, so any object with the reference's
-    field names will do."""
+    descriptor table, ``home_of``, ``remaining``, ``queue``,
+    ``step_count``, and with ``trace_driven`` the SHARDS state ``mrc``
+    (without it the reference carries a 1-entry estimator, which the port
+    drops) and with ``obs.enabled`` the rings and the event log. Read by
+    attribute, so any object with the reference's field names will do."""
     state = init(cfg, {n: getattr(arrays, n) for n in ("wq", "wk", "wv", "wo")},
                  device=device)
     dev = state.queue.device
@@ -256,6 +334,15 @@ def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
                                     "page_table", "seq_len", "seq_active"))
     pool = pool._replace(logs=like(pool.logs, arrays.pool.logs))
     state = state._replace(pool=pool, table=like(state.table, arrays.table))
+    if cfg.trace_driven:
+        state = state._replace(mrc=_tree_map(
+            lambda fresh, src: _copy(src, fresh.dtype, dev), state.mrc, arrays.mrc))
+    elif tuple(np.shape(arrays.mrc.addrs))[-1:] != (_NO_TELEMETRY.k,):
+        raise ValueError("a reference state with an estimator beside a config "
+                         "without trace_driven")
+    if cfg.obs.enabled:
+        state = state._replace(obs=_tree_map(
+            lambda fresh, src: _copy(src, fresh.dtype, dev), state.obs, arrays.obs))
     return like(state, arrays, ("home_of", "remaining", "queue", "step_count"))
 
 
@@ -521,6 +608,12 @@ class _Exchange(NamedTuple):
     import_home: torch.Tensor       # [S] home id of each source shard
     cross_redirected: torch.Tensor  # requests exchanged (float32 scalar)
     cross_borrowed: torch.Tensor    # LINK_BW bytes borrowed (float32 scalar)
+    # the grant matrices per level [L, host, source] and their unit prices,
+    # for the obs plane's grant rows (LINK_BW: None unmetered)
+    grants: torch.Tensor
+    cmd_x: tuple
+    link_grants: torch.Tensor | None
+    link_prices: tuple | None
 
 
 def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
@@ -571,6 +664,7 @@ def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
     import_home = torch.arange(ns, dtype=torch.int32, device=dev) * n
     extra_link = torch.zeros_like(budget_bytes)
     cross_borrowed = torch.zeros((), dtype=torch.float32, device=dev)
+    lgrants = link_prices = None
     if metered:
         # LINK_BW: pressured shards borrow idle shards' leftover byte
         # allowance; each level's detour pays its extra-hop command bytes
@@ -599,9 +693,32 @@ def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
             l_want * (recv_x / torch.clamp(want_tot, min=1e-9))[:, None], 0.0)
         budget_bytes = budget_bytes - lent_each
         cross_borrowed = mgr.seq_sum(recv_x)
+        link_prices = tuple(oh * page_b for oh in link_ohs)
     return _Exchange(kept, redirect_bytes, budget_bytes, extra_link, imports,
                      import_src, import_home, g_int.sum().to(torch.float32),
-                     cross_borrowed)
+                     cross_borrowed, g_int, cmd_x, lgrants, link_prices)
+
+
+def _grant_rows(cfg: EngineConfig, xch: _Exchange, t: torch.Tensor):
+    """The obs plane's rows of the exchange's grants, lender-side: each
+    shard logs the rows where it is the granting host (shard ids in
+    lender and borrower), PROCESSOR levels then LINK_BW levels."""
+    ns = xch.grants.shape[-1]
+    shard_topo = shard_topology(cfg)
+    lender_base = torch.arange(ns, dtype=torch.int32,
+                               device=xch.grants.device)[:, None, None]
+    out = []
+    for rtype, grants, prices in (
+            (desc.PROCESSOR, xch.grants, xch.cmd_x),
+            (desc.LINK_BW, xch.link_grants, xch.link_prices)):
+        if grants is None:
+            continue
+        for lv in range(len(prices)):
+            out.append(obs_s.grant_event_rows(
+                grants[lv][:, None, :].to(torch.float32), rtype=rtype,
+                level=shard_topo.level_tier(lv), t=t, price=prices[lv],
+                lender_base=lender_base))
+    return out
 
 
 def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
@@ -620,9 +737,27 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
     scalar0 = torch.zeros((), dtype=torch.float32, device=dev)
     metered = cfg.link_pages_per_step > 0
     page_b = float(kvp.page_nbytes(state.pool))
+    lendable, want_pages = free, zeros
+    if cfg.trace_driven:
+        # the kv_pool page-access stream: every page the decode batch will
+        # attend over this step (active sequences' page tables, ids local
+        # to the shard as the reference stores them); dead slots map to -1,
+        # which the window takes as 0xFFFFFFFF, the estimator's padding
+        tcfg = _telemetry(cfg)
+        pt = state.pool.page_table                            # [S, nl, St, MP]
+        live = (pt >= 0) & state.pool.seq_active[..., None]
+        mrc_state = tele_win.update_window(
+            state.mrc, torch.where(live, pt, -1).reshape(ns, n, -1), tcfg)
+        want_pages = tele_want.want_entries(mrc_state, tcfg)
+        # reserve the estimated growth beyond the pages already backing
+        # local sequences out of the lendable amount
+        footprint = live.sum(dim=(-2, -1)).to(torch.float32)
+        reserve = torch.clamp(want_pages - footprint, min=0.0)
+        lendable = torch.clamp(free - reserve, min=0.0)
+        state = state._replace(mrc=mrc_state)
     inputs = {
         desc.PROCESSOR: mgr.RoundInputs(util=util, gate_util=mem),
-        desc.DRAM: mgr.RoundInputs(amount=free),
+        desc.DRAM: mgr.RoundInputs(amount=lendable),
     }
     if metered:
         # a replica under HBM pressure is about to spill: it borrows idle
@@ -630,6 +765,7 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
         inputs[desc.LINK_BW] = mgr.RoundInputs(
             util=mem, amount=torch.full((ns, n), float(cfg.link_pages_per_step),
                                         dtype=torch.float32, device=dev))
+    prev_table = state.table  # obs: the grant events are the round's diff
     table = manager.round(state.table, inputs)
     state = state._replace(table=table)
     kept, sent = _route(cfg, state, arrivals)
@@ -689,7 +825,7 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
         "attn_norm": attn_norm,
         "offsite_pages": offsite_after,
         "log_commits": state.pool.logs.commits.sum(dtype=torch.int32),
-        "want_pages": zeros,
+        "want_pages": want_pages,
         # unified LINK_BW account per replica: with metering, spill +
         # redirect <= budget every step (budget includes cross-shard
         # borrowed bytes, net of the hop tax); unmetered, budget and
@@ -705,6 +841,27 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
         # error over this step's token rows); zero for fp32 pages
         "quant_err_norm": quant_err,
     }
+    if cfg.obs.enabled:
+        with obs_x.scope("obs_record"):
+            ring_vals = {k: v if v.dim() else v.expand(ns)
+                         for k, v in stats.items()}
+            ring_vals["hbm_pressure"] = hbm_pressure(cfg, state)
+            # live migration is a later slice: its rings record zeros, as
+            # the reference's do with migration off
+            ring_vals["migrated_pages"] = zeros
+            ring_vals["migration_bytes"] = zeros
+            ring_vals["util_hist"] = stats["util"]
+            ms = ENGINE_METRICS.record(state.obs.metrics, ring_vals)
+            base = torch.arange(ns, dtype=torch.int32, device=dev) * n
+            rows, mask = obs_s.table_event_rows(prev_table, state.table,
+                                                state.step_count, base=base)
+            # ONE append a step: the table-diff rows and the exchange's
+            # grant rows concatenated
+            xrows = [] if xch is None else _grant_rows(cfg, xch, state.step_count)
+            log = obs_s.append(state.obs.events,
+                               torch.cat([rows] + [r for r, _ in xrows], dim=-2),
+                               torch.cat([mask] + [m for _, m in xrows], dim=-1))
+            state = state._replace(obs=EngineObs(metrics=ms, events=log))
     return state, stats
 
 
@@ -717,8 +874,9 @@ _STATE_FIELDS = ("home_of", "remaining", "queue")
 def _to_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
     """Canonical [R, ...] layout -> [S, R/S, ...] for every field a shard
     owns: pool metadata, WAL (one log per shard, its counters [S]),
-    descriptor table, home_of, remaining, queue. The K/V planes stay flat
-    by global page id."""
+    descriptor table, home_of, remaining, queue, the SHARDS state and the
+    obs rings and log (their [S] leaves become [S, 1], the shard's local
+    view). The K/V planes stay flat by global page id."""
     s = cfg.n_shards
 
     def split(x):
@@ -733,6 +891,7 @@ def _to_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
                          **{f: split(getattr(pool, f)) for f in _POOL_FIELDS})
     return state._replace(
         pool=pool, table=desc.IdleResourceTable(*map(split, state.table)),
+        mrc=_tree_map(split, state.mrc), obs=_tree_map(split, state.obs),
         **{f: split(getattr(state, f)) for f in _STATE_FIELDS})
 
 
@@ -751,6 +910,7 @@ def _from_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
                          **{f: merge(getattr(pool, f)) for f in _POOL_FIELDS})
     return state._replace(
         pool=pool, table=desc.IdleResourceTable(*map(merge, state.table)),
+        mrc=_tree_map(merge, state.mrc), obs=_tree_map(merge, state.obs),
         **{f: merge(getattr(state, f)) for f in _STATE_FIELDS})
 
 
@@ -801,3 +961,27 @@ def run_steps(cfg: EngineConfig, state: EngineState, arrivals_txr, k=None,
         log.append(stats)
     return state, {key: torch.stack([s[key] for s in log])
                    for key in (log[0] if log else {})}
+
+
+def obs_history(state: EngineState) -> dict:
+    """Host-decode the metric rings of a canonical-layout state:
+    {metric: [windows, lanes(, bins)]} oldest-first (empty when obs is
+    disabled)."""
+    if state.obs is None:
+        return {}
+    return ENGINE_METRICS.history(state.obs.metrics)
+
+
+def obs_totals(state: EngineState) -> dict:
+    if state.obs is None:
+        return {}
+    return ENGINE_METRICS.totals(state.obs.metrics)
+
+
+def obs_events(state: EngineState):
+    """Host-decode the grant-lifecycle log: (records, n_dropped). Level-0
+    lender/borrower ids are global replica ids; level>=1 rows carry shard
+    ids (the exchange's scope)."""
+    if state.obs is None:
+        return [], 0
+    return obs_s.decode(state.obs.events)

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (paged attention, prefill flash
 attention, the RG-LRU and RWKV6 scans, the MoE top-k router, the FTL
-lookup) against their plain PyTorch versions, on the card. Marked
+lookup, the SHARDS window scan) against their plain PyTorch versions, on
+the card. Marked
 ``cuda``: they skip where there is no CUDA device, and import neither JAX
 nor `repro`, so the card's machine runs them as they are:
 
@@ -32,7 +33,11 @@ repeated bit for bit (indices exact, weights within 1e-6). FTL: the sweep
 of tests/test_kernels.py, PPNs past fp32's integers, out-of-range LPNs
 at entries 8 and 1000, N = 1, 3, 5 and 2^20 + 3, lpns views at offsets
 1-3, a directory of 70 000 segments and entries = 1000, each repeated
-bit for bit (exact)."""
+bit for bit (exact). SHARDS window: tables of K = 1, 31, 48, 128 and 256
+rows, windows of A = 1 to 4096 references, masks all off, all on and
+padded as the engine's page tables are, repeated addresses, the EMPTY
+marker as a valid reference, sample rates 1 and 1/64, 1 to 64 nodes, from
+an empty and from a carried state; every output bit for bit."""
 import pytest
 import torch
 
@@ -44,6 +49,7 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as wkv
+from repro_torch.kernels import shards_window as sw
 
 pytestmark = pytest.mark.cuda
 
@@ -729,3 +735,122 @@ def test_ftl_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ftl.ftl_lookup(lpns, directory, cache.t().contiguous().t(), 128)  # layout
     with pytest.raises(ValueError, match="limits"):                 # empty directory
         ftl.ftl_lookup(lpns, directory[:0], cache, 128)
+
+
+# ------------------------------------------------------------ shards window
+# (A, nodes, sample_mod, sample_thresh, bucket_width, mask, address set):
+# one reference; the engine's window at full width (80 slots x 16 pages,
+# over half padding); 4096 references at rate 1/64; every reference
+# masked; a small reused set with the EMPTY marker valid among it
+SW_CASES = {
+    "a1": (1, 1, 1, 1, 3, "on", 8),
+    "engine1280": (1280, 8, 1, 1, 3, "engine", 48),
+    "a4096_rate64": (4096, 4, 64, 1, 4, "on", 5000),
+    "mask_off": (300, 64, 1, 1, 3, "off", 40),
+    "repeat_empty": (500, 16, 1, 1, 7, "empty", 6),
+}
+
+
+def _sw_inputs(k, case, seed, dev):
+    a, n, mod, thresh, bw, mask_kind, span = SW_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    refs = torch.randint(0, span, (n, a), generator=g, dtype=torch.int64)
+    if mask_kind == "engine":
+        mask = torch.rand((n, a), generator=g) < 0.4
+        refs = torch.where(mask, refs, ref.EMPTY_ADDR)
+    elif mask_kind == "empty":
+        refs = torch.where(torch.rand((n, a), generator=g) < 0.3, ref.EMPTY_ADDR, refs)
+        mask = torch.ones((n, a), dtype=torch.bool)
+    else:
+        mask = torch.full((n, a), mask_kind == "on")
+    state = [torch.full((n, k), ref.EMPTY_ADDR, dtype=torch.int64),
+             torch.full((n, k), -1, dtype=torch.int32),
+             torch.zeros(n, dtype=torch.int32), torch.zeros((n, 16)),
+             torch.zeros(n), torch.zeros(n)]
+    return ([t.to(dev) for t in state] + [refs.to(dev), mask.to(dev)],
+            (mod, thresh, bw))
+
+
+@pytest.mark.parametrize("case", list(SW_CASES))
+@pytest.mark.parametrize("k", [1, 31, 48, 128, 256])
+def test_shards_window_matches_plain(dev, k, case):
+    """Two windows, the second from the first's state (decayed): every
+    output of the kernel equals the plain version's bit for bit."""
+    args, consts = _sw_inputs(k, case, k, dev)
+    state = args[:6]
+    for w in range(2):
+        before = sw.shards_window.launches
+        got = sw.shards_window(*state, *args[6:], *consts)
+        again = sw.shards_window(*state, *args[6:], *consts)
+        torch.cuda.synchronize()
+        assert sw.shards_window.launches == before + 2
+        want = ref.shards_window(*state, *args[6:], *consts)
+        for name, g_, a_, w_ in zip(("addrs", "last_seen", "clock", "hist",
+                                     "cold", "total"), got, again, want):
+            assert g_.dtype == w_.dtype and torch.equal(g_, w_), (w, name)
+            assert torch.equal(g_, a_), (w, name)
+        state = list(got)
+        state[3:] = [t * 0.85 for t in state[3:]]
+    if case != "mask_off":
+        assert int(got[2].sum()) > 0
+    else:
+        assert int(got[2].sum()) == 0 and float(got[5].sum()) == 0.0
+
+
+def test_shards_window_update_window_equals_cpu(dev):
+    """`windows.update_window` on the card (decay, then one launch for
+    every node of every shard) equals the CPU's plain path bit for bit."""
+    from repro_torch.core import shards_mrc
+    from repro_torch.telemetry import want, windows
+    cfg = windows.TelemetryConfig(k=48, buckets=16, sample_mod=1, sample_thresh=1,
+                                  bucket_width=3, decay=0.9, min_total=2.0)
+    g = torch.Generator().manual_seed(0)
+    gs = shards_mrc.init(cfg.k, cfg.buckets, lead=(2, 4), device=dev)
+    cs = shards_mrc.init(cfg.k, cfg.buckets, lead=(2, 4), device="cpu")
+    for _ in range(4):
+        pt = torch.randint(-1, 48, (2, 4, 160), generator=g, dtype=torch.int32)
+        before = sw.shards_window.launches
+        gs = windows.update_window(gs, pt.to(dev), cfg)
+        assert sw.shards_window.launches == before + 1
+        cs = windows.update_window(cs, pt, cfg)
+        for f in cs._fields:
+            assert torch.equal(getattr(gs, f).cpu(), getattr(cs, f)), f
+        assert torch.equal(want.want_entries(gs, cfg).cpu(), want.want_entries(cs, cfg))
+
+
+def test_shards_window_dispatcher_launches_for_cuda_tensors(dev):
+    args, consts = _sw_inputs(48, "engine1280", 3, dev)
+    before = sw.shards_window.launches
+    ops.shards_window(*args, *consts)
+    assert sw.shards_window.launches == before + 1
+
+
+def test_shards_window_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    args, consts = _sw_inputs(48, "a1", 1, dev)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        sw.shards_window(*[t.cpu() for t in args], *consts)
+    bad = list(args)
+    bad[0] = bad[0].int()
+    with pytest.raises(ValueError, match="addrs"):
+        sw.shards_window(*bad, *consts)
+    bad = list(args)
+    bad[7] = bad[7][:, :0]
+    with pytest.raises(ValueError, match="differ in shape"):
+        sw.shards_window(*bad, *consts)
+    big, _ = _sw_inputs(sw.MAX_K_H100 + 1, "a1", 1, dev)
+    with pytest.raises(ValueError, match="limits"):
+        sw.shards_window(*big, *consts)
+
+
+@pytest.mark.parametrize("k", [8192, sw.MAX_K_H100])
+def test_shards_window_takes_tables_past_48kb(dev, k):
+    """A table past the 48 KB of shared memory a block gets by default
+    (the engine's k = pages_per_replica at a large pool) opts in to more
+    and still equals the plain version bit for bit."""
+    args, consts = _sw_inputs(k, "engine1280", 5, dev)
+    got = sw.shards_window(*args, *consts)
+    want = ref.shards_window(*args, *consts)
+    for name, g_, w_ in zip(("addrs", "last_seen", "clock", "hist", "cold",
+                             "total"), got, want):
+        assert torch.equal(g_, w_), name
+    assert int(got[2].sum()) > 0

@@ -66,7 +66,8 @@ SCENARIOS = {
 
 def port_cfg(cfg):
     return TE.EngineConfig(**{f: getattr(cfg, f) for f in cfg._fields
-                              if f not in ("obs", "reclaim")})
+                              if f not in ("obs", "reclaim")},
+                           obs=TE.obs_m.ObsConfig(*cfg.obs))
 
 
 def _activations(cfg, i):
@@ -78,11 +79,12 @@ def _activations(cfg, i):
 
 
 def _compare_leaves(jtree, ttree, where, int8_codes=False):
-    for name, a in zip(ttree._fields, ttree):
-        b = getattr(jtree, name)
+    items = ttree.items() if isinstance(ttree, dict) else zip(ttree._fields, ttree)
+    for name, a in items:
+        b = jtree[name] if isinstance(jtree, dict) else getattr(jtree, name)
         if a is None:
             continue
-        if hasattr(a, "_fields"):
+        if hasattr(a, "_fields") or isinstance(a, dict):
             _compare_leaves(b, a, f"{where}.{name}", int8_codes)
             continue
         b, a = np.asarray(b), a.numpy()
@@ -90,6 +92,9 @@ def _compare_leaves(jtree, ttree, where, int8_codes=False):
             # the port's K/V planes are flat by global page id, plus a
             # scratch page
             a = a[:-1].reshape(b.shape)
+        if b.dtype == np.uint32:
+            # SHARDS addresses: the port holds uint32 values as int64
+            b = b.astype(np.int64)
         assert a.dtype == b.dtype, (where, name, a.dtype, b.dtype)
         if a.dtype.kind in "biu":
             if int8_codes and name in ("k", "v"):
@@ -187,11 +192,14 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("later", [
-    dict(trace_driven=True), dict(track_failures=True),
-    dict(migrate_pages_per_step=1), dict(obs=TE.obs_m.ObsConfig(enabled=True)),
+    # the telemetry and observability planes are ported; the failure
+    # plane's options still raise beside them
+    dict(trace_driven=True, track_failures=True), dict(track_failures=True),
+    dict(migrate_pages_per_step=1),
+    dict(obs=TE.obs_m.ObsConfig(enabled=True), migrate_pages_per_step=2),
     # the hierarchical engine is ported; a later slice's option still
     # raises beside it
-    dict(n_shards=2, trace_driven=True),
+    dict(n_shards=2, trace_driven=True, track_failures=True),
 ])
 def test_later_slice_configs_raise(later):
     cfg = port_cfg(CFG)

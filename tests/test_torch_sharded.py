@@ -373,15 +373,16 @@ def _run(cfg, arrivals, steps, state=None, xs_seed=0):
 
 
 class TestHierarchyIsIndependentEnginesWhenCrossOff:
-    """tests/test_sharded.py's layer 1 on the port (without trace_driven,
-    a later slice): n_shards=S with cross_shard=False is S disjoint
-    engines."""
+    """tests/test_sharded.py's layer 1 on the port, trace-driven as the
+    reference's: n_shards=S with cross_shard=False is S disjoint engines,
+    each with its own SHARDS estimators."""
 
     S, NL, STEPS = 4, 4, 6
 
     def test_matches_blockdiagonal_single_shard_runs(self):
         big = TE.EngineConfig(n_replicas=self.S * self.NL, n_shards=self.S,
-                              cross_shard=False, link_pages_per_step=2)
+                              cross_shard=False, link_pages_per_step=2,
+                              trace_driven=True)
         small = big._replace(n_replicas=self.NL, n_shards=1)
         arr = np.zeros((self.S, self.NL), np.int32)
         arr[0, 0], arr[0, 1], arr[2, 1] = 4, 2, 3
@@ -403,6 +404,7 @@ class TestHierarchyIsIndependentEnginesWhenCrossOff:
                 h.append(stats)
             parts.append(st_s)
             phist.append(h)
+        assert any(bool((h["want_pages"] > 0).any()) for h in hb)
         for t in range(self.STEPS):
             for k in ("util", "link_budget_bytes", "link_redirect_bytes",
                       "link_spill_bytes", "want_pages"):
@@ -438,6 +440,9 @@ class TestHierarchyIsIndependentEnginesWhenCrossOff:
                 assert torch.equal(getattr(sb.pool.logs, f)[lo * p:hi * p],
                                    getattr(ind.pool.logs, f)), f
             assert int(sb.pool.logs.commits[s]) == int(ind.pool.logs.commits)
+            for f in ind.mrc._fields:
+                assert torch.equal(getattr(sb.mrc, f)[lo:hi],
+                                   getattr(ind.mrc, f)), f
             for f in td.IdleResourceTable._fields:
                 assert torch.equal(getattr(sb.table, f)[lo:hi],
                                    getattr(ind.table, f)), f
@@ -508,8 +513,9 @@ class TestEnclosureGroupedTopology:
 
 
 @pytest.mark.parametrize("later", [
-    dict(trace_driven=True), dict(track_failures=True),
-    dict(migrate_pages_per_step=1), dict(obs=TE.obs_m.ObsConfig(enabled=True)),
+    dict(trace_driven=True, migrate_pages_per_step=1), dict(track_failures=True),
+    dict(migrate_pages_per_step=1),
+    dict(obs=TE.obs_m.ObsConfig(enabled=True), track_failures=True),
 ])
 def test_later_slice_options_raise_with_shards(later):
     cfg = TE.EngineConfig(n_replicas=8, n_shards=2, shards_per_enclosure=0)

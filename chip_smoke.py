@@ -72,6 +72,31 @@ nvcc per source, all at once), then:
    loaded replicas), the event log must hold rows and some of the
    exchange (level >= 1); and no step may synchronize with the host
    (`torch.cuda`'s sync debug mode raises on one);
+2a. drives the JBOF simulator (`jbof.sim`) in three phases, each window
+   loop (`sim.run_prepared`) under the sync debug mode: `sim_jbof12`,
+   fig. 9's JBOF (12 SSDs: 6 busy with 64 KB sequential reads at QD 64,
+   6 idle; 400 windows of 1 ms, 50 of warm-up) on all eight platforms,
+   XBOF and XBOF+ REPEATS times and the others once, each platform's
+   per-SSD throughput, latency, proc_util, miss_ratio and borrowed_seg
+   within SIM_TOL of the JAX reference's values (`SIM_JBOF12_PINS`), XBOF
+   and XBOF+ also against the port's CPU path on the same inputs with
+   their descriptor tables equal, and fig. 9c's utilization gap and fig.
+   12's BOM saving printed beside the paper's targets; `sim_trace8_obs`,
+   fig. 20 at full length (4 busy SSDs whose working set bursts over
+   windows 100-300, 4 idle, 480 windows; XBOF with 8 % of the DRAM),
+   trace-driven with the observability plane, one `shards_window` launch
+   a window (its count zeroed just before each run and read just after),
+   the busy SSDs' borrowed segments back under 10 % of their burst peak
+   within 40 windows of the burst's end, the card against the CPU path
+   (tables, SHARDS tables and decoded events equal), and the window
+   kernel against its plain version on the last window bit for bit;
+   `sim_fleet4096`, fig. 22's fleet of 4096 SSDs in 256 enclosures of
+   16, federated and isolated, the busy SSDs' mean latency within
+   SIM_TOL of the reference's (`SIM_FLEET_PINS`), federation below
+   isolation, the card against the CPU path (tables equal), and the same
+   at 256 SSDs. Each prints its ms per window (median and spread), its
+   windows per second and, from `torch.profiler`, its kernels per
+   management window and per other window, beside the card line;
 3. drives the model zoo's serve path through `launch.serve.run_model`:
    qwen3-14b at its full published width and depth (bf16, batch 4, prompt
    2048, 32 greedy tokens) and h2o-danube-1.8b at its full config (batch
@@ -120,7 +145,8 @@ nvcc per source, all at once), then:
    bit (`bit_equal`, which must hold) and, as a yardstick of the memory's
    rate, the time of a `torch.add` that moves the same bytes (`stream_ms`);
    The SHARDS window kernel's row (`shards_window`, not a TPU kernel: it
-   stands for the reference's `lax.scan`) is timed on `trace_fp32`'s
+   stands for the reference's `lax.scan`; its launches count the
+   simulator's `sim_trace8_obs` too) is timed on `trace_fp32`'s
    last window, spun and unspun, beside one run of its plain loop on the
    card and its byte bound;
 5. checks the engine (4 replicas with int8 pages; and 8 replicas in 2
@@ -141,7 +167,7 @@ instructions in the WKV library's (cuobjdump); a count of 0 fails the run.
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
 `paged_checks`, `flash_checks`, `scan_checks`, `router_checks`, `ftl`,
-`engine`, `model`, `model_window`, `model_hybrid`, `model_rwkv`, `model_moe_v2`,
+`engine`, `sim_jbof12`, `sim_trace8_obs`, `sim_fleet4096`, `model`, `model_window`, `model_hybrid`, `model_rwkv`, `model_moe_v2`,
 `model_moe_v3`, `gpu_vs_cpu_engine`, `gpu_vs_cpu_model`), the script's
 own time (`run`, the build included), the `kernels` JSON line — per kernel form its checks and its numbers of step 4 — and
 last `{"ok": true, "device": {...}}`. Any failure exits non-zero before
@@ -158,6 +184,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -251,6 +278,105 @@ MODEL_RWKV = ("rwkv6-3b", 4, 2048, 32)
 # dense [B, 128, S, S] scores (below 4096 keys) to 1 GB in bf16.
 MODEL_MOE_V2 = ("deepseek-v2-236b", 4, 1024, 32, 8)
 MODEL_MOE_V3 = ("deepseek-v3-671b", 4, 1024, 32, 5)
+# the JBOF simulator (`jbof.sim.simulate`, ROADMAP queue 1 item 4), three
+# phases. `sim_jbof12`: the paper's JBOF of fig. 9
+# (benchmarks/fig09_processor.py:18): 6 SSDs busy with 64 KB sequential
+# reads at QD 64, 6 idle, 400 windows of 1 ms, all eight platforms static
+SIM_JBOF12 = dict(windows=400, warmup=50, seed=0, busy=6, idle=6, io_kb=64.0)
+SIM_JBOF12_METRICS = ("throughput_bps", "latency_s", "proc_util", "miss_ratio",
+                      "borrowed_seg")
+# platforms driven REPEATS times (the others once) and held against the
+# port's CPU path on the same inputs
+SIM_REPEATED = ("XBOF", "XBOF+")
+# per-SSD values of `repro.jbof.sim.simulate` on the CPU on sim_jbof12's
+# inputs (tests/test_torch_sim.py recomputes them and asserts these pins)
+SIM_JBOF12_PINS = {
+    'Conv': {
+        'throughput_bps': [12677822464.0, 12677822464.0, 12677822464.0, 12677822464.0, 12677822464.0, 12677822464.0, 236583280.0, 237972080.0, 238175520.0, 239186192.0, 239112192.0, 238655616.0],
+        'latency_s': [0.0003308369778096676, 0.0003308369778096676, 0.0003308369778096676, 0.0003308369778096676, 0.0003308369778096676, 0.0003308369778096676, 4.698588600149378e-05, 4.6886008931323886e-05, 4.687147156801075e-05, 4.679961784859188e-05, 4.6804863814031705e-05, 4.683727092924528e-05],
+        'proc_util': [1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 0.016300557181239128, 0.016396230086684227, 0.016410253942012787, 0.016479892656207085, 0.01647479459643364, 0.016443340107798576],
+        'miss_ratio': [0.0665285736322403, 0.0665285736322403, 0.0665285736322403, 0.0665285736322403, 0.0665285736322403, 0.0665285736322403, 0.035643186420202255, 0.035643186420202255, 0.035643186420202255, 0.035643186420202255, 0.035643186420202255, 0.035643186420202255],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+    'OC': {
+        'throughput_bps': [5748560384.0, 5748560384.0, 5748560384.0, 5748560384.0, 5748560384.0, 5748560384.0, 236312112.0, 237620304.0, 238116240.0, 238905696.0, 238662592.0, 238333200.0],
+        'latency_s': [0.0007296248804777861, 0.0007296248804777861, 0.0007296248804777861, 0.0007296248804777861, 0.0007296248804777861, 0.0007296248804777861, 4.809902748093009e-05, 4.800357419298962e-05, 4.796771099790931e-05, 4.7910849389154464e-05, 4.7928322601364926e-05, 4.7952064051060006e-05],
+        'proc_util': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        'miss_ratio': [0.17274875938892365, 0.17274875938892365, 0.17274875938892365, 0.17274875938892365, 0.17274875938892365, 0.17274875938892365, 0.0960189700126648, 0.0960189700126648, 0.0960189700126648, 0.0960189700126648, 0.0960189700126648, 0.0960189700126648],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+    'Shrunk': {
+        'throughput_bps': [6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 236583280.0, 237972080.0, 238175520.0, 239186192.0, 239112192.0, 238655616.0],
+        'latency_s': [0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 4.707610423793085e-05, 4.697621625382453e-05, 4.69616825284902e-05, 4.688982153311372e-05, 4.689506386057474e-05, 4.69274673378095e-05],
+        'proc_util': [1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 0.03263004496693611, 0.03282159939408302, 0.032849639654159546, 0.03298903629183769, 0.03297882899641991, 0.0329158678650856],
+        'miss_ratio': [0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+    'VH': {
+        'throughput_bps': [6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 236609536.0, 237919712.0, 238218960.0, 239114448.0, 239067600.0, 238640256.0],
+        'latency_s': [0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 4.9414880777476355e-05, 4.9319587560603395e-05, 4.929951319354586e-05, 4.923353480990045e-05, 4.923986125504598e-05, 4.926758265355602e-05],
+        'proc_util': [1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 0.032633669674396515, 0.0328143872320652, 0.03285565227270126, 0.032979149371385574, 0.032972682267427444, 0.03291374444961548],
+        'miss_ratio': [0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+    'VH(ideal)': {
+        'throughput_bps': [6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 6338846720.0, 236609536.0, 237919712.0, 238218960.0, 239114448.0, 239067600.0, 238640256.0],
+        'latency_s': [0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 0.0006616807077080011, 4.9414880777476355e-05, 4.9319587560603395e-05, 4.929951319354586e-05, 4.923353480990045e-05, 4.923986125504598e-05, 4.926758265355602e-05],
+        'proc_util': [1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 0.032633669674396515, 0.0328143872320652, 0.03285565227270126, 0.032979149371385574, 0.032972682267427444, 0.03291374444961548],
+        'miss_ratio': [0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+    'ProcH': {
+        'throughput_bps': [12347696128.0, 12347696128.0, 12347839488.0, 12347839488.0, 12347516928.0, 12347516928.0, 236583280.0, 237972080.0, 238175552.0, 239186272.0, 239112208.0, 238655600.0],
+        'latency_s': [0.00033968218485824764, 0.00033968218485824764, 0.000339678255841136, 0.000339678255841136, 0.0003396871325094253, 0.0003396871325094253, 4.7086090489756316e-05, 4.698620978160761e-05, 4.706994877778925e-05, 4.689982233685441e-05, 4.6905086492188275e-05, 4.6937471779529005e-05],
+        'proc_util': [1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179],
+        'miss_ratio': [0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+    'XBOF': {
+        'throughput_bps': [12347696128.0, 12347696128.0, 12347839488.0, 12347839488.0, 12347516928.0, 12347516928.0, 236583280.0, 237972080.0, 238175552.0, 239186272.0, 239112208.0, 238655600.0],
+        'latency_s': [0.00033968218485824764, 0.00033968218485824764, 0.000339678255841136, 0.000339678255841136, 0.0003396871325094253, 0.0003396871325094253, 4.7086090489756316e-05, 4.698620978160761e-05, 4.706994877778925e-05, 4.689982961281203e-05, 4.6905086492188275e-05, 4.6937471779529005e-05],
+        'proc_util': [1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179],
+        'miss_ratio': [0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+    'XBOF+': {
+        'throughput_bps': [12347696128.0, 12347696128.0, 12347839488.0, 12347839488.0, 12347516928.0, 12347516928.0, 236583248.0, 237972112.0, 238175600.0, 239186176.0, 239112256.0, 238655600.0],
+        'latency_s': [0.00033968218485824764, 0.00033968218485824764, 0.000339678255841136, 0.000339678255841136, 0.0003396871325094253, 0.0003396871325094253, 4.708609412773512e-05, 4.708455526269972e-05, 4.706993786385283e-05, 4.689984780270606e-05, 4.6905075578251854e-05, 4.693745722761378e-05],
+        'proc_util': [1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179, 1.0000032186508179],
+        'miss_ratio': [0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.1220116913318634, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384, 0.06571394205093384],
+        'borrowed_seg': [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    },
+}
+# the paper's targets printed beside the port's numbers: fig. 9c's
+# utilization gain of XBOF over Shrunk (benchmarks/fig09_processor.py:24-27)
+# and fig. 12's BOM saving of XBOF against Conv (fig12_bom.py:13-16)
+PAPER_UTIL_GAP = 0.504
+PAPER_BOM_SAVING = -0.190
+# `sim_trace8_obs`: fig. 20's scenario at full length
+# (benchmarks/fig20_adaptive.py:36-68): 4 SSDs of random 4 KB reads at QD 8
+# whose mapping-page working set bursts from 12 to 360 segments over
+# windows 100-300, 4 idle; XBOF with 8 % of the DRAM; trace-driven, with
+# the observability plane on
+SIM_TRACE8 = dict(busy=4, idle=4, refs=48, windows=480, burst=(100, 300),
+                  ws_burst_segments=360, ws_base_segments=12, dram_frac=0.08,
+                  seed=0, lag_windows=40, ring_depth=64, event_capacity=1024)
+# `sim_fleet4096`: fig. 22's scale-out (benchmarks/fig22_fabric.py:49-67):
+# enclosures of 16 SSDs, half of them random 4 KB writers at 900 MB/s, the
+# other half trickle reads; XBOF with the fabric tier at 1 extra hop,
+# federated and isolated; 4096 SSDs, and 256 for the scaling
+SIM_FLEET = dict(ssds=4096, small=256, per_enclosure=16, windows=200, warmup=50,
+                 busy_bps=900e6, idle_bps=1e6, extra_hops=1.0)
+# the busy SSDs' mean latency (seconds, float64 mean of the float32 values)
+# of `repro.jbof.sim.simulate` on the CPU at 256 SSDs; the scenario is the
+# same at every fleet size (tests/test_torch_sim_fabric_obs.py asserts it)
+SIM_FLEET_PINS = {"federated": 2.0748524548253044e-05, "isolated": 3.2564621506026015e-05}
+# card against the JAX reference's pins and against the port's CPU path:
+# floats within this relative error (with a floor of it times the
+# field's largest value); host_util within SIM_HOST_TOL (the mean scale
+# over the SSDs, tests/test_torch_sim.py)
+SIM_TOL = 1e-4
+SIM_HOST_TOL = 1e-3
 # router kernel vs plain version: indices exact, weights within this
 ROUTER_W_TOL = 1e-6
 # (t, e, k): the sweep of tests/test_kernels.py, then DeepSeek-v2's (160,
@@ -1762,6 +1888,314 @@ def gpu_vs_cpu_engine(E, dev, cfg, arrivals, steps, check_state=False,
     return totals
 
 
+# ------------------------------------------------------ the JBOF simulator
+def sim_loop(S, prepared):
+    """`sim.run_prepared` (the window loop) on the card with no host sync
+    allowed (the sync debug mode raises on one). Returns (trajectory,
+    seconds), from a synchronize to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        traj = S.run_prepared(prepared)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return traj, time.perf_counter() - t0
+
+
+def sim_kernels_per_window(S, plat, wls, arr, cfg, dev, windows=20) -> dict:
+    """Device kernels per window on the first ``windows`` windows, from
+    `torch.profiler`: each window inside a range named for its kind
+    (`sim_mgmt_window` on management windows, `sim_window` on the others),
+    every kernel counted in the range whose span on the device timeline
+    holds it; the fabric level and the loop's own work fall in `other`.
+    "not measured" where the profiler records no device activity."""
+    import bisect
+    step = S._window_step
+
+    def labelled(run, state, a, t, i, fabric=None):
+        kind = "sim_mgmt_window" if i % plat.mgmt_interval == 0 else "sim_window"
+        with torch.profiler.record_function(kind):
+            return step(run, state, a, t, i, fabric)
+
+    cfg = dataclasses.replace(cfg, traces=None if cfg.traces is None
+                              else cfg.traces[:windows])
+    prepared = S.prepare(plat, wls, arr[:windows], cfg, device=dev)
+    S._window_step = labelled
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            S.run_prepared(prepared)
+            torch.cuda.synchronize()
+    finally:
+        S._window_step = step
+    labels = ("sim_mgmt_window", "sim_window")
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in device if e.name in labels)
+    starts = [a for a, _, _ in spans]
+    counts = {"sim_mgmt_window": 0, "sim_window": 0, "other": 0}
+    for e in device:
+        if e.name in labels:
+            continue
+        owner = "other"
+        j = bisect.bisect_right(starts, e.time_range.start) - 1
+        if j >= 0 and e.time_range.end <= spans[j][1]:
+            owner = spans[j][2]
+        counts[owner] += 1
+    n_mgmt = sum(1 for i in range(windows) if i % plat.mgmt_interval == 0)
+    if not spans or not sum(counts.values()):
+        return {"windows": windows, "per_mgmt_window": "not measured",
+                "per_window": "not measured"}
+    return {"windows": windows,
+            "per_mgmt_window": counts["sim_mgmt_window"] / n_mgmt,
+            "per_window": counts["sim_window"] / (windows - n_mgmt),
+            "other_per_window": counts["other"] / windows,
+            "per_window_all": sum(counts.values()) / windows}
+
+
+def sim_close(got, want, where, *, arr, warmup, qd, cmd_count, window_s=1e-3,
+              fields=None) -> float:
+    """Fails unless two simulator results agree: each float field within
+    SIM_TOL relative (a floor of SIM_TOL times its largest value), host_util
+    within SIM_HOST_TOL, latency_s within SIM_TOL plus qd x window_s for
+    each measured window without arrivals at an SSD over its command count
+    (its backlog is then a rounding residue, whose latency is rounding
+    noise on either side: tests/test_torch_sim.py). ``want`` may be a
+    dict of pins. Returns the largest relative error of the fields."""
+    k = (np.asarray(arr)[warmup:].sum(axis=-1) == 0).sum(axis=0)
+    worst = 0.0
+    names = fields or [f for f in want._fields
+                       if getattr(want, f) is not None and f not in ("rings", "obs")]
+    for name in names:
+        w = np.asarray(want[name] if isinstance(want, dict) else
+                       getattr(want, name).cpu(), np.float64)
+        g = getattr(got, name).cpu().numpy().astype(np.float64)
+        diff = np.abs(g - w)
+        scale = float(np.max(np.abs(w))) if w.size else 0.0
+        if name == "host_util":
+            bound = SIM_HOST_TOL * np.abs(w)
+        else:
+            bound = SIM_TOL * np.maximum(np.abs(w), scale)
+        if name == "latency_s":
+            bound = SIM_TOL * np.abs(w) + qd * window_s * k / np.maximum(cmd_count, 1.0)
+        if not (diff <= bound + 1e-30).all():
+            fail(f"{where}: {name} {g} != {w}")
+        worst = max(worst, float(np.max(diff / np.maximum(np.abs(w), 1e-30))))
+    return worst
+
+
+def sim_same_table(got, want, where) -> None:
+    """The descriptor tables' integer and bool leaves equal bit for bit."""
+    for name in ("valid", "rtype", "borrower_id", "info_a", "info_b"):
+        if not torch.equal(getattr(got, name).cpu(), getattr(want, name).cpu()):
+            fail(f"{where}: descriptor table {name} differs")
+
+
+def sim_jbof12_phase(dev) -> dict:
+    """The paper's JBOF on every platform: ms per window (XBOF and XBOF+
+    REPEATS times, the others once), kernels per window, each platform's
+    per-SSD metrics against the JAX reference's pins, XBOF and XBOF+
+    against the port's CPU path (tables equal), and fig. 9c's utilization
+    gap and fig. 12's BOM saving beside the paper's."""
+    from repro_torch.jbof import bom, platforms as P, sim as S, workloads as W
+    c = SIM_JBOF12
+    wls = [W.micro(True, c["io_kb"])] * c["busy"] + [W.idle()] * c["idle"]
+    arr = W.arrivals(wls, c["windows"], seed=c["seed"])
+    cfg = S.SimConfig(warmup=c["warmup"])
+    qd = np.array([w.qd for w in wls])
+    out, results = {}, {}
+    for name, make in P.ALL.items():
+        plat = make()
+        runs = []
+        for _ in range(REPEATS if name in SIM_REPEATED else 1):
+            traj, sec = sim_loop(S, S.prepare(plat, wls, arr, cfg, device=dev))
+            runs.append(1e3 * sec / c["windows"])
+        res = S.summarize(plat, cfg, traj)
+        results[name] = res
+        cmd = traj.state.cmd_count.reshape(-1).cpu().numpy()
+        err_ref = sim_close(res, SIM_JBOF12_PINS[name], f"sim_jbof12 {name} vs reference",
+                            arr=arr, warmup=traj.warmup, qd=qd, cmd_count=cmd,
+                            fields=SIM_JBOF12_METRICS)
+        ms = sorted(runs)
+        line = dict(ms_per_window=ms[len(ms) // 2], ms_per_window_runs=runs,
+                    ms_per_window_spread=[ms[0], ms[-1]],
+                    windows_per_s=1e3 / ms[len(ms) // 2],
+                    max_rel_err_vs_reference=err_ref)
+        if name in SIM_REPEATED:
+            cpu = S.run_prepared(S.prepare(plat, wls, arr, cfg, device="cpu"))
+            sim_same_table(traj.state.table, cpu.state.table, f"sim_jbof12 {name}")
+            line["max_rel_err_vs_cpu"] = sim_close(
+                res, S.summarize(plat, cfg, cpu), f"sim_jbof12 {name} vs the CPU path",
+                arr=arr, warmup=traj.warmup, qd=qd, cmd_count=cmd)
+            line["kernels"] = sim_kernels_per_window(S, plat, wls, arr, cfg, dev)
+        line["claimed_slots_end"] = int((traj.state.table.valid
+                                         & (traj.state.table.borrower_id != 0xFF)).sum())
+        out[name] = line
+    util = {n: float((results[n].proc_util[:c["busy"]].mean()
+                      + results[n].proc_util[c["busy"]:].mean()) / 2)
+            for n in ("Shrunk", "XBOF")}
+    conv = bom.platform_cost("Conv")["total"]
+    saving = bom.platform_cost("XBOF")["total"] / conv - 1.0
+    out["fig9c_util"] = dict(util, gap=util["XBOF"] - util["Shrunk"],
+                             paper_gap=PAPER_UTIL_GAP)
+    out["fig12_bom"] = dict(xbof_vs_conv=saving, paper=PAPER_BOM_SAVING)
+    return out
+
+
+def sim_trace8_obs_phase(dev) -> tuple[dict, int, tuple]:
+    """fig. 20 at full length, trace-driven with the observability plane:
+    one `shards_window` launch a window (its count zeroed just before the
+    run and read just after), the busy SSDs' borrowed segments back under
+    10 % of their burst peak within `lag_windows` of the burst's end, the
+    card against the port's CPU path (tables, rings and decoded events),
+    and the window kernel against its plain version on the last window.
+    Returns the line, the kernel's launches in the first run, and that
+    window's call."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import shards_window as sw
+    from repro_torch.jbof import platforms as P, sim as S, workloads as W
+    from repro_torch.obs import metrics as obs_m
+    from repro_torch.telemetry import traces as T
+    c = SIM_TRACE8
+    n = c["windows"]
+    busy = W.micro(True, 4.0, qd=8, random_access=True)
+    wls = [busy] * c["busy"] + [W.idle()] * c["idle"]
+    arr = W.arrivals(wls, n, seed=c["seed"])
+    sched = [T.phase_change(n, c["burst"][0], c["burst"][1],
+                            T.segments(c["ws_burst_segments"]),
+                            T.segments(c["ws_base_segments"]), c["refs"])
+             for _ in range(c["busy"])] + [[]] * c["idle"]
+    traces = T.synth_trace(n, sched, c["refs"], seed=c["seed"] + 1)
+    plat = P.xbof(dram_frac=c["dram_frac"])
+    cfg = S.SimConfig(traces=traces, obs=obs_m.ObsConfig(
+        enabled=True, ring_depth=c["ring_depth"], event_capacity=c["event_capacity"]))
+    captured = {}
+    window = ops.shards_window
+
+    def capture(*args, **kw):
+        captured["call"] = (args, kw)
+        return window(*args, **kw)
+
+    runs, launches = [], []
+    for _ in range(REPEATS):
+        prepared = S.prepare(plat, wls, arr, cfg, device=dev)
+        ops.shards_window = capture
+        sw.shards_window.launches = 0
+        try:
+            traj, sec = sim_loop(S, prepared)
+        finally:
+            ops.shards_window = window
+        launches.append(sw.shards_window.launches)
+        runs.append(1e3 * sec / n)
+        if launches[-1] != n:
+            fail(f"sim_trace8_obs: shards_window launched {launches[-1]} times in "
+                 f"{n} windows")
+    res = S.summarize(plat, cfg, traj)
+    bh = res.rings["borrowed_seg"].cpu().numpy()
+    busy_b = bh[:, :c["busy"]].sum(axis=1)
+    b0, b1 = c["burst"]
+    peak = float(busy_b[b0:b1].max())
+    tail = busy_b[b1 + c["lag_windows"]:]
+    under = busy_b[b1:] <= 0.1 * peak
+    lag = int(np.argmax(under)) if under.any() else -1
+    if peak < 50.0 or (tail.size and float(tail.max()) > 0.1 * peak):
+        fail(f"sim_trace8_obs: borrowed segments peak {peak}, tail max "
+             f"{float(tail.max())}: not back under 10 % within "
+             f"{c['lag_windows']} windows")
+    cpu_traj = S.run_prepared(S.prepare(plat, wls, arr, cfg, device="cpu"))
+    cpu = S.summarize(plat, cfg, cpu_traj)
+    sim_same_table(traj.state.table, cpu_traj.state.table, "sim_trace8_obs")
+    for name in ("addrs", "last_seen", "clock"):
+        if not torch.equal(getattr(traj.state.mrc, name).cpu(),
+                           getattr(cpu_traj.state.mrc, name)):
+            fail(f"sim_trace8_obs: SHARDS {name} differs from the CPU path")
+    qd = np.array([w.qd for w in wls])
+    err = sim_close(res, cpu, "sim_trace8_obs vs the CPU path", arr=arr,
+                    warmup=traj.warmup, qd=qd,
+                    cmd_count=traj.state.cmd_count.reshape(-1).cpu().numpy())
+    ev_cols = ("t", "event", "rtype", "level", "lender", "borrower", "lane")
+    same_events = [tuple(r[k] for k in ev_cols) for r in res.obs["events"]] == \
+        [tuple(r[k] for k in ev_cols) for r in cpu.obs["events"]]
+    if not same_events or not res.obs["events"]:
+        fail(f"sim_trace8_obs: {len(res.obs['events'])} events, the CPU path "
+             f"{len(cpu.obs['events'])} (or they differ)")
+    args, kw = captured["call"]
+    got_w, want_w = sw.shards_window(*args, **kw), ref.shards_window(*args, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got_w, want_w)):
+        fail("sim_trace8_obs: the shards_window kernel differs from its plain "
+             "version on the last window")
+    ms = sorted(runs)
+    line = dict(windows=n, ms_per_window=ms[len(ms) // 2], ms_per_window_runs=runs,
+                ms_per_window_spread=[ms[0], ms[-1]],
+                windows_per_s=1e3 / ms[len(ms) // 2],
+                shards_window_launches_each_run=launches,
+                shards_window_bit_equal=True,
+                borrowed_peak=peak, return_lag_windows=lag,
+                lag_bound=c["lag_windows"], events=len(res.obs["events"]),
+                events_dropped=res.obs["events_dropped"],
+                ring_windows=int(res.obs["metrics"]["miss"].shape[0]),
+                max_rel_err_vs_cpu=err,
+                kernels=sim_kernels_per_window(S, plat, wls, arr, cfg, dev))
+    return line, launches[0], captured["call"]
+
+
+def sim_fleet_phase(dev) -> dict:
+    """fig. 22's fleet: 4096 SSDs in 256 enclosures of 16, federated and
+    isolated, the busy SSDs' mean latency against the JAX reference's pin
+    (at 256 SSDs: the scenario is the same at every size), federation
+    below isolation, the card against the port's CPU path (tables equal),
+    and ms per window at 4096 SSDs beside 256."""
+    from repro_torch.jbof import platforms as P, sim as S, workloads as W
+    c = SIM_FLEET
+    plat = P.xbof()._replace(fabric_extra_hops=c["extra_hops"])
+    out = {}
+    for n in (c["ssds"], c["small"]):
+        e = n // c["per_enclosure"]
+        n_busy = (e // 2) * c["per_enclosure"]
+        wls = ([W.micro(read=False, io_kb=4, qd=4, random_access=True)] * n_busy
+               + [W.micro(read=True, io_kb=128, qd=1)] * (n - n_busy))
+        arr = np.zeros((c["windows"], n, 2), np.float32)
+        arr[:, :n_busy, 1] = c["busy_bps"] * 1e-3
+        arr[:, n_busy:, 0] = c["idle_bps"] * 1e-3
+        qd = np.array([w.qd for w in wls])
+        lat = {}
+        for mode, fed in (("federated", True), ("isolated", False)):
+            cfg = S.SimConfig(warmup=c["warmup"], n_enclosures=e, fabric_federation=fed)
+            runs = []
+            for _ in range(REPEATS if fed else 1):
+                traj, sec = sim_loop(S, S.prepare(plat, wls, arr, cfg, device=dev))
+                runs.append(1e3 * sec / c["windows"])
+            res = S.summarize(plat, cfg, traj)
+            lat[mode] = float(res.latency_s[:n_busy].cpu().double().mean())
+            if abs(lat[mode] - SIM_FLEET_PINS[mode]) > SIM_TOL * SIM_FLEET_PINS[mode]:
+                fail(f"sim_fleet n={n} {mode}: busy latency {lat[mode]} != the "
+                     f"reference's {SIM_FLEET_PINS[mode]}")
+            ms = sorted(runs)
+            line = dict(ms_per_window=ms[len(ms) // 2], ms_per_window_runs=runs,
+                        ms_per_window_spread=[ms[0], ms[-1]],
+                        windows_per_s=1e3 / ms[len(ms) // 2],
+                        busy_latency_s=lat[mode], reference=SIM_FLEET_PINS[mode],
+                        far_segments=float(res.borrowed_far.sum()))
+            if n == c["ssds"]:
+                cpu = S.run_prepared(S.prepare(plat, wls, arr, cfg, device="cpu"))
+                sim_same_table(traj.state.table, cpu.state.table, f"sim_fleet {mode}")
+                line["max_rel_err_vs_cpu"] = sim_close(
+                    res, S.summarize(plat, cfg, cpu), f"sim_fleet {mode} vs the CPU path",
+                    arr=arr, warmup=traj.warmup, qd=qd,
+                    cmd_count=traj.state.cmd_count.reshape(-1).cpu().numpy())
+                if fed:
+                    line["kernels"] = sim_kernels_per_window(S, plat, wls, arr, cfg, dev)
+            out[f"n{n}_{mode}"] = line
+        if not lat["federated"] < lat["isolated"]:
+            fail(f"sim_fleet n={n}: federation did not relieve the busy SSDs {lat}")
+        out[f"n{n}_benefit"] = (lat["isolated"] - lat["federated"]) / lat["isolated"]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
@@ -1882,6 +2316,17 @@ def main() -> None:
     by_window = {phase: line["shards_window_launches"]
                  for phase, line in engine_out.items() if line["shards_window_launches"]}
     print(json.dumps({"engine": engine_out}), flush=True)
+
+    # ---- 2a. the JBOF simulator: the paper's JBOF on every platform,
+    # fig. 20 trace-driven with both planes, fig. 22's 4096-SSD fleet
+    card = card_line()
+    t_sim = time.perf_counter()
+    print(json.dumps({"sim_jbof12": sim_jbof12_phase(dev), "card": card}), flush=True)
+    trace8, by_window["sim_trace8_obs"], _ = sim_trace8_obs_phase(dev)
+    print(json.dumps({"sim_trace8_obs": trace8, "card": card}), flush=True)
+    fleet = sim_fleet_phase(dev)
+    print(json.dumps({"sim_fleet4096": fleet, "card": card,
+                      "sim_seconds": time.perf_counter() - t_sim}), flush=True)
 
     # ---- 2b. the model zoo's serve path at full width, a sliding window
     # past its size, then the recurrent families (each model is freed

@@ -31,7 +31,10 @@ Ported so far:
   the latent cache), with the MoE top-k router kernel
   (`kernels/csrc/moe_router.cu`);
 - the FTL's LPN -> PPN lookup (`kernels.ops.ftl_lookup`), with its kernel
-  (`kernels/csrc/ftl_lookup.cu`).
+  (`kernels/csrc/ftl_lookup.cu`);
+- the JBOF simulator (`jbof.sim.simulate` with `jbof.platforms`,
+  `workloads` and `bom`): static, trace-driven (the SHARDS window kernel),
+  multi-enclosure and observed runs.
 
 Configurations and architectures outside these raise
 ``NotImplementedError("later slice")``.

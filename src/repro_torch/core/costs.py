@@ -15,7 +15,8 @@ link:
 
 The serving engine debits `REDIRECT_CMD_BYTES` per §4.4 shadow-slot
 redirection from the same LINK_BW byte budget that meters lender-spill
-pages. Scalars in give floats out; the two clipped rates take tensors.
+pages. Scalars in give floats out; the two clipped rates take tensors
+(`assist_link_bps` also a tensor of I/O sizes).
 """
 from __future__ import annotations
 
@@ -111,7 +112,9 @@ def _over(num, service_s: torch.Tensor) -> torch.Tensor:
     scalar over a tensor would run as a reciprocal times the scalar,
     rounding twice)."""
     service_s = torch.clamp(service_s.to(torch.float32), min=_TINY)
-    return torch.div(torch.full_like(service_s, num), service_s)
+    if not isinstance(num, torch.Tensor):
+        num = torch.full_like(service_s, num)
+    return torch.div(num, service_s)
 
 
 def overhead_frac(rtype: int, op_service_s: torch.Tensor, *,

@@ -80,23 +80,29 @@ register(ResourceSpec(LINK_BW, "link_bw",
                       score_a=1.0, sync_a="amount", sync_b="lender_util"))
 
 
+def spec_of(rtype: int) -> ResourceSpec:
+    return REGISTRY[int(rtype)]
+
+
 _WEIGHTS: dict = {}
 
 
 def _score_weights(device) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense (score_a, score_b) weight tables indexed by rtype. Cached per
-    device and registry contents: building them from a Python list on a
-    CUDA device is a host-to-device copy that waits for the stream."""
+    device and registry contents, and filled entry by entry on the device:
+    a tensor built from a Python list on a CUDA device is a host-to-device
+    copy that waits for the stream, which a loop that must not sync may
+    not make even once."""
     key = (str(device), tuple(sorted(
         (r, s.score_a, s.score_b) for r, s in REGISTRY.items())))
     if key not in _WEIGHTS:
-        top = max(REGISTRY) + 1
-        wa, wb = [0.0] * top, [0.0] * top
+        idx = torch.arange(max(REGISTRY) + 1, device=device)
+        wa = torch.zeros(idx.shape, dtype=torch.float32, device=device)
+        wb = torch.zeros_like(wa)
         for r, s in REGISTRY.items():
-            wa[r], wb[r] = s.score_a, s.score_b
-        _WEIGHTS[key] = (
-            torch.tensor(wa, dtype=torch.float32, device=device),
-            torch.tensor(wb, dtype=torch.float32, device=device))
+            wa = torch.where(idx == r, s.score_a, wa)
+            wb = torch.where(idx == r, s.score_b, wb)
+        _WEIGHTS[key] = (wa, wb)
     return _WEIGHTS[key]
 
 
@@ -149,6 +155,22 @@ def publish(table: IdleResourceTable, node_id: int, slot: int, rtype: int,
         a[node_id, slot] = val
         out[name] = a
     return IdleResourceTable(**out)
+
+
+def withdraw(table: IdleResourceTable, node_id, slot) -> IdleResourceTable:
+    """Lender stops lending: tag the descriptor invalid (paper §4.3).
+    ``node_id`` / ``slot`` index the last two axes (ints, or index tensors
+    that broadcast against each other)."""
+    valid = table.valid.clone()
+    valid[..., node_id, slot] = False
+    return table._replace(valid=valid)
+
+
+def release(table: IdleResourceTable, borrower_id) -> IdleResourceTable:
+    """Borrower ends harvesting: reset its claims to FREE (paper §4.3).
+    ``borrower_id`` is an int, or one id per table as in `claim_best`."""
+    mine = table.borrower_id == _node(table, borrower_id)
+    return table._replace(borrower_id=torch.where(mine, FREE, table.borrower_id))
 
 
 def _node(table: IdleResourceTable, node_id):

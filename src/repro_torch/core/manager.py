@@ -125,6 +125,18 @@ def fma_sum(a: torch.Tensor, c: float) -> torch.Tensor:
     return out
 
 
+def fma_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ a·b over the last axis (``b`` broadcasting against ``a``) as XLA's
+    compiled reduction takes it when the product is fused into it: left to
+    right, one fused multiply-add a term, each rounded once to float32.
+    Emulated in float64 as in `fma_sum`."""
+    prod = (a.to(torch.float64) * b.to(torch.float64)).unbind(-1)
+    out = prod[0].to(torch.float32)
+    for part in prod[1:]:
+        out = (part + out.to(torch.float64)).to(torch.float32)
+    return out
+
+
 def _fma32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """a·b + c rounded once to float32, as an FMA gives it (emulated in
     float64 as in `fma_sum`: exact while |c| is at most 16 |a·b|)."""
@@ -171,6 +183,61 @@ def settle(spare: torch.Tensor, want: torch.Tensor,
         want_left = _fma32(-draw, inv, want_net)
     grants = frac[..., :, None] * draw[..., None, :]
     return Settled(grants, received, spare_net, want_left)
+
+
+def fluid_transfer(assist: torch.Tensor, surplus: torch.Tensor,
+                   deficit: torch.Tensor, overhead=0.0, *, lent: bool = False):
+    """Turn an assist matrix into conserved fluid capacity transfers.
+
+    ``assist``: float32[..., lender, borrower] pledge fractions (rows sum
+    ≤ 1). ``surplus`` / ``deficit``: float32[..., N] spare / missing
+    capacity per node in the resource's own unit. ``overhead``: fractional
+    tax on redirected work, a Python scalar or float32[..., N] per
+    borrower (`core.costs.overhead_frac`).
+
+    Returns ``(assist_in, used_from)``: per-borrower capacity received
+    (net of overhead) and the [..., lender, borrower] lender-time actually
+    consumed. Each lender donates at most its surplus and each borrower
+    receives at most its deficit. With ``lent`` a third tensor, each
+    lender's total drawn ([..., N], the row sums of ``used_from``), is
+    summed as the compiled reference sums it: the product fused into the
+    sum, one FMA a term left to right (`fma_rowsum`). The pledges reach
+    each borrower the same way, an FMA a lender."""
+    pledged = assist * surplus[..., :, None]                  # [..., l, b]
+    gross = fma_rowsum(assist.transpose(-1, -2), surplus[..., None, :])
+    if isinstance(overhead, torch.Tensor):
+        avail = gross / (1.0 + overhead)
+    else:
+        # a constant divisor: the compiled reference multiplies by its
+        # float32 reciprocal
+        avail = gross * recip32(1.0 + overhead)
+    used = torch.minimum(avail, deficit)
+    draw = torch.where(
+        gross > 0, used * (1.0 + overhead) / torch.clamp(gross, min=_EPS), 0.0)
+    used_from = pledged * draw[..., None, :]
+    if lent:
+        return used, used_from, fma_rowsum(pledged, draw[..., None, :])
+    return used, used_from
+
+
+def busy_split(work: torch.Tensor, cap: torch.Tensor, assist_in: torch.Tensor,
+               used_from: torch.Tensor,
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decompose each node's performed work into busy-time attribution.
+
+    ``work``: float32[..., N] resource time actually done (post-scale);
+    ``cap``: own capacity; ``assist_in`` / ``used_from``: a
+    `fluid_transfer` grant. Own capacity runs first, the overflow ran on
+    lenders' donated capacity, and each lender's donation is charged by
+    its borrowers' actual usage fraction (a batched product over the
+    borrowers). Returns ``(own_done, remote_done, out_done)``; a node's
+    busy time is ``own_done + out_done``."""
+    remote = torch.minimum(torch.clamp(work - cap, min=0.0), assist_in)
+    own = torch.minimum(torch.clamp(work - remote, min=0.0), cap)
+    usage = torch.where(
+        assist_in > 0, remote / torch.clamp(assist_in, min=_EPS), 0.0)
+    out = torch.matmul(used_from, usage[..., None])[..., 0]
+    return own, remote, out
 
 
 def shard_exchange(spare: torch.Tensor, want: torch.Tensor,

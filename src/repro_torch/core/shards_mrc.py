@@ -93,16 +93,34 @@ def update(state: ShardsState, addrs: torch.Tensor, sample_mod: int = 64,
     return _unflat(lead, out)
 
 
+# the block length of XLA's rewrite of a long prefix sum (read off the
+# compiled reference: a 64-bucket curve sums in 4 blocks of 16)
+_SCAN_BLOCK = 16
+
+
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum over the last axis, one float32 add at a time
-    left to right: the reference's ``jnp.cumsum`` compiles to a reduce
-    window that sums each prefix in that order (torch's cumsum sums in
-    float64 on the CPU and in a tree on the GPU)."""
-    parts = x.unbind(-1)
-    run = [parts[0]]
-    for p in parts[1:]:
-        run.append(run[-1] + p)
-    return torch.stack(run, dim=-1)
+    """Inclusive prefix sum over the last axis in the reference's float32
+    order: ``jnp.cumsum`` compiles to a reduce window that sums each prefix
+    left to right, one add at a time, up to 16 terms; past that XLA splits
+    the axis into blocks of 16 (the last padded with zeros), sums within
+    each block left to right and adds each block's exclusive prefix of the
+    block totals, summed by the same rule. (Torch's cumsum sums in float64
+    on the CPU and in a tree on the GPU.)"""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        parts = x.unbind(-1)
+        run = [parts[0]]
+        for p in parts[1:]:
+            run.append(run[-1] + p)
+        return torch.stack(run, dim=-1)
+    nb = -(-n // _SCAN_BLOCK)
+    pad = x.new_zeros(x.shape[:-1] + (nb * _SCAN_BLOCK - n,))
+    within = prefix_sum(torch.cat([x, pad], dim=-1).reshape(
+        x.shape[:-1] + (nb, _SCAN_BLOCK)))
+    totals = prefix_sum(within[..., -1])
+    excl = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]], dim=-1)
+    out = (within + excl[..., None]).reshape(x.shape[:-1] + (nb * _SCAN_BLOCK,))
+    return out[..., :n]
 
 
 def mrc(state: ShardsState, bucket_width: int = 4) -> torch.Tensor:

@@ -1,7 +1,21 @@
-"""repro_torch.jbof — the JBOF substrate. So far it carries only the
-SSD constants (`ssd`): the §4.6 unit costs that `core.costs` prices from
-and the mapping-table geometry that sizes the FTL lookup; the simulator
-comes in a later slice."""
-from . import ssd
+"""repro_torch.jbof — the JBOF substrate: the paper's JBOF, simulated.
 
-__all__ = ["ssd"]
+Port of `repro.jbof`: the SSD model (`ssd`, Table 1 and its calibration),
+the platforms of §5.1 (`platforms`), the workloads of Table 2 and their
+arrival matrices (`workloads`), the BOM cost model of Fig. 12 (`bom`),
+and the windowed fluid-queueing simulator (`sim.simulate`), which runs
+static, trace-driven (`SimConfig(traces=...)`, one SHARDS window kernel
+launch a window), multi-enclosure (`n_enclosures > 1`) and observed
+(`obs=ObsConfig(enabled=True)`) runs on CUDA unless told otherwise:
+
+    from repro_torch.jbof import platforms, sim, workloads as wl
+    wls = [wl.micro(True, 64.0)] * 6 + [wl.idle()] * 6
+    res = sim.simulate(platforms.xbof(), wls, wl.arrivals(wls, 400),
+                       device="cpu")
+
+`SimConfig(events=...)` (the failure/reclaim plane) raises
+``NotImplementedError``.
+"""
+from . import bom, platforms, sim, ssd, workloads
+
+__all__ = ["bom", "platforms", "sim", "ssd", "workloads"]

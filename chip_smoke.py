@@ -234,6 +234,49 @@ PHASES = {
              obs=dict(enabled=True, ring_depth=32, event_capacity=4096)),
         TRACE_ENCLOSURE_COUNTS),
 }
+# the failure plane (ROADMAP queue 1 item 6): `serving.scenarios.drive_events`
+# at FULL_WIDTH with track_failures, ARRIVALS for STEPS steps, then zero
+# arrivals for up to 96 steps until every sequence finished. Each schedule
+# hits replica 2, the lender holding the most offsite pages at step 16 in
+# the reference's run of the same configuration (offsite pages per lender
+# [0, 0, 16, 4, 4, 4, 4, 0] fp32, [0, 0, 8, 8, 4, 4, 4, 4] int8: the first
+# of a tie). phase -> (config, (event kind, window, target), reclaim_lead,
+# the JAX reference's FailoverRun: `repro.serving.scenarios.drive_events` on
+# the CPU from `init(cfg, jax.random.key(0))`, equal at the full 40 heads
+# and at 1 head of 8 (fp32) or 8 heads (int8, metered: the page's bytes
+# price the link account): the counts do not depend on the weights or the
+# activations; `scripts/failover_pins.py` recomputes both,
+# tests/test_torch_failover.py the fp32 one)
+FAILOVER = {
+    "failover_fp32": (
+        dict(kv_quant="none", track_failures=True), ("ssd_fail", 16, 2), 8,
+        dict(completed=640, aborted=0, requeued=0, lost_tokens=208,
+             lost_sequences=0, revoked=2, seq_steps=9808, migrated_pages=0,
+             drained=True)),
+    # the same crash planned (a hot remove with 4 windows of warning):
+    # metered int8 pages, the reclaim predictor draining up to 4 pages a
+    # step, the obs plane counting the moves
+    "failover_int8_metered_migrate_obs": (
+        dict(kv_quant="int8", link_pages_per_step=4, track_failures=True,
+             migrate_pages_per_step=4,
+             obs=dict(enabled=True, ring_depth=32, event_capacity=4096)),
+        ("ssd_hot_remove", 16, 2), 4,
+        dict(completed=640, aborted=0, requeued=0, lost_tokens=0,
+             lost_sequences=0, revoked=2, seq_steps=9600, migrated_pages=8,
+             drained=True)),
+}
+# `failover_fig23`: the reference's own fig. 23 scenario
+# (benchmarks/fig23_failover.py:57-91, `scenarios.failover_scenario`) in its
+# three runs; run -> (migrate, obs, (event kind, window, target) or None,
+# reclaim_lead, (completed, lost_sequences, lost_tokens, requeued, revoked,
+# seq_steps, migrated_pages) of benchmarks/baselines/fig23_failover.json)
+FIG23_STEPS = 30
+FIG23 = {
+    "baseline": (0, False, None, 8, (12, 0, 0, 0, 0, 180, 0)),
+    "unpredicted": (0, False, ("ssd_fail", 15, 2), 8, (12, 0, 18, 1, 2, 210, 0)),
+    "predicted": (4, True, ("ssd_hot_remove", 15, 2), 2, (12, 0, 6, 1, 1, 198, 4)),
+}
+FIG23_SPIKES = {"unpredicted": 30, "predicted": 18}
 # kernel vs plain version (the gates of tests/test_kernels.py)
 TOL = {"fp32": 3e-5, "bf16": 3e-2, "int8": 1e-5}
 # paged attention vs plain version, random inputs (`random_inputs`): label
@@ -371,6 +414,33 @@ SIM_FLEET = dict(ssds=4096, small=256, per_enclosure=16, windows=200, warmup=50,
 # of `repro.jbof.sim.simulate` on the CPU at 256 SSDs; the scenario is the
 # same at every fleet size (tests/test_torch_sim_fabric_obs.py asserts it)
 SIM_FLEET_PINS = {"federated": 2.0748524548253044e-05, "isolated": 3.2564621506026015e-05}
+# `sim_events8_obs`: fig. 23's simulator run (benchmarks/fig23_failover.py:
+# 93-131): 8 SSDs, 4 random 4 KB writers at 900 MB/s and 4 random readers,
+# the loads of lenders 4 and 5 ramping to 3.2 GB/s over the 12 windows
+# before their forced reclaims at windows 50 and 70 (16 windows each), SSD
+# 6 failing at 90; XBOF, 120 windows, obs on. Its gates are the
+# reference's (benchmarks/baselines/fig23_failover.json): the PROCESSOR
+# withdraws of the reclaiming lenders, the reclaim predictor's (precision,
+# recall, mean lead) replayed over their proc-util rings, and the
+# revoked-grant ring's sum
+SIM_EVENTS8 = dict(nodes=8, windows=120, busy_bps=900e6, ramp_bps=3.2e9,
+                   events=(("lender_reclaim", 50, 4, 16),
+                           ("lender_reclaim", 70, 5, 16), ("ssd_fail", 90, 6)),
+                   withdraws=[(50, 4), (70, 5)], score=(1.0, 1.0, 3.0), revoked=6.0)
+# `sim_fleet_events`: sim_fleet4096's federated fleet under a schedule of
+# every kind the simulator takes: an idle lender reclaimed over windows
+# 60-75, a busy SSD failing at 80, a busy enclosure dropping off the fabric
+# at 100 and an idle one at 120 (node and enclosure ids valid at 256 and
+# at 4096 SSDs); cut to the first 130 of sim_fleet4096's 200 windows, past
+# the last event, so the CPU path it is held against stays short
+SIM_FLEET_EVENTS = dict(windows=130, events=(
+    ("lender_reclaim", 60, 200, 16), ("ssd_fail", 80, 20),
+    ("enclosure_drop", 100, 3), ("enclosure_drop", 120, 10)))
+# the float64 sum of `repro.jbof.sim.simulate`'s rings["revoked_grants"] on
+# the CPU at 256 SSDs under SIM_FLEET_EVENTS (descriptor slots and the
+# dropped enclosures' fabric grants; tests/test_torch_sim_events.py asserts
+# it)
+SIM_FLEET_EVENTS_PIN = 22602.5703125
 # card against the JAX reference's pins and against the port's CPU path:
 # floats within this relative error (with a floor of it times the
 # field's largest value); host_util within SIM_HOST_TOL (the mean scale
@@ -1757,6 +1827,143 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, dict]:
     return line, captured
 
 
+def drive_on_card(E, pa, cfg, state, sched, arrivals_fn, steps) -> dict:
+    """`serving.scenarios.drive_events` on the card with every `E.step`
+    call wrapped: the sync debug mode raises on a host sync inside a step
+    (`drive_events`' surgery between steps — `fail_replica`, the pins, its
+    read-back of each step's counts — may sync, as the reference's does),
+    the steps are counted, and the last step's paged-attention call is
+    kept. The kernel's launch count is zeroed just before the run and read
+    just after. Returns the run, its steps, launches, wall seconds (from a
+    synchronize to a synchronize), host seconds inside the steps, and the
+    last paged call."""
+    from repro_torch.serving import scenarios as SC
+    step, dispatch = E.step, E.kops.paged_attention
+    seen = {"steps": 0, "host_s": 0.0}
+
+    def guarded(*args, **kw):
+        seen["steps"] += 1
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            seen["host_s"] += time.perf_counter() - t
+
+    def capture(*args, **kw):
+        seen["paged_attention"] = (args, kw)
+        return dispatch(*args, **kw)
+
+    torch.cuda.synchronize()
+    E.step, E.kops.paged_attention = guarded, capture
+    pa.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run = SC.drive_events(cfg, state, sched, arrivals_fn, steps)
+    finally:
+        E.step, E.kops.paged_attention = step, dispatch
+    torch.cuda.synchronize()
+    return dict(run=run, steps=seen["steps"], launches=pa.paged_attention.launches,
+                seconds=time.perf_counter() - t0, host_s=seen["host_s"],
+                call=seen["paged_attention"])
+
+
+def paged_against_plain(pa, where, call) -> float:
+    """The paged kernel against its plain version on a phase's last step."""
+    from repro_torch.kernels import ref
+    args, kw = call
+    err, _, ok = max_err(pa.paged_attention(*args, **kw), plain(ref, args, kw),
+                         TOL["int8" if kw else "fp32"])
+    if not ok:
+        fail(f"{where}: kernel disagrees with its plain version on the last "
+             f"step (max abs err {err})")
+    return err
+
+
+def failover_phase(E, pa, phase, dev) -> dict:
+    """One failure-plane phase at FULL_WIDTH, run once: `drive_events`
+    under the phase's schedule (`drive_on_card`). Fails unless every
+    FailoverRun field equals the reference's (FAILOVER), no sequence is
+    lost, the crash truncated tokens (an unwarned failure) or the drain
+    moved pages (migration on), paged attention launched once a step, no
+    host sync inside a step, and the kernel equals its plain version on
+    the last step."""
+    from repro_torch.core import events as EV
+    extra, (kind, t, target), lead, expect = FAILOVER[phase]
+    if "obs" in extra:
+        extra = {**extra, "obs": E.obs_m.ObsConfig(**extra["obs"])}
+    cfg = E.EngineConfig(**FULL_WIDTH, **extra)
+    arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
+    warm = E.init(cfg, device=dev)
+    for _ in range(2):
+        warm, _ = E.step(cfg, warm, arrivals)
+    del warm
+    state = E.init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    out = drive_on_card(E, pa, cfg, state,
+                        EV.schedule(getattr(EV, kind)(t, target), reclaim_lead=lead),
+                        lambda _: np.asarray(ARRIVALS), STEPS)
+    got = out["run"]._asdict()
+    if got != expect:
+        fail(f"{phase}: FailoverRun {got} != the reference's {expect}")
+    if got["lost_sequences"] or not (got["lost_tokens"] if kind == "ssd_fail"
+                                     else got["migrated_pages"]):
+        fail(f"{phase}: lost sequences, or nothing truncated / drained: {got}")
+    if out["launches"] != out["steps"]:
+        fail(f"{phase}: paged_attention launched {out['launches']} times in "
+             f"{out['steps']} steps")
+    err = paged_against_plain(pa, phase, out["call"])
+    return dict(run=got, schedule=[kind, t, target], reclaim_lead=lead,
+                steps=out["steps"], launches=out["launches"], kernel_max_abs_err=err,
+                # host clock over the driven run, `drive_events`' surgery and its
+                # read-back of each step's counts included; and the host's
+                # time inside the steps alone
+                ms_per_step=1e3 * out["seconds"] / out["steps"],
+                step_host_ms=1e3 * out["host_s"] / out["steps"])
+
+
+def failover_fig23_phase(E, pa, dev) -> dict:
+    """fig. 23's serving runs on the card through the port's own
+    `failover_scenario` and `drive_events`: the baseline table (FIG23)
+    exactly, both spikes, one paged launch a step, no host sync inside a
+    step, the kernel against its plain version on each run's last step."""
+    from repro_torch.core import events as EV
+    from repro_torch.serving import scenarios as SC
+
+    def arrivals(t):
+        a = np.zeros(4, np.int64)
+        if t in (0, 2):
+            a[0] = a[1] = 3
+        return a
+
+    out, launches = {}, {}
+    for name, (migrate, obs, event, lead, expect) in FIG23.items():
+        cfg, state = SC.failover_scenario(migrate=migrate, obs=obs, device=dev)
+        sched = EV.schedule(*(() if event is None else
+                              (getattr(EV, event[0])(*event[1:]),)), reclaim_lead=lead)
+        res = drive_on_card(E, pa, cfg, state, sched, arrivals, FIG23_STEPS)
+        r = res["run"]
+        got = (r.completed, r.lost_sequences, r.lost_tokens, r.requeued, r.revoked,
+               r.seq_steps, r.migrated_pages)
+        if got != expect or not r.drained:
+            fail(f"failover_fig23 {name}: {got} != the baseline's {expect}")
+        if res["launches"] != res["steps"]:
+            fail(f"failover_fig23 {name}: paged_attention launched "
+                 f"{res['launches']} times in {res['steps']} steps")
+        launches[name] = res["launches"]
+        out[name] = dict(run=r._asdict(), steps=res["steps"], launches=res["launches"],
+                         kernel_max_abs_err=paged_against_plain(
+                             pa, f"failover_fig23 {name}", res["call"]),
+                         ms_per_step=1e3 * res["seconds"] / res["steps"])
+    base = out["baseline"]["run"]["seq_steps"]
+    spikes = {n: out[n]["run"]["seq_steps"] - base for n in FIG23_SPIKES}
+    if spikes != FIG23_SPIKES or not spikes["predicted"] < spikes["unpredicted"]:
+        fail(f"failover_fig23: spikes {spikes} != {FIG23_SPIKES}")
+    out["spikes"] = spikes
+    out["launches"] = sum(launches.values())
+    return out
+
+
 def window_bytes(args) -> int:
     """Bytes one SHARDS window must move: the references (int64) and the
     mask (one byte) read once, the state (table int64 + int32 per row,
@@ -1914,10 +2121,10 @@ def sim_kernels_per_window(S, plat, wls, arr, cfg, dev, windows=20) -> dict:
     import bisect
     step = S._window_step
 
-    def labelled(run, state, a, t, i, fabric=None):
+    def labelled(run, state, a, t, i, *rest):
         kind = "sim_mgmt_window" if i % plat.mgmt_interval == 0 else "sim_window"
         with torch.profiler.record_function(kind):
-            return step(run, state, a, t, i, fabric)
+            return step(run, state, a, t, i, *rest)
 
     cfg = dataclasses.replace(cfg, traces=None if cfg.traces is None
                               else cfg.traces[:windows])
@@ -1993,6 +2200,133 @@ def sim_same_table(got, want, where) -> None:
     for name in ("valid", "rtype", "borrower_id", "info_a", "info_b"):
         if not torch.equal(getattr(got, name).cpu(), getattr(want, name).cpu()):
             fail(f"{where}: descriptor table {name} differs")
+
+
+def sim_events8_inputs(W) -> tuple[list, np.ndarray]:
+    """fig. 23's simulator inputs (SIM_EVENTS8) from a workloads module (the
+    port's, or the reference's in the tests)."""
+    c = SIM_EVENTS8
+    n, windows = c["nodes"], c["windows"]
+    wls = ([W.micro(read=False, io_kb=4, qd=4, random_access=True)] * (n // 2)
+           + [W.micro(read=True, io_kb=4, qd=4, random_access=True)] * (n // 2))
+    arr = np.zeros((windows, n, 2), np.float32)
+    arr[:, : n // 2, 1] = c["busy_bps"] * 1e-3
+    for lender, t0 in ((n // 2, 50), (n // 2 + 1, 70)):
+        arr[t0 - 12:t0, lender, 0] = (
+            np.linspace(0.0, c["ramp_bps"], 12, dtype=np.float32) * 1e-3)
+    return wls, arr
+
+
+def sim_events8_gates(res, evaluate) -> tuple:
+    """fig. 23's simulator gates as benchmarks/fig23_failover.py reads them
+    off a result: the reclaiming lenders' PROCESSOR withdraws, the reclaim
+    predictor's (precision, recall, mean lead) over their proc-util rings
+    (``evaluate``: either package's `telemetry.reclaim.evaluate`), and the
+    revoked-grant ring's sum."""
+    n = SIM_EVENTS8["nodes"]
+    withdraws = sorted({
+        (r["t"], r["lender"]) for r in res.obs["events"]
+        if r["event"] == "withdraw" and r["rtype"] == "PROCESSOR"
+        and r["lender"] in (n // 2, n // 2 + 1)})
+    util = np.asarray(res.obs["metrics"]["proc_util"])
+    score = evaluate(util[:, n // 2:], [(t, l - n // 2) for t, l in withdraws])
+    ring = res.rings["revoked_grants"]
+    ring = ring.cpu().numpy() if isinstance(ring, torch.Tensor) else np.asarray(ring)
+    return withdraws, tuple(score), float(ring.astype(np.float64).sum())
+
+
+def fleet_inputs(W, n) -> tuple[list, np.ndarray, int]:
+    """fig. 22's fleet of ``n`` SSDs (SIM_FLEET): enclosures of 16, the
+    first half of them random 4 KB writers, the rest trickle readers.
+    Returns (workloads, arrivals [windows, n, 2], busy SSDs)."""
+    c = SIM_FLEET
+    e = n // c["per_enclosure"]
+    n_busy = (e // 2) * c["per_enclosure"]
+    wls = ([W.micro(read=False, io_kb=4, qd=4, random_access=True)] * n_busy
+           + [W.micro(read=True, io_kb=128, qd=1)] * (n - n_busy))
+    arr = np.zeros((c["windows"], n, 2), np.float32)
+    arr[:, :n_busy, 1] = c["busy_bps"] * 1e-3
+    arr[:, n_busy:, 0] = c["idle_bps"] * 1e-3
+    return wls, arr, n_busy
+
+
+def sim_events8_obs_phase(dev) -> dict:
+    """fig. 23's simulator run on the card, once: the reference's gates
+    (SIM_EVENTS8), the descriptor tables, revoked-grant ring and decoded
+    events equal to the port's CPU path, per-SSD metrics within SIM_TOL of
+    it, no host sync in the window loop; ms and kernels per window."""
+    from repro_torch.core import events as EV
+    from repro_torch.jbof import platforms as P, sim as S, workloads as W
+    from repro_torch.obs import metrics as obs_m
+    from repro_torch.telemetry import reclaim as RC
+    c = SIM_EVENTS8
+    wls, arr = sim_events8_inputs(W)
+    plat = P.xbof()
+    cfg = S.SimConfig(events=EV.schedule(*(getattr(EV, k)(*a) for k, *a in c["events"])),
+                      obs=obs_m.ObsConfig(enabled=True, ring_depth=c["windows"]))
+    traj, sec = sim_loop(S, S.prepare(plat, wls, arr, cfg, device=dev))
+    res = S.summarize(plat, cfg, traj)
+    gates = sim_events8_gates(res, RC.evaluate)
+    if gates != (c["withdraws"], c["score"], c["revoked"]):
+        fail(f"sim_events8_obs: withdraws, score, revoked {gates} != the "
+             f"reference's {(c['withdraws'], c['score'], c['revoked'])}")
+    cpu_traj = S.run_prepared(S.prepare(plat, wls, arr, cfg, device="cpu"))
+    cpu = S.summarize(plat, cfg, cpu_traj)
+    sim_same_table(traj.state.table, cpu_traj.state.table, "sim_events8_obs")
+    if not torch.equal(res.rings["revoked_grants"].cpu(), cpu.rings["revoked_grants"]):
+        fail("sim_events8_obs: revoked_grants differs from the CPU path")
+    ev_cols = ("t", "event", "rtype", "level", "lender", "borrower", "lane")
+    if [tuple(r[k] for k in ev_cols) for r in res.obs["events"]] != \
+            [tuple(r[k] for k in ev_cols) for r in cpu.obs["events"]]:
+        fail("sim_events8_obs: the decoded events differ from the CPU path")
+    err = sim_close(res, cpu, "sim_events8_obs vs the CPU path", arr=arr,
+                    warmup=traj.warmup, qd=np.array([w.qd for w in wls]),
+                    cmd_count=traj.state.cmd_count.reshape(-1).cpu().numpy())
+    return dict(windows=c["windows"], ms_per_window=1e3 * sec / c["windows"],
+                windows_per_s=c["windows"] / sec, withdraws=gates[0],
+                predictor_score=list(gates[1]), revoked_grants=gates[2],
+                events=len(res.obs["events"]), max_rel_err_vs_cpu=err,
+                kernels=sim_kernels_per_window(S, plat, wls, arr, cfg, dev))
+
+
+def sim_fleet_events_phase(dev) -> dict:
+    """sim_fleet4096's federated fleet under SIM_FLEET_EVENTS, once per
+    size: at 4096 SSDs against the port's CPU path (tables and the
+    revoked-grant ring equal, metrics within SIM_TOL), at 256 the
+    revoked-grant sum against the reference's pin; no host sync in the
+    window loop; ms per window at both sizes."""
+    from repro_torch.core import events as EV
+    from repro_torch.jbof import platforms as P, sim as S, workloads as W
+    c, ce = SIM_FLEET, SIM_FLEET_EVENTS
+    plat = P.xbof()._replace(fabric_extra_hops=c["extra_hops"])
+    sched = EV.schedule(*(getattr(EV, k)(*a) for k, *a in ce["events"]))
+    out = {}
+    for n in (c["ssds"], c["small"]):
+        wls, arr, _ = fleet_inputs(W, n)
+        arr = arr[:ce["windows"]]
+        cfg = S.SimConfig(warmup=c["warmup"], n_enclosures=n // c["per_enclosure"],
+                          events=sched)
+        traj, sec = sim_loop(S, S.prepare(plat, wls, arr, cfg, device=dev))
+        res = S.summarize(plat, cfg, traj)
+        ring = res.rings["revoked_grants"].cpu()
+        line = dict(windows=ce["windows"], ms_per_window=1e3 * sec / ce["windows"],
+                    windows_per_s=ce["windows"] / sec,
+                    revoked_grants=float(ring.double().sum()),
+                    revoked_windows=torch.nonzero(ring).flatten().tolist())
+        if n == c["small"] and line["revoked_grants"] != SIM_FLEET_EVENTS_PIN:
+            fail(f"sim_fleet_events n={n}: revoked_grants {line['revoked_grants']} "
+                 f"!= the reference's {SIM_FLEET_EVENTS_PIN}")
+        if n == c["ssds"]:
+            cpu_traj = S.run_prepared(S.prepare(plat, wls, arr, cfg, device="cpu"))
+            sim_same_table(traj.state.table, cpu_traj.state.table, "sim_fleet_events")
+            if not torch.equal(ring, cpu_traj.revoked):
+                fail("sim_fleet_events: revoked_grants differs from the CPU path")
+            line["max_rel_err_vs_cpu"] = sim_close(
+                res, S.summarize(plat, cfg, cpu_traj), "sim_fleet_events vs the CPU path",
+                arr=arr, warmup=traj.warmup, qd=np.array([w.qd for w in wls]),
+                cmd_count=traj.state.cmd_count.reshape(-1).cpu().numpy())
+        out[f"n{n}"] = line
+    return out
 
 
 def sim_jbof12_phase(dev) -> dict:
@@ -2155,12 +2489,7 @@ def sim_fleet_phase(dev) -> dict:
     out = {}
     for n in (c["ssds"], c["small"]):
         e = n // c["per_enclosure"]
-        n_busy = (e // 2) * c["per_enclosure"]
-        wls = ([W.micro(read=False, io_kb=4, qd=4, random_access=True)] * n_busy
-               + [W.micro(read=True, io_kb=128, qd=1)] * (n - n_busy))
-        arr = np.zeros((c["windows"], n, 2), np.float32)
-        arr[:, :n_busy, 1] = c["busy_bps"] * 1e-3
-        arr[:, n_busy:, 0] = c["idle_bps"] * 1e-3
+        wls, arr, n_busy = fleet_inputs(W, n)
         qd = np.array([w.qd for w in wls])
         lat = {}
         for mode, fed in (("federated", True), ("isolated", False)):
@@ -2317,9 +2646,19 @@ def main() -> None:
                  for phase, line in engine_out.items() if line["shards_window_launches"]}
     print(json.dumps({"engine": engine_out}), flush=True)
 
+    # ---- 2'. the failure plane: the failover phases at full width, then
+    # fig. 23's own scenario, each driven once through `drive_events`
+    card = card_line()
+    failover = {phase: failover_phase(E, pa, phase, dev) for phase in FAILOVER}
+    failover["failover_fig23"] = failover_fig23_phase(E, pa, dev)
+    for phase, line in failover.items():
+        form = "int8" if FAILOVER.get(phase, ({},))[0].get("kv_quant") == "int8" else "fp32"
+        by_form[form][phase] = line["launches"]
+        launches[form] += line["launches"]
+    print(json.dumps({"failover": failover, "card": card}), flush=True)
+
     # ---- 2a. the JBOF simulator: the paper's JBOF on every platform,
     # fig. 20 trace-driven with both planes, fig. 22's 4096-SSD fleet
-    card = card_line()
     t_sim = time.perf_counter()
     print(json.dumps({"sim_jbof12": sim_jbof12_phase(dev), "card": card}), flush=True)
     trace8, by_window["sim_trace8_obs"], _ = sim_trace8_obs_phase(dev)
@@ -2327,6 +2666,12 @@ def main() -> None:
     fleet = sim_fleet_phase(dev)
     print(json.dumps({"sim_fleet4096": fleet, "card": card,
                       "sim_seconds": time.perf_counter() - t_sim}), flush=True)
+    # the failure plane on the simulator: fig. 23's run, the fleet's events
+    t_ev = time.perf_counter()
+    print(json.dumps({"sim_events8_obs": sim_events8_obs_phase(dev), "card": card}),
+          flush=True)
+    print(json.dumps({"sim_fleet_events": sim_fleet_events_phase(dev), "card": card,
+                      "sim_events_seconds": time.perf_counter() - t_ev}), flush=True)
 
     # ---- 2b. the model zoo's serve path at full width, a sliding window
     # past its size, then the recurrent families (each model is freed

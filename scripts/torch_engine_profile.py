@@ -2,14 +2,18 @@
 """Where a step of the port's serving engine spends its time, on one GPU.
 
     python3 scripts/torch_engine_profile.py [--quant int8 --link-pages 4] \\
-        [--n-shards 4 --shards-per-enclosure 2] [--trace-driven] [--obs]
+        [--n-shards 4 --shards-per-enclosure 2] [--trace-driven] [--obs] \\
+        [--track-failures] [--migrate 4]
 
 Runs `repro_torch.serving.engine.step` at the configuration `chip_smoke.py`
 drives (its FULL_WIDTH and ARRIVALS: qwen3-14b attention width, 8
 replicas, arrivals [16, 4, 0, ...]), with one shard or the hierarchical
 engine (``--n-shards``, ``--shards-per-enclosure``), with the telemetry
-plane (``--trace-driven``) and the observability plane (``--obs``: rings
-of 32 windows, a log of 4096 rows, as `chip_smoke.py`'s obs phase). After 6 steps of
+plane (``--trace-driven``), the observability plane (``--obs``: rings
+of 32 windows, a log of 4096 rows, as `chip_smoke.py`'s obs phase) and the
+failure plane (``--track-failures``: the dead-replica masks, no replica
+dead; ``--migrate N``: the reclaim predictor and the drain of up to N
+pages a step, which runs every step whatever it moves). After 6 steps of
 warm-up and sync checks it profiles steps 7 .. 6 + N (N = --steps) and
 reports, all from that one window:
 
@@ -30,7 +34,9 @@ reports, all from that one window:
   layout (`layout`), the telemetry plane (`telemetry`: the SHARDS window
   with its decay, the want), the SHARDS window kernel alone
   (`shards_window`), the obs plane's record (`obs_record`, the engine's
-  own range: rings and the event append) and the rest of the step
+  own range: rings and the event append), the reclaim predictor
+  (`reclaim`), the drain (`drain`: `kv_pool.drain_offsite`, whole-pool
+  page copy included) and the rest of the step
   (`step`: the LINK_BW account, the spill budget, the stats). Each is
   exclusive of the labelled
   ranges nested in it, as in `torch_model_profile.py`;
@@ -58,6 +64,23 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def engine_stages(E, mgr, ops, kvp) -> tuple:
+    """(module, function, stage) for each function of the engine step a
+    stage is named for (`scripts/torch_engine_ops.py` counts by them too);
+    the rest of the step is the stage `step`."""
+    return ((mgr.ResourceManager, "round", "round"), (E, "_route", "route"),
+            (E, "_exchange", "exchange"), (E, "_admit", "admit"),
+            (kvp, "append_tokens", "append"),
+            (ops, "paged_attention", "paged_attention"),
+            (kvp, "release_sequences", "release"), (kvp, "offsite_pages", "release"),
+            (E, "_decode_all", "decode"), (E, "_to_shards", "layout"),
+            (E, "_from_shards", "layout"),
+            (E.tele_win, "update_window", "telemetry"),
+            (E.tele_want, "want_entries", "telemetry"),
+            (ops, "shards_window", "shards_window"),
+            (E.tele_reclaim, "update", "reclaim"), (kvp, "drain_offsite", "drain"))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quant", default="none", choices=["none", "int8"])
@@ -66,6 +89,8 @@ def main() -> None:
     ap.add_argument("--shards-per-enclosure", type=int, default=0)
     ap.add_argument("--trace-driven", action="store_true")
     ap.add_argument("--obs", action="store_true")
+    ap.add_argument("--track-failures", action="store_true")
+    ap.add_argument("--migrate", type=int, default=0)
     ap.add_argument("--steps", type=int, default=16)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -89,25 +114,18 @@ def main() -> None:
                          shards_per_enclosure=args.shards_per_enclosure,
                          trace_driven=args.trace_driven,
                          obs=E.obs_m.ObsConfig(enabled=args.obs, ring_depth=32,
-                                               event_capacity=4096))
+                                               event_capacity=4096),
+                         track_failures=args.track_failures,
+                         migrate_pages_per_step=args.migrate)
     state = E.init(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
 
     stages = {"round", "route", "exchange", "admit", "append",
               "paged_attention", "release", "decode", "layout", "step",
-              "telemetry", "shards_window", "obs_record"}
-    for module, attr, label in (
-            (mgr.ResourceManager, "round", "round"), (E, "_route", "route"),
-            (E, "_exchange", "exchange"), (E, "_admit", "admit"),
-            (kvp, "append_tokens", "append"),
-            (ops, "paged_attention", "paged_attention"),
-            (kvp, "release_sequences", "release"), (kvp, "offsite_pages", "release"),
-            (E, "_decode_all", "decode"), (E, "_to_shards", "layout"),
-            (E, "_from_shards", "layout"), (E, "_shard_step", "step"),
-            (E.tele_win, "update_window", "telemetry"),
-            (E.tele_want, "want_entries", "telemetry"),
-            (ops, "shards_window", "shards_window")):
+              "telemetry", "shards_window", "obs_record", "reclaim", "drain"}
+    for module, attr, label in (*engine_stages(E, mgr, ops, kvp),
+                                (E, "_shard_step", "step")):
         _label(module, attr, label)
 
     def run(n):
@@ -149,7 +167,8 @@ def main() -> None:
                    "n_shards": args.n_shards,
                    "shards_per_enclosure": args.shards_per_enclosure,
                    "trace_driven": args.trace_driven, "obs": args.obs,
-                   "steps": args.steps},
+                   "track_failures": args.track_failures,
+                   "migrate_pages_per_step": args.migrate, "steps": args.steps},
         "window": f"steps 7..{6 + args.steps}",
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_unprofiled": wall_unprofiled_ms,

@@ -16,8 +16,11 @@ Ported so far:
   (`kernels/csrc/paged_attention.cu`), with its telemetry plane
   (``trace_driven``: `core.shards_mrc`, `telemetry`, and the SHARDS
   window kernel `kernels/csrc/shards_window.cu`) and its observability
-  plane (``obs``: `obs.metrics`, `obs.spans`, `obs.export`), and the
-  link-account scenario (`serving.scenarios`);
+  plane (``obs``: `obs.metrics`, `obs.spans`, `obs.export`) and its
+  failure plane (``track_failures``, ``migrate_pages_per_step``: the
+  reclaim predictor `telemetry.reclaim`, `kv_pool.drain_offsite`,
+  `engine.fail_replica`), and the scenarios (`serving.scenarios`: the link
+  account, and `drive_events` under a `core.events` schedule);
 - the dense model zoo's serve path (`models.transformer.init_params`,
   `models.decode.prefill` and `decode_step`, driven by
   `launch.serve.run_model`) for qwen3-14b, granite-8b, internlm2-20b and
@@ -34,7 +37,7 @@ Ported so far:
   (`kernels/csrc/ftl_lookup.cu`);
 - the JBOF simulator (`jbof.sim.simulate` with `jbof.platforms`,
   `workloads` and `bom`): static, trace-driven (the SHARDS window kernel),
-  multi-enclosure and observed runs.
+  multi-enclosure, observed and event-scheduled runs.
 
 Configurations and architectures outside these raise
 ``NotImplementedError("later slice")``.

@@ -9,11 +9,10 @@ modules (port of `repro.core`).
   topology     the exchange tree and its level-by-level exchange (DESIGN.md §11)
   costs        per-op §4.6 remote-assist price table
   shards_mrc   SHARDS online miss-ratio-curve estimation (§4.5)
-
-`events` moves with the failure plane.
+  events       failure/reclaim event schedules shared by both substrates
 """
-from . import (costs, descriptors, harvest, loadbalance, manager, shards_mrc,
-               topology, wal)
+from . import (costs, descriptors, events, harvest, loadbalance, manager,
+               shards_mrc, topology, wal)
 
-__all__ = ["costs", "descriptors", "harvest", "loadbalance", "manager",
-           "shards_mrc", "topology", "wal"]
+__all__ = ["costs", "descriptors", "events", "harvest", "loadbalance",
+           "manager", "shards_mrc", "topology", "wal"]

@@ -275,6 +275,31 @@ def table_transitions(prev: d.IdleResourceTable, new: d.IdleResourceTable):
     return published, withdrawn, claimed, released
 
 
+def revoke_nodes(table: d.IdleResourceTable, dead: torch.Tensor):
+    """Invalidate every descriptor a dead node published and release every
+    claim a dead node holds (§4.3 invalidation, forced by failure instead
+    of the lend trigger).
+
+    ``dead``: bool[..., n] over a table [..., n, s] with the same leading
+    axes (one table per shard or enclosure). A failed *lender*'s rows go
+    invalid, so borrowers drawing on them lose the grant at the next
+    transfer derivation; a failed *borrower*'s claims revert to FREE.
+    Idempotent: re-revoking a dead node counts zero. Returns ``(table,
+    n_revoked)``, n_revoked int32[...] the slots per leading index whose
+    lender side invalidated or whose claim released."""
+    dead = dead.to(torch.bool)
+    n = dead.shape[-1]
+    dead_lender = dead[..., :, None] & table.valid
+    bid = table.borrower_id.long().clamp(0, n - 1)
+    lead = bid.shape[:-2]
+    dead_of = torch.gather(dead, -1, bid.reshape(*lead, -1)).reshape(bid.shape)
+    hit = dead_lender | ((table.borrower_id != d.FREE) & dead_of)
+    return table._replace(
+        valid=table.valid & ~dead[..., :, None],
+        borrower_id=torch.where(hit, d.FREE, table.borrower_id),
+    ), hit.sum(dim=(-2, -1), dtype=torch.int32)
+
+
 def fill_by_rank(capacity: torch.Tensor, total) -> torch.Tensor:
     """Split ``total`` across nodes by filling ``capacity`` in index order
     along the last axis: out[i] = clip(total − Σ_{j<i} cap[j], 0, cap[i]).

@@ -46,6 +46,68 @@ def make_log(n_segments: int, entries_per_page: int = ENTRIES_PER_PAGE, *,
     )
 
 
+def _rows(log: LogPages, segment) -> tuple[torch.Tensor, torch.Tensor]:
+    """(flat row index into keys.reshape(-1, epp), log index) of one
+    segment per log: ``segment`` a number or a tensor of the log's leading
+    shape."""
+    lead = log.count.shape[:-1]
+    nseg = log.count.shape[-1]
+    dev = log.keys.device
+    seg = torch.as_tensor(segment, device=dev).long().expand(lead).reshape(-1)
+    which = torch.arange(seg.shape[0], device=dev)
+    return which * nseg + seg, which
+
+
+def commit(log: LogPages, segment, key, val, enable=True) -> LogPages:
+    """Append one redo entry; if the page fills, flush the segment (page
+    cleared, ``flushes`` incremented) and recycle it.
+
+    ``enable=False`` is a no-op with the same work, so batched callers mask
+    per entry. A log with leading axes takes one entry per log: each
+    argument a tensor of the leading shape (or a number for every log).
+    Only the target rows are touched. Returns a new log."""
+    lead = log.count.shape[:-1]
+    epp = log.keys.shape[-1]
+    dev = log.keys.device
+    flat, which = _rows(log, segment)
+    e = torch.as_tensor(enable, device=dev).to(torch.bool).expand(lead).reshape(-1)
+    key = torch.as_tensor(key, device=dev).to(torch.int32).expand(lead).reshape(-1)
+    val = torch.as_tensor(val, device=dev).to(torch.int32).expand(lead).reshape(-1)
+    keys = log.keys.reshape(-1, epp).clone()
+    vals = log.vals.reshape(-1, epp).clone()
+    count = log.count.reshape(-1).clone()
+    c = count[flat].long()
+    row_k, row_v = keys[flat], vals[flat]
+    row_k[which, c] = torch.where(e, key, row_k[which, c])
+    row_v[which, c] = torch.where(e, val, row_v[which, c])
+    new_c = c + e.long()
+    full = new_c >= epp
+    keys[flat] = torch.where(full[:, None], INVALID, row_k)
+    vals[flat] = torch.where(full[:, None], INVALID, row_v)
+    count[flat] = torch.where(full, 0, new_c).to(torch.int32)
+    return LogPages(
+        keys=keys.reshape(log.keys.shape), vals=vals.reshape(log.vals.shape),
+        count=count.reshape(log.count.shape),
+        flushes=log.flushes + full.reshape(lead).to(torch.int32),
+        commits=log.commits + e.reshape(lead).to(torch.int32))
+
+
+def clear_segment(log: LogPages, segment) -> LogPages:
+    """Borrower-failure path on the lender side: drop the segment's page
+    (one segment per log, as `commit` takes it). Returns a new log."""
+    epp = log.keys.shape[-1]
+    flat, _ = _rows(log, segment)
+    keys = log.keys.reshape(-1, epp).clone()
+    vals = log.vals.reshape(-1, epp).clone()
+    count = log.count.reshape(-1).clone()
+    keys.index_fill_(0, flat, INVALID)
+    vals.index_fill_(0, flat, INVALID)
+    count.index_fill_(0, flat, 0)
+    return log._replace(keys=keys.reshape(log.keys.shape),
+                        vals=vals.reshape(log.vals.shape),
+                        count=count.reshape(log.count.shape))
+
+
 def commit_batch(log: LogPages, segments: torch.Tensor, keys: torch.Tensor,
                  vals: torch.Tensor,
                  mask: torch.Tensor | None = None) -> LogPages:

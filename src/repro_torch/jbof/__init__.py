@@ -13,8 +13,9 @@ launch a window), multi-enclosure (`n_enclosures > 1`) and observed
     res = sim.simulate(platforms.xbof(), wls, wl.arrivals(wls, 400),
                        device="cpu")
 
-`SimConfig(events=...)` (the failure/reclaim plane) raises
-``NotImplementedError``.
+`SimConfig(events=...)` drives the failure/reclaim plane: a
+`core.events` schedule of lender reclaims, SSD failures and hot removals,
+and enclosure drops (the streams uploaded once, sliced per window).
 """
 from . import bom, platforms, sim, ssd, workloads
 

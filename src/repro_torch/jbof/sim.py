@@ -46,6 +46,7 @@ import torch
 from repro_torch import resolve_device
 from ..core import costs
 from ..core import descriptors as desc
+from ..core import events as ev_m
 from ..core import harvest as hv
 from ..core import manager as mgr
 from ..core import shards_mrc
@@ -346,16 +347,23 @@ class _Run(NamedTuple):
 
 
 def _window_step(run: _Run, state: SimState, arr: torch.Tensor, trace,
-                 step_idx: int, fabric: FabricIn | None = None):
+                 step_idx: int, fabric: FabricIn | None = None,
+                 ev: ev_m.NodeEvents | None = None):
     """One window for every enclosure ([E, nl] per node). ``arr``: [E, nl,
     2] byte arrivals; ``trace``: int64 [E, nl, A] mapping-page references
     (EMPTY_REF-padded) on trace-driven runs, else None; ``step_idx``: the
     window's index (a host integer: the management gate and the warm-up
     mask are decided on the host). ``fabric``: cross-enclosure grants, or
-    None when the run is one enclosure (no fabric term at all).
+    None when the run is one enclosure (no fabric term at all). ``ev``:
+    this window's failure/reclaim streams (bool [E, nl] each), or None
+    when the run has no events (no event term at all): a dead node serves
+    nothing, its capacities are zero and its standing descriptors and
+    claims revoke in every window; a reclaiming lender is forced busy, so
+    the ordinary §4.3/§4.4 machinery drains its grants.
 
-    Returns ``(state, (miss, borrowed_seg, seg_spare, fabric_out))``,
-    ``fabric_out`` None without a fabric."""
+    Returns ``(state, (miss, borrowed_seg, seg_spare, fabric_out,
+    revoked))``, ``fabric_out`` None without a fabric and ``revoked``
+    (int32 [E], descriptor slots revoked) None without events."""
     plat, wv, window_s = run.plat, run.wv, run.window_s
     nl = state.q_r.shape[-1]
     cfg = plat.ssd_config
@@ -364,6 +372,11 @@ def _window_step(run: _Run, state: SimState, arr: torch.Tensor, trace,
     # -------------------------------------------------- arrivals & backlog
     q_r = state.q_r + arr[..., 0]
     q_w = state.q_w + arr[..., 1]
+    if ev is not None:
+        # a dead SSD's backlog is lost with the device and it admits
+        # nothing new; reclaiming lenders keep serving their own work
+        q_r = torch.where(ev.dead, 0.0, q_r)
+        q_w = torch.where(ev.dead, 0.0, q_w)
     # fluid backlog bound: 3x one-window peak capacity
     cap_bytes = (ssd.PEAK_READ_BPS + ssd.PEAK_WRITE_BPS) * window_s * 3.0
     q_r = torch.clamp(q_r, max=cap_bytes)
@@ -439,6 +452,15 @@ def _window_step(run: _Run, state: SimState, arr: torch.Tensor, trace,
         # wants segments, ordered by how starved it is
         dram_util = torch.where(
             seg_need > 0, 1.0 + _per(seg_need, float(ssd.SEGMENTS_FULL)), 0.0)
+        if ev is not None:
+            # a reclaiming (or dead) lender's segments are spoken for: zero
+            # published spare drains its standing grants at this window's
+            # transfer derivation; dead nodes also stop wanting
+            force = ev.dead | ev.reclaim
+            seg_spare = torch.where(force, 0.0, seg_spare)
+            seg_spare_gross = torch.where(force, 0.0, seg_spare_gross)
+            seg_need = torch.where(ev.dead, 0.0, seg_need)
+            dram_util = torch.where(ev.dead, 0.0, dram_util)
 
     # ------------------------------------------------------ demand (times)
     ppc = (cmds_r * ssd.C_PARSE + slices_r * ssd.C_READ_SLICE
@@ -503,31 +525,52 @@ def _window_step(run: _Run, state: SimState, arr: torch.Tensor, trace,
     proc_cap = (0.0 if plat.oc else cfg.proc_clocks_per_s / ssd.CLOCK_HZ) * window_s
     proc_cap_s = torch.full_like(q_r, proc_cap)
     flash_cap_s = torch.full_like(q_r, window_s)
+    if ev is not None:
+        proc_cap_s = torch.where(ev.dead, 0.0, proc_cap_s)
+        flash_cap_s = torch.where(ev.dead, 0.0, flash_cap_s)
 
     # ---------------------------------- management round (§4.3, all rtypes)
     assist_in = zeros
     used_from = None
     remote_frac = zeros
     table = state.table
+    revoked = None
+    if ev is not None:
+        # failure-forced §4.3 invalidation: a dead node's published slots
+        # go invalid and its held claims release NOW, every window — not
+        # at the next management round
+        table, revoked = mgr.revoke_nodes(table, ev.dead)
     any_harvest = _any_harvest(plat)
     if any_harvest and do_mgmt:
         # trigger utilizations: measured (previous window); lender triggers
         # read OWN-work utilization
+        proc_est, flash_est, link_est = (state.prev_proc_own, state.prev_flash,
+                                         state.prev_link)
+        flash_own, link_own = state.prev_flash_own, state.prev_link_own
+        if ev is not None:
+            # a reclaiming node reads saturated on every lend trigger; a
+            # dead one on trigger AND gate, so it neither lends nor borrows
+            force = ev.dead | ev.reclaim
+            proc_est = torch.where(force, 1.0, proc_est)
+            flash_own = torch.where(force, 1.0, flash_own)
+            link_own = torch.where(force, 1.0, link_own)
+            flash_est = torch.where(ev.dead, 1.0, flash_est)
+            link_est = torch.where(ev.dead, 1.0, link_est)
         inputs = {}
         if plat.harvest_proc:
-            inputs[desc.PROCESSOR] = mgr.RoundInputs(
-                util=state.prev_proc_own, gate_util=state.prev_flash)
+            inputs[desc.PROCESSOR] = mgr.RoundInputs(util=proc_est,
+                                                     gate_util=flash_est)
         if plat.harvest_dram:
             inputs[desc.DRAM] = mgr.RoundInputs(
-                util=dram_util, gate_util=state.prev_link, amount=seg_spare)
+                util=dram_util, gate_util=link_est, amount=seg_spare)
         if plat.harvest_flash:
             inputs[desc.FLASH_BW] = mgr.RoundInputs(
-                util=state.prev_flash_own, gate_util=state.prev_link,
-                amount=torch.clamp(1.0 - state.prev_flash_own, min=0.0) * window_s)
+                util=flash_own, gate_util=link_est,
+                amount=torch.clamp(1.0 - flash_own, min=0.0) * window_s)
         if plat.harvest_link:
             inputs[desc.LINK_BW] = mgr.RoundInputs(
-                util=state.prev_link_own,
-                amount=torch.clamp(1.0 - state.prev_link_own, min=0.0) * window_s)
+                util=link_own,
+                amount=torch.clamp(1.0 - link_own, min=0.0) * window_s)
         table = run.manager.round(table, inputs)
 
     # ------------------------------------------ processor harvesting (§4.4)
@@ -806,9 +849,9 @@ def _window_step(run: _Run, state: SimState, arr: torch.Tensor, trace,
                 "energy_j": m * energy,
                 "latency": lat,
             })
-            if any_harvest and do_mgmt:
-                # grant lifecycle from the table diff (held windows add no
-                # row: the table did not change)
+            if any_harvest and (do_mgmt or ev is not None):
+                # grant lifecycle from the table diff (held windows without
+                # events add no row: the table did not change)
                 rows, emask = obs_s.table_event_rows(
                     state.table, table, step_idx, base=run.id_base)
                 elog = obs_s.append(elog, rows, emask)
@@ -848,7 +891,7 @@ def _window_step(run: _Run, state: SimState, arr: torch.Tensor, trace,
             proc_want=z if proc_resid_want is None else proc_resid_want,
             seg_spare=z if seg_resid_spare is None else seg_resid_spare,
             seg_want=z if seg_resid_want is None else seg_resid_want)
-    return new_state, (miss, borrowed_seg, seg_spare, fout)
+    return new_state, (miss, borrowed_seg, seg_spare, fout, revoked)
 
 
 def _busy(work, cap, assist_in, used_from):
@@ -898,10 +941,7 @@ def _init_state(plat: Platform, e: int, nl: int, tcfg, trace_driven: bool,
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """One frozen bundle for every `simulate` run knob.
-
-    ``events`` (the failure/reclaim plane) is not ported yet: passing one
-    raises ``NotImplementedError``."""
+    """One frozen bundle for every `simulate` run knob."""
 
     window_s: float = 1e-3
     warmup: int = 50
@@ -912,11 +952,9 @@ class SimConfig:
     n_enclosures: int = 1
     fabric_federation: bool = True
     obs: obs_m.ObsConfig = obs_m.ObsConfig()
-    events: object = None
-
-    def __post_init__(self):
-        if self.events is not None:
-            raise NotImplementedError("later slice: events")
+    # failure/reclaim schedule (`core.events.schedule(...)`); None or an
+    # empty schedule runs without an event term
+    events: ev_m.EventSchedule | None = None
 
 
 class Trajectory(NamedTuple):
@@ -930,6 +968,9 @@ class Trajectory(NamedTuple):
     spare_seg: torch.Tensor
     fabric_log: object
     warmup: int
+    # float32 [T] descriptor slots plus fabric-grant units revoked a window
+    # on runs with events, else None
+    revoked: torch.Tensor | None = None
 
 
 class Prepared(NamedTuple):
@@ -943,13 +984,17 @@ class Prepared(NamedTuple):
     state: SimState
     arrivals: torch.Tensor   # [T, E, nl, 2]
     traces: object           # int64 [T, E, nl, A] on trace-driven runs, else None
+    # `core.events.EventArrays` (reclaim, dead [T, E, nl]; drop [T, E]) on
+    # runs with events, else None
+    events: object = None
 
 
 def prepare(plat: Platform, workloads: list[Workload], arrivals,
             cfg: SimConfig | None = None, *, device=None) -> Prepared:
     """Everything before the window loop: the workload vector, the static
-    want grid, the initial state, and the arrivals and traces copied to
-    ``device`` (the only host-to-device copies of a run)."""
+    want grid, the initial state, and the arrivals, traces and event
+    streams copied to ``device`` (the only host-to-device copies of a
+    run)."""
     cfg = SimConfig() if cfg is None else cfg
     dev = resolve_device(device)
     arr = (arrivals if isinstance(arrivals, torch.Tensor)
@@ -978,8 +1023,14 @@ def prepare(plat: Platform, workloads: list[Workload], arrivals,
                manager=_manager(plat),
                id_base=torch.zeros(e, dtype=torch.int32, device=dev))
     state = _init_state(plat, e, nl, tcfg, trace_driven, cfg.obs, dev)
+    events = None
+    if cfg.events:
+        ev = ev_m.compile(cfg.events, n_win, n, e, device=dev)
+        events = ev._replace(reclaim=ev.reclaim.reshape(n_win, e, nl),
+                             dead=ev.dead.reshape(n_win, e, nl))
     return Prepared(plat=plat, cfg=cfg, run=run, state=state,
-                    arrivals=arr.reshape(n_win, e, nl, -1), traces=trc)
+                    arrivals=arr.reshape(n_win, e, nl, -1), traces=trc,
+                    events=events)
 
 
 def run_prepared(p: Prepared) -> Trajectory:
@@ -1004,20 +1055,43 @@ def run_prepared(p: Prepared) -> Trajectory:
             desc.DRAM, cmd_bytes=plat.remote_lookup_bytes * plat.payload_comp_ratio,
             extra_hops=plat.fabric_extra_hops))
 
-    miss_h, bseg_h, spare_h = [], [], []
+    evs = p.events
+    miss_h, bseg_h, spare_h, rev_h = [], [], [], []
     for i in range(p.arrivals.shape[0]):
-        state, (miss, bseg, sspare, fout) = _window_step(
+        ne = dr = rev_fab = None
+        if evs is not None:
+            ne = ev_m.NodeEvents(reclaim=evs.reclaim[i], dead=evs.dead[i])
+            if fabric is not None:
+                # an enclosure dropping off the fabric invalidates its
+                # standing inbound and outbound fabric grants; zeroing the
+                # carry makes the tally tick exactly at the transition
+                dr = evs.drop[i]
+                rev_fab = 0
+                for a in fabric:
+                    rev_fab = rev_fab + torch.where(dr, a, 0.0).sum()
+                fabric = FabricIn(*(torch.where(dr, 0.0, a) for a in fabric))
+        state, (miss, bseg, sspare, fout, rev) = _window_step(
             run, state, p.arrivals[i], None if p.traces is None else p.traces[i],
-            i, fabric)
+            i, fabric, ne)
         miss_h.append(miss)
         bseg_h.append(bseg)
         spare_h.append(sspare)
+        if dr is not None:
+            # a dropped enclosure neither publishes upward nor draws back
+            fout = FabricOut(*(torch.where(dr, 0.0, a) for a in fout))
         if federate and i % plat.mgmt_interval == 0:
             # the fabric level of the topology plane settles the
             # enclosures' residuals; grants hold for one management interval
             with obs_x.scope("fabric_exchange"):
                 gp, rp = topo.hierarchical_exchange(fout.proc_spare, fout.proc_want, ftopo)
                 gs, rs = topo.hierarchical_exchange(fout.seg_spare, fout.seg_want, ftopo)
+                if dr is not None:
+                    # exactly the dropped block's cross-level grants die
+                    gp, rel_p = topo.invalidate_block_grants(gp, dr)
+                    gs, rel_s = topo.invalidate_block_grants(gs, dr)
+                    rp = torch.where(dr[None, :], 0.0, rp)
+                    rs = torch.where(dr[None, :], 0.0, rs)
+                    rev_fab = rev_fab + rel_p + rel_s
                 fabric = FabricIn(proc_in=rp.sum(dim=0), proc_out=gp.sum(dim=(0, 2)),
                                   seg_in=rs.sum(dim=0), seg_out=gs.sum(dim=(0, 2)))
             if flog is not None:
@@ -1029,10 +1103,14 @@ def run_prepared(p: Prepared) -> Trajectory:
                             grants, rtype=rt, level=2, t=i,
                             code=obs_s.FABRIC_GRANT, price=pr)
                         flog = obs_s.append(flog, rows, gmask)
+        if rev is not None:
+            rev = rev.sum(dtype=torch.int32).to(torch.float32)
+            rev_h.append(rev if rev_fab is None else rev + rev_fab)
     return Trajectory(state=state, miss=torch.stack(miss_h),
                       borrowed_seg=torch.stack(bseg_h),
                       spare_seg=torch.stack(spare_h), fabric_log=flog,
-                      warmup=run.warmup)
+                      warmup=run.warmup,
+                      revoked=torch.stack(rev_h) if rev_h else None)
 
 
 def simulate(plat: Platform, workloads: list[Workload], arrivals,
@@ -1090,6 +1168,8 @@ def summarize(plat: Platform, cfg: SimConfig, tr: Trajectory) -> SimResult:
         energy, host_busy = st.energy_j[0], st.host_busy[0]
     rings = {"borrowed_seg": tr.borrowed_seg.reshape(-1, n),
              "spare_seg": tr.spare_seg.reshape(-1, n)}
+    if tr.revoked is not None:
+        rings["revoked_grants"] = tr.revoked
     obs_out = None
     if cfg.obs.enabled:
         ms, elog = st.obs

@@ -37,7 +37,9 @@ One `step` runs, in order: with ``trace_driven``, one SHARDS window over
 every replica's page-access stream (`telemetry.windows`, one
 `shards_window` kernel launch for all shards) and the online want; the
 management round (`core.manager`); route; the LINK_BW account; the
-exchange across shards; admit; one `kv_pool.append_tokens` over every
+exchange across shards; with ``migrate_pages_per_step > 0``, the reclaim
+predictor (`telemetry.reclaim`) and one `kv_pool.drain_offsite` of the
+pages on lenders it flags; admit; one `kv_pool.append_tokens` over every
 active sequence (offsite grants WAL-committed); one paged attention over
 the flattened (shard, replica, slot) batch — the hand-written CUDA
 kernels on a GPU, their plain versions on the CPU (`kernels.ops`); with
@@ -57,9 +59,14 @@ The step reads no value back to the host (no `.item()`, `int(t)` or
 pool's K/V planes in place: rebind the returned state and do not reuse the
 old one (`step` in the reference donates its state for the same reason).
 
-Configurations that need a later slice — ``track_failures``,
-``migrate_pages_per_step > 0`` — raise ``NotImplementedError``; the
-multi-GPU sharded step is not ported.
+The failure plane (DESIGN.md §13): with ``track_failures`` the state
+carries a dead-replica mask that the step honours every step (a dead
+replica takes no arrivals, looks saturated to every trigger, publishes
+nothing and offers no pages); `fail_replica` is the host-side surgery
+between steps that kills a replica (§4.5 recovery: requeue, WAL
+truncation, revocation). It refuses ``n_shards > 1``, where the
+reference's recovery mixes global and shard-local ids (ROADMAP queue 3).
+The multi-GPU sharded step is not ported.
 Where the reference divides by a constant, the port multiplies by the
 float32 reciprocal (`manager.recip32`), as XLA compiles the reference, so
 every floor and threshold on such a quotient lands identically.
@@ -82,6 +89,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.obs import export as obs_x
 from repro_torch.obs import metrics as obs_m
 from repro_torch.obs import spans as obs_s
+from repro_torch.telemetry import reclaim as tele_reclaim
 from repro_torch.telemetry import want as tele_want
 from repro_torch.telemetry import windows as tele_win
 from . import kv_pool as kvp
@@ -145,9 +153,18 @@ class EngineConfig(NamedTuple):
     # observability plane (DESIGN.md §12): metric rings + grant-lifecycle
     # event log in the state; off leaves the state without them (None)
     obs: obs_m.ObsConfig = obs_m.ObsConfig()
-    track_failures: bool = False    # later slice (failure plane)
-    migrate_pages_per_step: int = 0  # later slice (live migration)
-    reclaim: object = None          # reclaim-predictor knobs (later slice)
+    # failure plane (DESIGN.md §13): carry a per-replica dead mask and
+    # honour it every step (arrivals, publishing, claiming and hosting all
+    # masked for dead replicas); off leaves state.dead None
+    track_failures: bool = False
+    # WAL-backed live migration (DESIGN.md §13): per-step page allowance
+    # for draining offsite KV pages off lenders the reclaim predictor
+    # flags (`kv_pool.drain_offsite`), debited from the same LINK_BW byte
+    # account as spill and redirects when metered; 0 leaves state.reclaim
+    # None
+    migrate_pages_per_step: int = 0
+    # reclaim-predictor knobs (telemetry/reclaim.py)
+    reclaim: tele_reclaim.ReclaimConfig = tele_reclaim.ReclaimConfig()
 
 
 class EngineState(NamedTuple):
@@ -166,8 +183,10 @@ class EngineState(NamedTuple):
     wv: torch.Tensor
     wo: torch.Tensor
     obs: object = None        # EngineObs when cfg.obs.enabled, else None
-    dead: object = None       # failure-plane mask: None in this slice
-    reclaim: object = None    # reclaim-predictor state: None in this slice
+    dead: object = None       # bool[R] dead replicas when cfg.track_failures
+    # reclaim-predictor carry (`telemetry.reclaim.ReclaimState`, [R]) when
+    # cfg.migrate_pages_per_step > 0
+    reclaim: object = None
 
 
 class EngineObs(NamedTuple):
@@ -196,20 +215,6 @@ def local_replicas(cfg: EngineConfig) -> int:
     return cfg.n_replicas // cfg.n_shards
 
 
-def _check_slice(cfg: EngineConfig) -> None:
-    """Raise for configurations this slice of the port does not run, so
-    nothing else runs in their place. Not checked here, because it
-    depends on the card: trace_driven on CUDA takes pages_per_replica up
-    to the window kernel's shared-memory limit (29,048 on an H100, see
-    `_telemetry`)."""
-    later = [name for name, on in (
-        ("track_failures", cfg.track_failures),
-        ("migrate_pages_per_step>0", cfg.migrate_pages_per_step > 0),
-    ) if on]
-    if later:
-        raise NotImplementedError(f"later slice: {', '.join(later)}")
-
-
 def _validate(cfg: EngineConfig) -> None:
     if cfg.n_shards < 1 or cfg.n_replicas % cfg.n_shards != 0:
         raise ValueError(
@@ -220,7 +225,6 @@ def _validate(cfg: EngineConfig) -> None:
             f"shards_per_enclosure={cfg.shards_per_enclosure} must "
             f"evenly divide n_shards={cfg.n_shards}")
     shard_topology(cfg).validate(cfg.n_shards)
-    _check_slice(cfg)
 
 
 def _copy(x, dtype, dev) -> torch.Tensor:
@@ -298,7 +302,12 @@ def init(cfg: EngineConfig, weights: dict | None = None, *, device=None,
         step_count=torch.zeros((), dtype=torch.int32, device=dev),
         mrc=(tele_win.init_batch(cfg.n_replicas, _telemetry(cfg), device=dev)
              if cfg.trace_driven else None),
-        obs=obs, **w)
+        obs=obs,
+        dead=(torch.zeros(cfg.n_replicas, dtype=torch.bool, device=dev)
+              if cfg.track_failures else None),
+        reclaim=(tele_reclaim.init(cfg.n_replicas, device=dev)
+                 if cfg.migrate_pages_per_step > 0 else None),
+        **w)
 
 
 def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
@@ -309,8 +318,10 @@ def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
     descriptor table, ``home_of``, ``remaining``, ``queue``,
     ``step_count``, and with ``trace_driven`` the SHARDS state ``mrc``
     (without it the reference carries a 1-entry estimator, which the port
-    drops) and with ``obs.enabled`` the rings and the event log. Read by
-    attribute, so any object with the reference's field names will do."""
+    drops), with ``obs.enabled`` the rings and the event log, with
+    ``track_failures`` the dead mask and with migration the predictor's
+    carry. Read by attribute, so any object with the reference's field
+    names will do."""
     state = init(cfg, {n: getattr(arrays, n) for n in ("wq", "wk", "wv", "wo")},
                  device=device)
     dev = state.queue.device
@@ -340,9 +351,11 @@ def state_from_numpy(cfg: EngineConfig, arrays, device=None) -> EngineState:
     elif tuple(np.shape(arrays.mrc.addrs))[-1:] != (_NO_TELEMETRY.k,):
         raise ValueError("a reference state with an estimator beside a config "
                          "without trace_driven")
-    if cfg.obs.enabled:
-        state = state._replace(obs=_tree_map(
-            lambda fresh, src: _copy(src, fresh.dtype, dev), state.obs, arrays.obs))
+    for f in ("obs", "dead", "reclaim"):
+        if getattr(state, f) is not None:
+            state = state._replace(**{f: _tree_map(
+                lambda fresh, src: _copy(src, fresh.dtype, dev),
+                getattr(state, f), getattr(arrays, f))})
     return like(state, arrays, ("home_of", "remaining", "queue", "step_count"))
 
 
@@ -356,6 +369,95 @@ def utilization(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
 def hbm_pressure(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
     free = kvp.free_pages(state.pool).to(torch.float32)
     return 1.0 - free * mgr.recip32(cfg.pages_per_replica)
+
+
+class FailureReport(NamedTuple):
+    """What one `fail_replica` call cost, for the scenario driver."""
+
+    lost_tokens: int   # KV tokens truncated off borrowers' tails (they
+                       # re-decode: a latency spike, never sequence loss)
+    requeued: int      # shadow sequences re-queued at their home replica
+    aborted: int       # the dead replica's OWN sequences (client gone)
+    revoked: int       # standing descriptor rows invalidated
+
+
+# the reference's recovery under n_shards > 1 truncates against the wrong
+# pool: it hands `kv_pool.lender_failure` the GLOBAL replica id, which it
+# compares with the SHARD-LOCAL owner ids the page tables hold
+_SHARDED_FAILURE = (
+    "fail_replica with n_shards > 1 is refused: the reference passes the "
+    "global replica id to kv_pool.lender_failure (src/repro/serving/"
+    "engine.py:358-359), whose page tables hold shard-local owner ids "
+    "(src/repro/serving/kv_pool.py:608-609), so borrowers keep pages in the "
+    "freed pool (or lose pages of another shard's replica); the port makes "
+    "up no semantics of its own there")
+
+
+def fail_replica(cfg: EngineConfig, state: EngineState, failed: int,
+                 ) -> tuple[EngineState, FailureReport]:
+    """Kill one replica: the §4.5 recovery story, serving side.
+
+    Four transitions, in crash-consistent order: (1) sequences HOSTED on
+    the dead replica (shadow slots serving other homes) release their
+    pages and re-queue at their home — the dead replica's own sequences
+    abort (their client died with it); (2) borrowers whose offsite KV
+    pages lived in the dead pool WAL-truncate to the last fully-surviving
+    prefix (`kv_pool.lender_failure`) and the truncated tail goes back on
+    ``remaining`` — the engine re-decodes it, so a lender crash costs
+    latency, never sequences; (3) every standing descriptor grant the dead
+    replica lends or borrows invalidates (`manager.revoke_nodes`); (4) the
+    dead mask raises, and ``cfg.track_failures`` keeps the replica inert
+    from the next step on.
+
+    Host-side, between steps: it reads its report back to the host (a
+    sync), as the reference's does. Needs ``cfg.track_failures``; raises
+    ValueError under ``n_shards > 1`` (the reference's fault there, ROADMAP
+    queue 3). The input state must not be reused."""
+    if state.dead is None:
+        raise ValueError(
+            "fail_replica needs cfg.track_failures=True (state.dead is "
+            "None: the step would keep scheduling onto the dead replica)")
+    if cfg.n_shards > 1:
+        raise ValueError(_SHARDED_FAILURE)
+    failed = int(failed)
+    r, st = cfg.n_replicas, total_slots(cfg)
+    dev = state.queue.device
+    pool = state.pool
+
+    # (1) hosted sequences: requeue at home, abort the replica's own
+    hosted = pool.seq_active[failed]
+    homes = state.home_of[failed].long()
+    own = homes == failed
+    requeue = torch.zeros(r, dtype=torch.int32, device=dev).scatter_add_(
+        0, homes.clamp(0, r - 1), (hosted & ~own).to(torch.int32))
+    aborted = int((hosted & own).sum())
+    done = torch.zeros((r, st), dtype=torch.bool, device=dev)
+    done[failed] = hosted
+    pool = kvp.release_sequences(pool, done)
+    remaining, home_of = state.remaining.clone(), state.home_of.clone()
+    remaining[failed] = 0
+    home_of[failed] = -1
+    queue = state.queue + requeue
+    queue[failed] = 0
+
+    # (2) offsite pages in the dead pool: WAL replay -> truncate -> the
+    # lost tail re-decodes (remaining grows back by what was cut)
+    len_before = pool.seq_len
+    pool = kvp.lender_failure(pool, failed)
+    lost = torch.where(pool.seq_active, len_before - pool.seq_len, 0)
+    remaining = remaining + lost
+
+    # (3) standing grants revoke, through the per-shard form of the table
+    dead = state.dead.clone()
+    dead[failed] = True
+    table, revoked = mgr.revoke_nodes(
+        desc.IdleResourceTable(*(x[None] for x in state.table)), dead[None])
+    state = state._replace(
+        pool=pool, table=desc.IdleResourceTable(*(x[0] for x in table)),
+        home_of=home_of, remaining=remaining, queue=queue, dead=dead)
+    return state, FailureReport(lost_tokens=int(lost.sum()),
+                                requeued=int(requeue.sum()), aborted=aborted,
+                                revoked=int(revoked.sum()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -737,6 +839,15 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
     scalar0 = torch.zeros((), dtype=torch.float32, device=dev)
     metered = cfg.link_pages_per_step > 0
     page_b = float(kvp.page_nbytes(state.pool))
+    dead = state.dead
+    if cfg.track_failures:
+        # failure plane: a dead replica takes no arrivals, looks saturated
+        # to every trigger (never publishes, never redirects toward it),
+        # gate-vetoes its own claims and offers no pages
+        arrivals = torch.where(dead, 0, arrivals)
+        util = torch.where(dead, 1.5, util)
+        mem = torch.where(dead, 1.0, mem)
+        free = torch.where(dead, 0.0, free)
     lendable, want_pages = free, zeros
     if cfg.trace_driven:
         # the kv_pool page-access stream: every page the decode batch will
@@ -762,9 +873,15 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
     if metered:
         # a replica under HBM pressure is about to spill: it borrows idle
         # peers' link budgets; relaxed replicas lend theirs
-        inputs[desc.LINK_BW] = mgr.RoundInputs(
-            util=mem, amount=torch.full((ns, n), float(cfg.link_pages_per_step),
-                                        dtype=torch.float32, device=dev))
+        link_util = mem
+        link_pub = torch.full((ns, n), float(cfg.link_pages_per_step),
+                              dtype=torch.float32, device=dev)
+        if cfg.track_failures:
+            # dead replicas publish a zero allowance and never claim (util
+            # 0 keeps them under the watermark on both sides)
+            link_util = torch.where(dead, 0.0, link_util)
+            link_pub = torch.where(dead, 0.0, link_pub)
+        inputs[desc.LINK_BW] = mgr.RoundInputs(util=link_util, amount=link_pub)
     prev_table = state.table  # obs: the grant events are the round's diff
     table = manager.round(state.table, inputs)
     state = state._replace(table=table)
@@ -802,12 +919,35 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
                         redirect_bytes, link_amt, page_b)
         kept, redirect_bytes = xch.kept, xch.redirect_bytes
         budget_bytes, extra_link = xch.budget_bytes, xch.extra_link
+    migrated = mig_bytes = zeros
+    if cfg.migrate_pages_per_step > 0:
+        # live migration: fold this step's pressure into the reclaim
+        # predictor; lenders it flags stop taking new spill AND their held
+        # offsite pages drain home (or to a calm second lender) under the
+        # per-step allowance, debited from the LINK_BW account before the
+        # spill floor
+        rstate, risk = tele_reclaim.update(state.reclaim, mem, cfg.reclaim)
+        if cfg.track_failures:
+            risk = risk & ~dead  # a dead pool is already freed: no drain
+        dram_lenders = dram_lenders & ~risk
+        headroom = torch.full((ns, n), float(cfg.migrate_pages_per_step),
+                              dtype=torch.float32, device=dev)
+        if metered:
+            headroom = torch.minimum(headroom, torch.clamp(
+                budget_bytes - redirect_bytes + extra_link, min=0.0)
+                * mgr.recip32(page_b))
+        pool, migrated = kvp.drain_offsite(
+            state.pool, risk, torch.floor(headroom).to(torch.int32), dram_lenders)
+        mig_bytes = migrated.to(torch.float32) * page_b
+        state = state._replace(pool=pool, reclaim=rstate)
     if metered:
-        # spill pages get whatever bytes the command stream left over, plus
-        # any cross-shard borrowed allowance (already net of the hop tax)
-        spill_budget = torch.floor(
-            (budget_bytes - redirect_bytes + extra_link) * mgr.recip32(page_b)
-        ).to(torch.int32)
+        # spill pages get whatever bytes the command stream (and the drain)
+        # left over, plus any cross-shard borrowed allowance (already net
+        # of the hop tax)
+        avail = budget_bytes - redirect_bytes + extra_link
+        if cfg.migrate_pages_per_step > 0:
+            avail = avail - mig_bytes
+        spill_budget = torch.floor(avail * mgr.recip32(page_b)).to(torch.int32)
         budget_bytes = budget_bytes + extra_link
 
     home_base = (torch.arange(ns, dtype=torch.int32, device=dev) * n)[:, None, None]
@@ -846,10 +986,8 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
             ring_vals = {k: v if v.dim() else v.expand(ns)
                          for k, v in stats.items()}
             ring_vals["hbm_pressure"] = hbm_pressure(cfg, state)
-            # live migration is a later slice: its rings record zeros, as
-            # the reference's do with migration off
-            ring_vals["migrated_pages"] = zeros
-            ring_vals["migration_bytes"] = zeros
+            ring_vals["migrated_pages"] = migrated.to(torch.float32)
+            ring_vals["migration_bytes"] = mig_bytes
             ring_vals["util_hist"] = stats["util"]
             ms = ENGINE_METRICS.record(state.obs.metrics, ring_vals)
             base = torch.arange(ns, dtype=torch.int32, device=dev) * n
@@ -865,18 +1003,21 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
     return state, stats
 
 
-# the pool's fields with a replica axis, and the state's
+# the pool's fields with a replica axis, and the state's (each a tensor, a
+# NamedTuple of them, or None)
 _POOL_FIELDS = ("k_scale", "v_scale", "used", "owner_seq", "page_table",
                 "seq_len", "seq_active")
-_STATE_FIELDS = ("home_of", "remaining", "queue")
+_STATE_FIELDS = ("home_of", "remaining", "queue", "mrc", "obs", "dead",
+                 "reclaim")
 
 
 def _to_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
     """Canonical [R, ...] layout -> [S, R/S, ...] for every field a shard
     owns: pool metadata, WAL (one log per shard, its counters [S]),
-    descriptor table, home_of, remaining, queue, the SHARDS state and the
+    descriptor table, home_of, remaining, queue, the SHARDS state, the
     obs rings and log (their [S] leaves become [S, 1], the shard's local
-    view). The K/V planes stay flat by global page id."""
+    view), the dead mask and the predictor's carry. The K/V planes stay
+    flat by global page id."""
     s = cfg.n_shards
 
     def split(x):
@@ -891,8 +1032,7 @@ def _to_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
                          **{f: split(getattr(pool, f)) for f in _POOL_FIELDS})
     return state._replace(
         pool=pool, table=desc.IdleResourceTable(*map(split, state.table)),
-        mrc=_tree_map(split, state.mrc), obs=_tree_map(split, state.obs),
-        **{f: split(getattr(state, f)) for f in _STATE_FIELDS})
+        **{f: _tree_map(split, getattr(state, f)) for f in _STATE_FIELDS})
 
 
 def _from_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
@@ -910,8 +1050,7 @@ def _from_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
                          **{f: merge(getattr(pool, f)) for f in _POOL_FIELDS})
     return state._replace(
         pool=pool, table=desc.IdleResourceTable(*map(merge, state.table)),
-        mrc=_tree_map(merge, state.mrc), obs=_tree_map(merge, state.obs),
-        **{f: merge(getattr(state, f)) for f in _STATE_FIELDS})
+        **{f: _tree_map(merge, getattr(state, f)) for f in _STATE_FIELDS})
 
 
 def step(cfg: EngineConfig, state: EngineState, arrivals, *,
@@ -924,7 +1063,6 @@ def step(cfg: EngineConfig, state: EngineState, arrivals, *,
     (a generator on the state's device; the default generator when None).
     Returns (state', stats); the input state must not be reused (its K/V
     planes are updated in place)."""
-    _check_slice(cfg)
     dev = state.queue.device
     if isinstance(arrivals, torch.Tensor):
         arrivals = arrivals.to(device=dev, dtype=torch.int32)

@@ -376,3 +376,294 @@ def gather_kv(pool: PagedPool, home: int, seq_slot: int):
              & (idx < pool.seq_len[home, seq_slot]))
     return (kg.reshape(mp * page_sz, *kg.shape[2:]),
             vg.reshape(mp * page_sz, *vg.shape[2:]), valid)
+
+
+def _where_pool(cond: torch.Tensor, a: PagedPool, b: PagedPool) -> PagedPool:
+    """``a`` where ``cond`` (a bool scalar) holds, else ``b``, field by
+    field over the metadata and the WAL (the K/V planes are ``a``'s): the
+    masked-write form of the reference's `lax.cond`."""
+    return a._replace(
+        logs=wal.LogPages(*(torch.where(cond, x, y) for x, y in zip(a.logs, b.logs))),
+        **{f: torch.where(cond, getattr(a, f), getattr(b, f)) for f in _META})
+
+
+def alloc_page(pool: PagedPool, home, seq_slot, lender_mask: torch.Tensor):
+    """Allocate one physical page for (home replica, seq slot) of a pool
+    without a shard axis — the reference's scalar API (its tests' oracle).
+
+    Prefers the home pool; when that is full, takes the lowest free page of
+    the best lender (most free pages among ``lender_mask`` bool[R], first
+    on ties) and WAL-logs the offsite mapping (key = seq_slot * max_pages +
+    logical page, val = phys id) into the HOME-local log (§4.5). Every
+    write is masked, so nothing is read back to the host. Returns (pool',
+    phys) — phys int64[] = -1 when everything is full."""
+    r, p = pool.used.shape
+    s_slots = pool.seq_len.shape[1]
+    mp = pool.page_table.shape[2]
+    dev = pool.used.device
+    home = torch.as_tensor(home, device=dev).long()
+    seq_slot = torch.as_tensor(seq_slot, device=dev).long()
+    free = (~pool.used).to(torch.int32)
+    has_local = free[home].any()
+    local_idx = free[home].argmax()                  # first free home page
+
+    free_cnt = free.sum(dim=1)
+    cand = torch.where(lender_mask.to(torch.bool)
+                       & (torch.arange(r, device=dev) != home), free_cnt, -1)
+    lender = cand.argmax()
+    lender_ok = cand[lender] > 0
+    lender_idx = free[lender].argmax()
+
+    owner = torch.where(has_local, home, torch.where(lender_ok, lender, -1))
+    idx = torch.where(has_local, local_idx, lender_idx)
+    ok = owner >= 0
+    phys = torch.where(ok, owner * p + idx, NO_PAGE)
+    safe_owner = owner.clamp(0, r - 1)
+
+    used = pool.used.clone()
+    used[safe_owner, idx] = used[safe_owner, idx] | ok
+    owner_seq = pool.owner_seq.clone()
+    owner_seq[safe_owner, idx] = torch.where(
+        ok, home * s_slots + seq_slot, owner_seq[safe_owner, idx].long()).to(torch.int32)
+    lpage = pool.seq_len[home, seq_slot].long() // pool.k.shape[1]
+    lp = lpage.clamp(0, mp - 1)
+    table = pool.page_table.clone()
+    table[home, seq_slot, lp] = torch.where(
+        ok, phys, table[home, seq_slot, lp].long()).to(torch.int32)
+    # WAL only for OFFSITE pages (owner != home), into home's log region
+    logs = wal.commit(pool.logs, home * p + idx % p, seq_slot * mp + lpage,
+                      phys, enable=ok & (owner != home))
+    return pool._replace(used=used, owner_seq=owner_seq, page_table=table,
+                         logs=logs), phys
+
+
+def append_token(pool: PagedPool, home, seq_slot, k_tok: torch.Tensor,
+                 v_tok: torch.Tensor, lender_mask: torch.Tensor) -> PagedPool:
+    """Append one token's K/V ([KV, Dh]) to one sequence of a pool without
+    a shard axis, allocating on a page boundary (`alloc_page`) — the
+    reference's scalar API. A sequence whose page could not be allocated
+    writes the scratch page and keeps its length. The K/V planes are
+    written in place (see the module doc)."""
+    r, p = pool.used.shape
+    page_sz = pool.k.shape[1]
+    mp = pool.page_table.shape[2]
+    dev = pool.used.device
+    home = torch.as_tensor(home, device=dev).long()
+    seq_slot = torch.as_tensor(seq_slot, device=dev).long()
+    length = pool.seq_len[home, seq_slot].long()
+    allocated, _ = alloc_page(pool, home, seq_slot, lender_mask)
+    pool = _where_pool(length % page_sz == 0, allocated, pool)
+    lpage = (length // page_sz).clamp(0, mp - 1)
+    phys = pool.page_table[home, seq_slot, lpage].long()
+    valid = phys >= 0
+    owner = torch.div(phys, p, rounding_mode="floor").clamp(0, r - 1)
+    page = torch.where(valid, owner * p + (phys % p).clamp(0, p - 1), r * p)[None]
+    slot = (length % page_sz)[None]
+    if quantized(pool):
+        ks = torch.cat([pool.k_scale.reshape(-1), pool.k_scale.new_zeros(1)])
+        vs = torch.cat([pool.v_scale.reshape(-1), pool.v_scale.new_zeros(1)])
+        kc, ks_new = _requant_write(pool.k[page].float(), ks[page], slot,
+                                    k_tok.float()[None])
+        vc, vs_new = _requant_write(pool.v[page].float(), vs[page], slot,
+                                    v_tok.float()[None])
+        pool.k[page] = kc
+        pool.v[page] = vc
+        ks[page] = ks_new
+        vs[page] = vs_new
+        pool = pool._replace(k_scale=ks[:-1].reshape(r, p),
+                             v_scale=vs[:-1].reshape(r, p))
+    else:
+        pool.k[page, slot] = k_tok.to(pool.k.dtype)[None]
+        pool.v[page, slot] = v_tok.to(pool.v.dtype)[None]
+    seq_len = pool.seq_len.clone()
+    seq_len[home, seq_slot] = seq_len[home, seq_slot] + valid.to(torch.int32)
+    return pool._replace(seq_len=seq_len)
+
+
+def release_sequence(pool: PagedPool, home, seq_slot) -> PagedPool:
+    """Free every page (local and offsite) of one finished sequence of a
+    pool without a shard axis; freed pages drop their scales."""
+    dev = pool.used.device
+    home = torch.as_tensor(home, device=dev).long()
+    seq_slot = torch.as_tensor(seq_slot, device=dev).long()
+    mine = pool.owner_seq == home * pool.seq_len.shape[1] + seq_slot
+    table, seq_len = pool.page_table.clone(), pool.seq_len.clone()
+    active = pool.seq_active.clone()
+    table[home, seq_slot] = NO_PAGE
+    seq_len[home, seq_slot] = 0
+    active[home, seq_slot] = False
+    return pool._replace(
+        used=pool.used & ~mine,
+        owner_seq=torch.where(mine, -1, pool.owner_seq),
+        k_scale=torch.where(mine, 0.0, pool.k_scale),
+        v_scale=torch.where(mine, 0.0, pool.v_scale),
+        page_table=table, seq_len=seq_len, seq_active=active)
+
+
+def drain_offsite(pool: PagedPool, src_mask: torch.Tensor, budget: torch.Tensor,
+                  second_mask: torch.Tensor | None = None):
+    """Live-migrate offsite KV pages OFF the replicas in ``src_mask`` — the
+    §4.5 evacuation a borrower runs when a lender signals (or the
+    predictor anticipates) reclaim, so the pages are gone before the
+    revoke or the crash lands.
+
+    Each held page moves HOME when the home pool has a free page, else to
+    one second lender (the most-free replica of ``second_mask`` that is not
+    itself draining, first on ties). The move is crash-consistent in WAL
+    order: the page-table repoint commits to the borrower-local redo log
+    BEFORE the source page frees, so a lender loss mid-drain replays to
+    the old or the new location — never to a freed page.
+
+    ``src_mask`` bool[R] replicas to evacuate; ``budget`` int[R] pages each
+    HOME replica may pull this step (the drain rides the same link as
+    spill, so the engine debits `page_nbytes` per moved page from the
+    LINK_BW account); ``second_mask`` optional bool[R] alternate lenders
+    (None: pages that do not fit home stay and retry next step). With a
+    shard axis every argument leads with it ([S, nl, ...]) and each shard
+    drains within its own pools.
+
+    Returns (pool', moved int32[R]) — pages migrated per HOME replica. The
+    K/V planes are written in place: every page of the pool is gathered
+    and written to its destination, or to the scratch page when it stays
+    (a static shape: nothing is read back to the host)."""
+    if pool.used.dim() == 2:
+        out, moved = _drain(_with_shard_axis(pool), src_mask[None], budget[None],
+                            None if second_mask is None else second_mask[None])
+        return _without_shard_axis(out), moved[0]
+    return _drain(pool, src_mask, budget, second_mask)
+
+
+def _exclusive_rank(onehot: torch.Tensor) -> torch.Tensor:
+    """Per column of ``onehot`` bool[..., R, N] (one True at most, in row
+    home), how many earlier columns hold a True in the same row: each
+    page's arrival rank among its home's pages. Returns int64[..., N]."""
+    oh = onehot.long()
+    return (torch.cumsum(oh, dim=-1) - oh).sum(dim=-2)
+
+
+def _drain(pool: PagedPool, src_mask, budget, second_mask):
+    """`drain_offsite` on a pool with a shard axis: [ns, r, ...]."""
+    ns, r, p = pool.used.shape
+    s_slots = pool.seq_len.shape[-1]
+    mp = pool.page_table.shape[-1]
+    rp = r * p
+    dev = pool.used.device
+    src_mask = src_mask.to(torch.bool)
+    f = torch.arange(rp, device=dev)
+    row = f // p
+    reps = torch.arange(r, device=dev)[:, None]
+    gid = pool.owner_seq.reshape(ns, rp).long()         # shard-local seq ids
+    safe_gid = gid.clamp(0, r * s_slots - 1)
+    home = safe_gid // s_slots                          # [ns, rp]
+    held = (pool.used.reshape(ns, rp) & src_mask[:, row] & (gid >= 0)
+            & (home != row))
+
+    # per-home arrival rank among held pages, then budget admission
+    rank = _exclusive_rank((home[:, None, :] == reps) & held[:, None, :])
+    adm = held & (rank < torch.gather(budget.long(), -1, home))
+
+    # pass A: the j-th admitted page of a home takes its j-th lowest free
+    # page (the allocator's free-first order)
+    onehot_a = (home[:, None, :] == reps) & adm[:, None, :]
+    rank_a = _exclusive_rank(onehot_a)
+    free_cnt = (~pool.used).sum(dim=-1)                 # [ns, r]
+    free_order = torch.argsort(pool.used.to(torch.uint8), dim=-1,
+                               stable=True).reshape(ns, rp)
+    home_ok = adm & (rank_a < torch.gather(free_cnt, -1, home))
+    idx_a = torch.gather(free_order, -1, home * p + rank_a.clamp(0, p - 1))
+
+    # pass B: overflow to ONE second lender (most free after pass A)
+    cons_a = torch.minimum(onehot_a.sum(dim=-1), free_cnt)  # pass-A pages per dest
+    if second_mask is None:
+        moved = home_ok
+        dest = torch.where(home_ok, home, -1)
+        idx = idx_a
+    else:
+        cand = torch.where(second_mask.to(torch.bool) & ~src_mask,
+                           free_cnt - cons_a, -1)
+        s2 = cand.argmax(dim=-1, keepdim=True)          # [ns, 1], first max
+        rem = adm & ~home_ok
+        rem_i = rem.long()
+        rank_b = torch.cumsum(rem_i, dim=-1) - rem_i
+        b_ok = rem & (rank_b < torch.gather(cand, -1, s2).clamp(min=0))
+        idx_b = torch.gather(
+            free_order, -1,
+            s2 * p + (torch.gather(cons_a, -1, s2) + rank_b).clamp(0, p - 1))
+        moved = home_ok | b_ok
+        dest = torch.where(home_ok, home, torch.where(b_ok, s2, -1))
+        idx = torch.where(home_ok, idx_a, idx_b)
+    new_phys = torch.where(moved, dest * p + idx, NO_PAGE)
+
+    # locate each moved page in its sequence's table (old phys == f)
+    pt_rows = pool.page_table.reshape(ns, r * s_slots, mp)
+    match = torch.gather(pt_rows, 1, safe_gid[..., None].expand(ns, rp, mp)) \
+        == f[:, None]                                   # [ns, rp, mp]
+    lpage = match.to(torch.int32).argmax(dim=-1)        # first match
+    moved = moved & match.any(dim=-1)
+
+    # WAL commit FIRST (the repoint supersedes the stale lender entry on
+    # replay), then repoint the table, then free the source
+    logs = wal.commit_batch(pool.logs, home * p + idx % p,
+                            (safe_gid % s_slots) * mp + lpage, new_phys,
+                            mask=moved)
+    shard = torch.arange(ns, device=dev)[:, None]
+    pt_target = torch.where(moved, (shard * (r * s_slots) + safe_gid) * mp + lpage,
+                            ns * r * s_slots * mp).reshape(-1)
+    table = _scatter(pool.page_table.reshape(-1), pt_target,
+                     new_phys.reshape(-1).to(torch.int32), NO_PAGE)
+
+    # copy page contents (and scales) dest <- source; a page that stays is
+    # written to the scratch page (plane) or the temporary tail (metadata)
+    base = shard * rp
+    target = torch.where(moved, base + dest.clamp(0, r - 1) * p + idx,
+                         ns * rp).reshape(-1)
+    source = (base + f).reshape(-1)
+    pool.k[target] = pool.k[source]
+    pool.v[target] = pool.v[source]
+    src_t = torch.where(moved, base + f, ns * rp).reshape(-1)
+
+    def move(x, fill):
+        ext = torch.cat([x.reshape(-1), x.new_full((1,), fill)])
+        out = ext.clone()
+        out[target] = ext[source]
+        out.index_fill_(0, src_t, fill)
+        return out[:-1].reshape(x.shape)
+
+    used = torch.cat([pool.used.reshape(-1), pool.used.new_zeros(1)])
+    used.index_fill_(0, target, True)
+    used.index_fill_(0, src_t, False)
+    oseq = torch.cat([pool.owner_seq.reshape(-1), pool.owner_seq.new_full((1,), -1)])
+    oseq[target] = gid.reshape(-1).to(torch.int32)
+    oseq.index_fill_(0, src_t, -1)
+    pool = pool._replace(
+        k_scale=move(pool.k_scale, 0.0), v_scale=move(pool.v_scale, 0.0),
+        used=used[:-1].reshape(pool.used.shape),
+        owner_seq=oseq[:-1].reshape(pool.owner_seq.shape),
+        page_table=table.reshape(pool.page_table.shape), logs=logs)
+    per_home = torch.zeros((ns, r), dtype=torch.int32, device=dev).scatter_add_(
+        -1, home, moved.to(torch.int32))
+    return pool, per_home
+
+
+def lender_failure(pool: PagedPool, failed):
+    """Lender replica ``failed`` dies (a pool without a shard axis): every
+    sequence with pages there replays its WAL to learn which logical pages
+    were lost, drops them, and truncates to the last fully-surviving
+    prefix (the engine re-decodes the tail); the failed pool frees
+    entirely, scales included. Paper §4.5 recovery."""
+    r, p = pool.used.shape
+    page_sz = pool.k.shape[1]
+    failed = torch.as_tensor(failed, device=pool.used.device).long()
+    owner_of = torch.div(pool.page_table, p, rounding_mode="floor")
+    lost = (owner_of == failed) & (pool.page_table >= 0)        # [R, S, mp]
+    first_lost = lost.to(torch.int32).argmax(dim=-1)            # first lost page
+    new_len = torch.where(lost.any(dim=-1),
+                          torch.minimum(pool.seq_len, first_lost * page_sz),
+                          pool.seq_len)
+    dead = torch.arange(r, device=pool.used.device)[:, None] == failed
+    return pool._replace(
+        page_table=torch.where(lost, NO_PAGE, pool.page_table),
+        seq_len=new_len.to(torch.int32), used=pool.used & ~dead,
+        owner_seq=torch.where(dead, -1, pool.owner_seq),
+        k_scale=torch.where(dead, 0.0, pool.k_scale),
+        v_scale=torch.where(dead, 0.0, pool.v_scale))

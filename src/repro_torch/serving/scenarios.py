@@ -1,22 +1,34 @@
 """Shared engine scenarios and the loops that drive them, checking an
-invariant every step (DESIGN.md §8).
+invariant every step (DESIGN.md §8, §13).
 
-Port of the link-account part of `repro.serving.scenarios`: the
-unified-LINK_BW-account scenario (`link_account_scenario` +
-`drive_link_account`). Replica 0 is memory-full (the §4.5 spill source);
-replica 1 sits just past the lend watermark, so it keeps its own link
-allowance for §4.4 redirect commands — two debit flows, one account type,
-conservation asserted every step.
+Port of `repro.serving.scenarios`:
 
-The failure/reclaim scenario (`failover_scenario`, `drive_events`) needs
-the failure plane (`core.events`, `engine.fail_replica`) and moves with
-that later slice.
+  * the unified-LINK_BW-account scenario (`link_account_scenario` +
+    `drive_link_account`): replica 0 is memory-full (the §4.5 spill
+    source); replica 1 sits just past the lend watermark, so it keeps its
+    own link allowance for §4.4 redirect commands — two debit flows, one
+    account type, conservation asserted every step;
+
+  * the failure/reclaim scenario (`failover_scenario` + `drive_events`):
+    borrowers spill KV pages onto a lender, then a `core.events` schedule
+    — the same typed schedule `jbof.sim` consumes — kills the lender, with
+    or without a hot-remove warning. `drive_events` applies dead transitions
+    through `engine.fail_replica`, models LENDER_RECLAIM as a rising
+    host-pinned fill of the lender's pool (what the reclaim predictor
+    watches), and accounts sequences end to end, so fig. 23's gates (zero
+    lost sequences, a smaller spike when predicted) come from one code
+    path.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
+import torch
+
 from repro_torch.core import costs
+from repro_torch.core import events as ev_m
+from repro_torch.obs import metrics as obs_m
 from . import engine as E
 
 # replica 1 sits just past the 0.75 lend watermark (~78% HBM) but below
@@ -90,3 +102,134 @@ def drive_link_account(cfg: E.EngineConfig, state: E.EngineState,
         budget += float(b.sum())
     return LinkAccountRun(red, spill, budget, cmd_saturated,
                           saw_redirect, saw_spill)
+
+
+def failover_scenario(migrate: int = 0, obs: bool = False, events: bool = False,
+                      *, device=None) -> tuple[E.EngineConfig, E.EngineState]:
+    """(cfg, state) on ``device`` (CUDA when None) for the lender-crash
+    scenario of fig. 23. Replicas 0 and 1 are borrowers whose 16-token
+    sequences need 4 pages each — four active slots want 16 pages of a
+    12-page pool, so about 4 pages per borrower spill, split between the
+    two idle lenders. Replica 2 takes the crash; replica 3 survives and is
+    where the predictor-driven drain re-homes 2's pages (the borrowers'
+    own pools are full when the warning lands, so the WAL-logged move goes
+    lender to lender).
+
+    ``migrate`` is the per-step drain allowance (0: the unpredicted run);
+    ``obs`` turns the metric rings on (how `drive_events` reports
+    ``migrated_pages``); ``events`` reserves event-log capacity."""
+    cfg = E.EngineConfig(
+        n_replicas=4, seq_slots=4, shadow_slots=2,
+        pages_per_replica=12, page=4, kv_heads=2, head_dim=8,
+        max_pages=4, link_pages_per_step=8,
+        track_failures=True, migrate_pages_per_step=migrate,
+        obs=obs_m.ObsConfig(enabled=True, ring_depth=256,
+                            event_capacity=512 if events else 64)
+        if obs else obs_m.ObsConfig())
+    return cfg, E.init(cfg, device=device)
+
+
+class FailoverRun(NamedTuple):
+    """End-to-end accounting of one event-scheduled engine run."""
+
+    completed: int        # sequences admitted AND decoded to completion
+    aborted: int          # dead replicas' own sequences (client gone)
+    requeued: int         # hosted sequences bounced back to their home
+    lost_tokens: int      # KV tokens truncated off crashed lenders
+    lost_sequences: int   # sequences neither completed nor aborted — the
+                          # zero-loss gate (stuck in flight at drain end)
+    revoked: int          # descriptor rows invalidated by failures
+    seq_steps: int        # sum over steps of active sequences — the
+                          # latency integral the spike gates compare
+    migrated_pages: int   # WAL-committed drain moves (0 unless cfg.obs)
+    drained: bool         # system fully emptied within the settle window
+
+
+def drive_events(cfg: E.EngineConfig, state: E.EngineState,
+                 sched: ev_m.EventSchedule,
+                 arrivals_fn: Callable[[int], np.ndarray], steps: int,
+                 settle: int = 96, ramp: int = 4) -> FailoverRun:
+    """Drive the engine under a `core.events` schedule and account every
+    sequence.
+
+    Host-side, between steps (each step itself reads nothing back):
+    SSD_FAIL / SSD_HOT_REMOVE dead transitions apply through
+    `engine.fail_replica` (which refuses ``n_shards > 1``); ENCLOSURE_DROP
+    maps an enclosure to a shard and fails every replica in it; the
+    LENDER_RECLAIM stream is the lender's own load returning — a
+    host-pinned fill of its free pages rising to the full pool over
+    ``ramp`` steps (owner_seq stays -1, so the pins are invisible to
+    sequence accounting), released when the stream clears. That is the
+    utilization signal the reclaim predictor watches, so a hot-remove's
+    warning gives ``migrate_pages_per_step`` something to act on. Each
+    step's arrivals are copied to the device before the step, and its
+    ``active`` and ``queued`` read back after it.
+
+    After the scheduled window `drive_events` feeds zero arrivals for up to
+    ``settle`` extra steps so requeued and re-decoding sequences can
+    finish; a sequence still in flight then counts as lost."""
+    n = cfg.n_replicas
+    nl = E.local_replicas(cfg)
+    dev = state.queue.device
+    reclaim_s, dead_s, drop_s = ev_m.render(sched, max(steps, 1), n,
+                                            n_enclosures=max(cfg.n_shards, 1))
+    # enclosure == shard on the serving side: a fabric drop takes every
+    # replica of the shard with it
+    dead_s = dead_s | np.repeat(drop_s, nl, axis=1)
+
+    prev_dead = np.zeros((n,), bool)
+    pinned = np.zeros((n, cfg.pages_per_replica), bool)
+    chunk = -(-cfg.pages_per_replica // ramp)
+
+    total_arrivals = 0
+    aborted = requeued = lost_tokens = revoked = seq_steps = 0
+    active = queued = 0
+    drained = False
+    for t in range(steps + settle):
+        if t < steps:
+            for r in np.nonzero(dead_s[t] & ~prev_dead)[0]:
+                state, rep = E.fail_replica(cfg, state, int(r))
+                aborted += rep.aborted
+                requeued += rep.requeued
+                lost_tokens += rep.lost_tokens
+                revoked += rep.revoked
+                pinned[r] = False
+            prev_dead |= dead_s[t]
+            act = reclaim_s[t] & ~prev_dead
+        else:
+            act = np.zeros((n,), bool)
+        if act.any() or pinned.any():
+            used = state.pool.used.cpu().numpy()
+            for r in range(n):
+                if act[r]:
+                    # the lender's own load ramping back: pin another
+                    # chunk of its free pages each reclaim window
+                    free = np.nonzero(~used[r])[0][:chunk]
+                    used[r, free] = True
+                    pinned[r, free] = True
+                elif pinned[r].any():
+                    used[r] &= ~pinned[r]
+                    pinned[r] = False
+            state = state._replace(pool=state.pool._replace(
+                used=torch.from_numpy(used).to(dev)))
+        arr = np.zeros((n,), np.int64)
+        if t < steps:
+            arr = np.where(prev_dead, 0, np.asarray(arrivals_fn(t)))
+            total_arrivals += int(arr.sum())
+        arr_t = torch.from_numpy(arr.astype(np.int32)).to(dev)
+        state, st = E.step(cfg, state, arr_t)
+        active, queued = int(st["active"]), int(st["queued"])
+        seq_steps += active
+        if t >= steps and active == 0 and queued == 0:
+            drained = True
+            break
+
+    in_flight = 0 if drained else active + queued
+    migrated = 0
+    if cfg.obs.enabled:
+        migrated = int(E.obs_totals(state)["migrated_pages"].sum())
+    return FailoverRun(
+        completed=total_arrivals - aborted - in_flight,
+        aborted=aborted, requeued=requeued, lost_tokens=lost_tokens,
+        lost_sequences=in_flight, revoked=revoked, seq_steps=seq_steps,
+        migrated_pages=migrated, drained=drained)

@@ -7,11 +7,13 @@ Port of `repro.telemetry`:
   want      want-size derivation from the online curve
   traces    seeded synthetic mapping-page reference streams (zipf sets,
             sequential streams, scan bursts, phase-change schedules)
+  reclaim   the reclaim predictor: an EWMA level and slope per lender
+            flagging those about to withdraw, so migration drains first
 
 The serving engine consumes it (`trace_driven`: the kv_pool page-access
-stream drives the DRAM descriptor's lendable-page reserve). The reclaim
-predictor (`telemetry/reclaim.py`) moves with the failure plane.
+stream drives the DRAM descriptor's lendable-page reserve;
+``migrate_pages_per_step``: the predictor picks the lenders to drain).
 """
-from . import traces, want, windows
+from . import reclaim, traces, want, windows
 
-__all__ = ["traces", "want", "windows"]
+__all__ = ["reclaim", "traces", "want", "windows"]

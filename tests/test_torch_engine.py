@@ -5,7 +5,9 @@ the port each step. Integer and bool state matches bit for bit every step,
 stats have the same keys with integer stats equal and float stats within
 the stated tolerances; the 8-replica configuration reproduces its
 harvesting counts. Also: the port imports neither JAX nor `repro`, its
-entry points default to CUDA, and configurations of later slices raise."""
+entry points default to CUDA, the configurations earlier slices refused
+(the failure plane's) now step as the reference does, and what a later
+slice still refuses raises."""
 import ast
 import pathlib
 
@@ -67,15 +69,18 @@ SCENARIOS = {
 def port_cfg(cfg):
     return TE.EngineConfig(**{f: getattr(cfg, f) for f in cfg._fields
                               if f not in ("obs", "reclaim")},
-                           obs=TE.obs_m.ObsConfig(*cfg.obs))
+                           obs=TE.obs_m.ObsConfig(*cfg.obs),
+                           reclaim=TE.tele_reclaim.ReclaimConfig(*cfg.reclaim))
 
 
 def _activations(cfg, i):
-    """The reference step's own decode activations for step_count i."""
-    shape = (cfg.n_replicas, cfg.seq_slots + cfg.shadow_slots,
-             cfg.n_heads * cfg.head_dim)
+    """The reference step's own decode activations for step_count i: under
+    its vmap over shards every shard draws the same [nl, St, d] tensor."""
+    nl = cfg.n_replicas // cfg.n_shards
+    shape = (nl, cfg.seq_slots + cfg.shadow_slots, cfg.n_heads * cfg.head_dim)
     key = jax.random.fold_in(jax.random.key(7), jnp.int32(i))
-    return np.array(jax.random.normal(key, shape) * 0.1)
+    return np.tile(np.array(jax.random.normal(key, shape) * 0.1),
+                   (cfg.n_shards, 1, 1))
 
 
 def _compare_leaves(jtree, ttree, where, int8_codes=False):
@@ -192,22 +197,35 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("later", [
-    # the telemetry and observability planes are ported; the failure
-    # plane's options still raise beside them
+    # the options earlier slices refused: the failure plane's, beside the
+    # telemetry and observability planes and the hierarchy; they now build
+    # and step as the reference does
     dict(trace_driven=True, track_failures=True), dict(track_failures=True),
     dict(migrate_pages_per_step=1),
-    dict(obs=TE.obs_m.ObsConfig(enabled=True), migrate_pages_per_step=2),
-    # the hierarchical engine is ported; a later slice's option still
-    # raises beside it
+    dict(obs=E.obs_m.ObsConfig(enabled=True), migrate_pages_per_step=2),
     dict(n_shards=2, trace_driven=True, track_failures=True),
+    # what a later slice still refuses: the model zoo's whisper
+    None,
 ])
 def test_later_slice_configs_raise(later):
-    cfg = port_cfg(CFG)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TE.init(cfg._replace(**later), device="cpu")
-    state = TE.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TE.step(cfg._replace(**later), state, [1, 0, 0, 0])
+    if later is None:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tserve.run_model("whisper-tiny", 1, 4, 1, smoke=True, device="cpu")
+        return
+    cfg = CFG._replace(**later)
+    jstate = E.init(cfg, jax.random.key(0))
+    tcfg = port_cfg(cfg)
+    tstate = TE.state_from_numpy(tcfg, jax.tree.map(np.asarray, jstate), "cpu")
+    assert (tstate.dead is None) != cfg.track_failures
+    assert (tstate.reclaim is None) != (cfg.migrate_pages_per_step > 0)
+    for i in range(4):
+        arr = np.asarray([5, 0, 0, 1], np.int32)
+        x = _activations(cfg, i)
+        jstate, jst = E.step(cfg, jstate, jnp.asarray(arr))
+        tstate, tst = TE.step(tcfg, tstate, torch.from_numpy(arr),
+                              x=torch.from_numpy(x))
+        _compare_stats(jst, tst, i)
+        _compare_leaves(jstate, tstate, f"step {i}")
 
 
 def _imports(path):

@@ -515,15 +515,23 @@ class TestEnclosureGroupedTopology:
 @pytest.mark.parametrize("later", [
     dict(trace_driven=True, migrate_pages_per_step=1), dict(track_failures=True),
     dict(migrate_pages_per_step=1),
-    dict(obs=TE.obs_m.ObsConfig(enabled=True), track_failures=True),
+    dict(obs=E.obs_m.ObsConfig(enabled=True), track_failures=True),
 ])
 def test_later_slice_options_raise_with_shards(later):
-    cfg = TE.EngineConfig(n_replicas=8, n_shards=2, shards_per_enclosure=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TE.init(cfg._replace(**later), device="cpu")
-    state = TE.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TE.step(cfg._replace(**later), state, [1] * 8)
+    """The failure plane's options, refused with shards until they were
+    ported, step on the hierarchy as the reference's vmap does."""
+    cfg = E.EngineConfig(n_replicas=8, n_shards=2, shards_per_enclosure=0,
+                         **later)
+    jstate = E.init(cfg, jax.random.key(0))
+    tcfg = port_cfg(cfg)
+    tstate = TE.state_from_numpy(tcfg, jax.tree.map(np.asarray, jstate), "cpu")
+    for i in range(4):
+        arr = np.ones(8, np.int32)
+        jstate, jst = E.step(cfg, jstate, jnp.asarray(arr))
+        tstate, tst = TE.step(tcfg, tstate, torch.from_numpy(arr),
+                              x=torch.from_numpy(_activations(cfg, i)))
+        _compare_stats(jst, tst, i)
+        _compare_leaves(jstate, tstate, f"step {i}")
 
 
 # ----------------------------------------------------------- link account

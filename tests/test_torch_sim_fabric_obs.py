@@ -18,16 +18,20 @@ rings, totals and decoded events (integer columns exact, amount and
 price within 1e-5), the SHARDS estimators bit for bit; and the port's own
 properties: one enclosure is the flat run bit for bit, obs on changes no
 physics, an enclosure count that does not divide the SSDs raises
-``ValueError``, and ``events`` raises ``NotImplementedError``."""
+``ValueError``, a bare run knob raises ``TypeError``, and a run with
+``events`` matches the reference (tests/test_torch_sim_events.py holds the
+event plane to it in full)."""
 import numpy as np
 import pytest
 import torch
 
+from repro.core import events as JE
 from repro.jbof import platforms as JP
 from repro.jbof import sim as JS
 from repro.jbof import workloads as JW
 from repro.obs import metrics as JO
 from repro.telemetry import traces as JT
+from repro_torch.core import events as TE
 from repro_torch.jbof import platforms as TP
 from repro_torch.jbof import sim as TS
 from repro_torch.jbof import workloads as TW
@@ -168,9 +172,16 @@ def test_enclosures_must_divide_the_ssds():
 
 
 def test_events_and_legacy_keywords_are_refused():
-    with pytest.raises(NotImplementedError, match="later slice: events"):
-        TS.SimConfig(events=("ssd_fail", 10, 3))
-    arr = TW.arrivals(tw(OBS_WLS), 4, seed=0)
+    """``events`` runs since the failure plane was ported (an SSD failing
+    at window 10 of 16, as the reference runs it); a bare run knob is
+    still refused."""
+    arr = TW.arrivals(tw(OBS_WLS), 16, seed=0)
+    want, _ = ref_run(JP.xbof(), OBS_WLS, np.asarray(arr), JS.SimConfig(
+        warmup=4, events=JE.schedule(JE.ssd_fail(10, 3))))
+    got, traj = port_run(TP.xbof(), OBS_WLS, arr, TS.SimConfig(
+        warmup=4, events=TE.schedule(TE.ssd_fail(10, 3))))
+    assert_result_close(got, want, arr=arr, warmup=traj.warmup, wls=OBS_WLS,
+                        cmd_count=traj.state.cmd_count)
     with pytest.raises(TypeError, match="cfg=SimConfig"):
         TS.simulate(TP.xbof(), tw(OBS_WLS), arr, device="cpu", n_enclosures=2)
 

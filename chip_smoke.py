@@ -21,7 +21,11 @@ nvcc per source, all at once), then:
    80 and 16, a ragged non-causal length, queries offset against a longer
    key sequence, rows with no valid key, and the edges of the bf16
    kernel's tiles (S and T off the tile sizes, S = 1, head dims 32 to 256,
-   windows with S < T); and the RG-LRU and RWKV6 scan
+   windows with S < T); the flash backward kernel (fp32, bf16) against
+   its plain gradient (`ref.attention_bwd`) on FLASH_BWD_SHAPES (head dims
+   8 to 256, GQA groups 1, 4 and 8, its three masks, S < T, T off its key
+   tiles, rows with no valid key), each call repeated bit for bit; and the
+   RG-LRU and RWKV6 scan
    kernels (fp32, bf16) against theirs on the sweeps of
    tests/test_kernels.py, a ragged length, and an initial state (h0; s0
    with the final state), the RG-LRU kernel also across its chunks of 32
@@ -76,7 +80,7 @@ nvcc per source, all at once), then:
    loop (`sim.run_prepared`) under the sync debug mode: `sim_jbof12`,
    fig. 9's JBOF (12 SSDs: 6 busy with 64 KB sequential reads at QD 64,
    6 idle; 400 windows of 1 ms, 50 of warm-up) on all eight platforms,
-   XBOF and XBOF+ REPEATS times and the others once, each platform's
+   XBOF and XBOF+ SIM_REPEATS times and the others once, each platform's
    per-SSD throughput, latency, proc_util, miss_ratio and borrowed_seg
    within SIM_TOL of the JAX reference's values (`SIM_JBOF12_PINS`), XBOF
    and XBOF+ also against the port's CPU path on the same inputs with
@@ -144,11 +148,32 @@ nvcc per source, all at once), then:
    rate, and the RG-LRU rows whether they equal the plain version bit for
    bit (`bit_equal`, which must hold) and, as a yardstick of the memory's
    rate, the time of a `torch.add` that moves the same bytes (`stream_ms`);
+   the flash backward's row (`flash_attention_bwd[bf16]`, not a TPU
+   kernel: it stands for the reference's autodiff) at h2o-danube's
+   training attention (FLASH_BWD_TRAIN), checked per element against the
+   plain gradient in fp32 with its fp32 form, spun, beside its plain gradient,
+   the backward of `scaled_dot_product_attention` with the band as a mask
+   and its bound (10 * D flops a pair and head at the bf16 peak);
    The SHARDS window kernel's row (`shards_window`, not a TPU kernel: it
    stands for the reference's `lax.scan`; its launches count the
    simulator's `sim_trace8_obs` too) is timed on `trace_fp32`'s
    last window, spun and unspun, beside one run of its plain loop on the
    card and its byte bound;
+3a. trains h2o-danube-1.8b at its full published config through
+   `launch.train`'s `init`, `train` and `resume` (TRAIN: bf16, batch 2,
+   seq 8192, 2 microbatches, 4 steps, remat): a checkpoint after step 1
+   (18.3 GB, written to `train_ckpt/` in the checkout and removed after),
+   restored into a fresh state whose steps 2 and 3 must give the
+   uninterrupted run's losses and grad norms to rtol=1e-6; every step
+   under the sync debug mode, with finite numbers and 96 forward and 48
+   backward flash launches (`train_expected`); with ms a step, tokens/s,
+   peak memory, the checkpoint's seconds and the step split by stage
+   (`train_split`); then one train step on the card against the CPU path
+   (`train_gpu_vs_cpu`: the full width at 2 layers in bf16, the narrow
+   fp32 config and a bf16 twin, within TRAIN_TOL; each parameter's
+   update, at TRAIN_VS_CPU_LR, against the CPU's) and the recurrent and
+   MoE smoke configs refused on the card (their kernels have no backward
+   kernel yet);
 5. checks the engine (4 replicas with int8 pages; and 8 replicas in 2
    shards, metered, with fp32 pages redirecting across shards and with
    int8 pages borrowing link bytes across shards, and the fp32 one
@@ -166,10 +191,13 @@ instructions in the flash library's SASS and of HMMA (mma.sync)
 instructions in the WKV library's (cuobjdump); a count of 0 fails the run.
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
-`paged_checks`, `flash_checks`, `scan_checks`, `router_checks`, `ftl`,
-`engine`, `sim_jbof12`, `sim_trace8_obs`, `sim_fleet4096`, `model`, `model_window`, `model_hybrid`, `model_rwkv`, `model_moe_v2`,
-`model_moe_v3`, `gpu_vs_cpu_engine`, `gpu_vs_cpu_model`), the script's
-own time (`run`, the build included), the `kernels` JSON line — per kernel form its checks and its numbers of step 4 — and
+`paged_checks`, `flash_checks`, `flash_bwd_checks`, `scan_checks`,
+`router_checks`, `ftl`, `engine`, `sim_jbof12`, `sim_trace8_obs`,
+`sim_fleet4096`, `model`, `model_window`, `model_hybrid`, `model_rwkv`,
+`model_moe_v2`, `model_moe_v3`, `train_h2o_danube`, `train_gpu_vs_cpu`,
+`gpu_vs_cpu_engine`, `gpu_vs_cpu_model`), the script's
+own time (`run`, the build included, with `phase_end_s`: each phase's
+end in seconds from the start), the `kernels` JSON line — per kernel form its checks and its numbers of step 4 — and
 last `{"ok": true, "device": {...}}`. Any failure exits non-zero before
 the last line. Needs one CUDA device; exits non-zero without one, or when
 run outside a checkout.
@@ -199,6 +227,11 @@ STEPS = 32
 # each phase is driven this many times from the same seeds (every run held
 # to the same counts), for the spread of its host-bound ms per step
 REPEATS = 3
+# the simulator's timed runs (`sim_jbof12`'s XBOF and XBOF+, `sim_trace8_obs`,
+# `sim_fleet4096`'s federated fleets): one each, cut from REPEATS to keep the
+# script's run near its length before the trainer's phases came (their gates
+# and their CPU-path comparisons are unchanged; their spread is that of one run)
+SIM_REPEATS = 1
 # the reference's counts of the two trace-driven phases: the same as those
 # of `fp32` and `enclosure4_int8_metered` (the want reserves pages only on
 # replicas that lend none), so the telemetry plane's gate is the want
@@ -321,6 +354,33 @@ MODEL_RWKV = ("rwkv6-3b", 4, 2048, 32)
 # dense [B, 128, S, S] scores (below 4096 keys) to 1 GB in bf16.
 MODEL_MOE_V2 = ("deepseek-v2-236b", 4, 1024, 32, 8)
 MODEL_MOE_V3 = ("deepseek-v3-671b", 4, 1024, 32, 5)
+# the trainer (`launch.train`'s functions): h2o-danube-1.8b at its full
+# published config, bf16 (1.83e9 parameters: the largest config of the
+# repo whose AdamW state fits one card): (arch, batch, seq, microbatches,
+# steps). Its window of 4096 binds at seq 8192. A checkpoint after step 1
+# is restored into a fresh state that runs steps 2 and 3 again.
+TRAIN = ("h2o-danube-1.8b", 2, 8192, 2, 4)
+TRAIN_CKPT_EVERY = 2
+# the trainer on the card against the CPU path: the full width at 2 layers
+# (bf16, batch 1, seq 512), the narrow fp32 dense config and its bf16 twin
+# (batch 2, seq 128). Gates: fp32 loss and grad norm within 1e-5, moments
+# within 1e-4 (m) and 2e-4 (v) of their leaf's largest magnitude; bf16 loss
+# within 1e-2 and grad norm within 3e-2 relative, m within 3e-2 and v
+# within 6e-2 of their leaf's largest magnitude (v is a square). The
+# parameters by their update, new - old (`update_close`): AdamW moves an
+# element by lr_t * (d + wd * p), d = m_hat / (sqrt(v_hat) + eps) from the
+# side's own moments, so the two sides' updates differ by lr_t * |d_card -
+# d_cpu| (2 * lr_t where a gradient near zero takes the other sign, ~0
+# elsewhere) plus the rounding of the new value, p_rel * |new| (an ulp:
+# 2^-7 in bf16, 1e-5 for fp32), plus lr_t * 1e-5 (d's own fp32 rounding).
+# The step takes TRAIN_VS_CPU_LR, so that the first step's lr_t, 1e-3, is
+# 8 bf16 ulps of a weight of 0.02 (at the default 3e-4 the first update,
+# 3e-6, rounds away in bf16): a missing or sign-flipped update fails
+TRAIN_VS_CPU = (1, 512)
+TRAIN_TOL = {"fp32": dict(loss=1e-5, grad_norm=1e-5, m=1e-4, v=2e-4, p_rel=1e-5),
+             "bf16": dict(loss=1e-2, grad_norm=3e-2, m=3e-2, v=6e-2, p_rel=2 ** -7)}
+TRAIN_VS_CPU_LR = 0.1    # lr_t = 0.1 * 1 / 100 at the first of 100 warm-up steps
+ADAMW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, warmup=100)  # the defaults
 # the JBOF simulator (`jbof.sim.simulate`, ROADMAP queue 1 item 4), three
 # phases. `sim_jbof12`: the paper's JBOF of fig. 9
 # (benchmarks/fig09_processor.py:18): 6 SSDs busy with 64 KB sequential
@@ -328,8 +388,8 @@ MODEL_MOE_V3 = ("deepseek-v3-671b", 4, 1024, 32, 5)
 SIM_JBOF12 = dict(windows=400, warmup=50, seed=0, busy=6, idle=6, io_kb=64.0)
 SIM_JBOF12_METRICS = ("throughput_bps", "latency_s", "proc_util", "miss_ratio",
                       "borrowed_seg")
-# platforms driven REPEATS times (the others once) and held against the
-# port's CPU path on the same inputs
+# platforms driven SIM_REPEATS times (the others once) and held against
+# the port's CPU path on the same inputs
 SIM_REPEATED = ("XBOF", "XBOF+")
 # per-SSD values of `repro.jbof.sim.simulate` on the CPU on sim_jbof12's
 # inputs (tests/test_torch_sim.py recomputes them and asserts these pins)
@@ -534,6 +594,39 @@ FLASH_SHAPES = [(b, s, s, h, kv, d, c, w) for b, s, h, kv, d in FLASH_SWEEP
     (1, 200, 300, 32, 8, 80, True, 96),
     # more work items than SMs: each persistent block walks several
     (2, 1100, 1100, 16, 4, 64, True, 0), (1, 650, 650, 48, 2, 256, True, 200)]
+# the flash backward kernel vs its plain version (`ref.attention_bwd`),
+# random inputs: (b, s, t, h, kv, d, causal, window) — head dims 64, 80,
+# 128 and 256 (and 8, 16 and 40: any multiple of 8), GQA groups 1, 4 and
+# 8, causal, non-causal and causal with a window, S = T and S < T, T off
+# the kernel's key tiles (64 keys, 32 at D > 128), rows with no valid key
+FLASH_BWD_SHAPES = [
+    (2, 256, 256, 4, 4, 64, True, 0), (1, 200, 200, 8, 2, 64, False, 0),
+    (1, 300, 300, 32, 8, 80, True, 96), (2, 100, 300, 8, 1, 80, True, 0),
+    (1, 130, 333, 16, 2, 128, True, 100), (2, 128, 128, 4, 4, 128, False, 0),
+    (1, 190, 190, 8, 2, 256, True, 0), (1, 200, 260, 8, 1, 256, True, 64),
+    (1, 70, 150, 2, 2, 256, False, 0), (1, 97, 97, 4, 2, 40, True, 0),
+    (1, 80, 50, 4, 2, 16, True, 0), (1, 33, 33, 2, 1, 8, True, 0)]
+# the gates, per element of each gradient: |got - want| <= c1 * |want| + c2
+# * rms(want), (c1, c2) from a table by form. Two wants, both in fp32 of
+# the inputs (bf16 ones widened: the kernel widens them and sums in fp32
+# too): the plain gradient, `ref.attention_bwd` (BWD_TOL), and the
+# backward's formulas with delta = rowsum(dO * o) taken from the o handed
+# to the kernel (`bwd_given_o`, BWD_O_TOL). c1 is the output's rounding
+# (half a bf16 ulp, 2^-8; for fp32 a few ulps); c2 takes what spreads over
+# a row or a column: the order of the sums, and against the plain
+# gradient bf16's o, whose rounding enters every dS of its row through
+# delta (a row of one key has dq = 0 exactly, yet a rounded o gives it
+# dS = dO . (v - o)), so that gate is wide; given the same o, only the
+# sums' order and the output's rounding are left, and that gate holds
+# every row, those of a 4096-key band included, to about bf16's rounding.
+# c2 from the errors measured on an H100 (this sweep and FLASH_BWD_TRAIN):
+# plain 0.162 bf16 (0.092 on the sweep), 2.8e-4 fp32; given o 5.7e-5 bf16,
+# 3.5e-4 fp32 (fp32 errors sit near 4e-6 of the largest values)
+BWD_TOL = {"fp32": (1e-6, 1e-3), "bf16": (2 ** -8, 0.25)}
+BWD_O_TOL = {"fp32": (1e-6, 1e-3), "bf16": (2 ** -8, 2e-4)}
+# h2o-danube-1.8b's training attention: one microbatch of 8192 tokens, 32
+# query heads and 8 KV heads of 80, its sliding window of 4096
+FLASH_BWD_TRAIN = (1, 8192, 8192, 32, 8, 80, True, 4096)
 # the narrow fp32 config of gpu_vs_cpu_model: head_dim 128 with a prompt
 # of 128, the shape at which the JAX prefill reaches its Pallas kernel
 NARROW = dict(name="narrow-d128", family="dense", n_layers=2, d_model=256,
@@ -861,6 +954,203 @@ def flash_checks(dev) -> list[dict]:
     return checks
 
 
+def flash_bwd_inputs(shape, dtype, seed, dev):
+    """q, k, v, the plain forward's output o and a cotangent dout."""
+    from repro_torch.kernels import ref
+    b, s, t, h, kv, d, causal, window = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v, dout = [torch.randn(sh, generator=g).to(dtype).to(dev)
+                     for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
+    o = ref.attention(q, k, v, causal=causal, window=window).contiguous()
+    return q, k, v, o, dout
+
+
+def bwd_compare(got, want, tol):
+    """(dq, dk, dv) against ``want`` (fp32) under ``tol`` = (c1, c2): (max
+    abs error, max abs error / max |want|, the largest (|err| - c1 *
+    |want|) / rms(want), which must stay <= c2, ok), over the three
+    gradients; every output finite."""
+    c1, c2 = tol
+    errs, rels, over, ok = [], [], [], True
+    for g_, w_ in zip(got, want):
+        err = (g_.float() - w_).abs()
+        rms = float(w_.square().mean().sqrt())
+        errs.append(float(err.max()))
+        rels.append(errs[-1] / max(float(w_.abs().max()), 1e-30))
+        over.append(float((err - c1 * w_.abs()).max()) / max(rms, 1e-30))
+        ok &= bool(torch.isfinite(g_).all()) and over[-1] <= c2
+    return max(errs), max(rels), max(over), ok
+
+
+def bwd_given_o(q, k, v, o, dout, causal, window):
+    """(dq, dk, dv) in fp32 by the backward's formulas on the inputs
+    widened, with delta = rowsum(dO * o) from the ``o`` given: P from the
+    masked scaled scores (a row with no valid key spreads 1 / T), dv = P^T
+    dO, dS = P * (dO V^T - delta) on unmasked pairs and 0 on masked ones,
+    dq = scale dS K, dk = scale dS^T Q. One KV head at a time."""
+    from repro_torch.kernels import ref
+    q, k, v, o, dout = (x.float() for x in (q, k, v, o, dout))
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g, scale = h // kv, d ** -0.5
+    pos = torch.arange(s, device=q.device) + (t - s)
+    cols = torch.arange(t, device=q.device)
+    mask = torch.ones(s, t, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols[None, :] <= pos[:, None]
+    if window:
+        mask &= cols[None, :] > pos[:, None] - window
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for j in range(kv):
+        heads = slice(j * g, (j + 1) * g)
+        qj, oj, doj = (x[:, :, heads].transpose(1, 2) for x in (q, o, dout))  # [b, g, s, d]
+        kj, vj = k[:, None, :, j], v[:, None, :, j]                         # [b, 1, t, d]
+        p = torch.softmax(torch.where(mask, qj @ kj.transpose(-1, -2) * scale,
+                                      ref.NEG_INF), dim=-1)
+        ds = torch.where(mask, p * (doj @ vj.transpose(-1, -2)
+                                    - (doj * oj).sum(-1, keepdim=True)), 0.0)
+        dq[:, :, heads] = (ds @ kj * scale).transpose(1, 2)
+        dk[:, :, j] = (ds.transpose(-1, -2) @ qj * scale).sum(1)
+        dv[:, :, j] = (p.transpose(-1, -2) @ doj).sum(1)
+        del p, ds
+    return dq, dk, dv
+
+
+def bwd_check(got, q, k, v, o, dout, causal, window, form) -> dict:
+    """The backward's outputs ``got`` against the plain gradient in fp32
+    (BWD_TOL) and against `bwd_given_o` (BWD_O_TOL)."""
+    from repro_torch.kernels import ref
+    out = {}
+    for key, want, tol in (
+            ("plain", ref.attention_bwd(q.float(), k.float(), v.float(), None, dout.float(),
+                                        causal=causal, window=window), BWD_TOL[form]),
+            ("given_o", bwd_given_o(q, k, v, o, dout, causal, window), BWD_O_TOL[form])):
+        err, rel, over, ok = bwd_compare(got, want, tol)
+        del want
+        out[key] = dict(max_abs_err=err, max_rel_err=rel, err_over_rms=over, tol=tol, ok=ok)
+    return out
+
+
+def flash_bwd_checks(dev) -> list[dict]:
+    """The backward kernel on FLASH_BWD_SHAPES, fp32 and bf16, through
+    `bwd_check`, each call repeated and equal bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+    checks = []
+    for form, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for shape in FLASH_BWD_SHAPES:
+            q, k, v, o, dout = flash_bwd_inputs(shape, dtype, len(checks), dev)
+            causal, window = shape[6], shape[7]
+            got = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+            again = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+            torch.cuda.synchronize()
+            gates = bwd_check(got, q, k, v, o, dout, causal, window, form)
+            same = same_bits(tuple(got), tuple(again))
+            checks.append(dict(form=form, shape=list(shape[:6]), causal=causal,
+                               window=window, **gates, repeat_equal=same,
+                               ok=gates["plain"]["ok"] and gates["given_o"]["ok"] and same))
+    return checks
+
+
+def flash_bwd_work(q, k, causal, window):
+    """Bytes the backward must move (q, k, v, o and dout read once; dq, dk
+    and dv written once) and operations it must do for THESE shapes: 10 *
+    D per unmasked (query, key) pair and query head (q.k, dO.v, P^T dO,
+    dS^T q, dS k); a row with no valid key (causal, S > T) only adds its
+    uniform weights' dO into dv, 2 * D per key and head."""
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    _, fwd_flops = flash_work(q, k, causal, window)
+    pos = torch.arange(s) + (t - s)
+    no_key_rows = int((pos < 0).sum()) if causal else 0
+    pair_flops = fwd_flops - no_key_rows * b * h * t * d     # 4 * D per pair
+    flops = pair_flops // 4 * 10 + 2 * no_key_rows * b * h * t * d
+    nbytes = (5 * q.numel() + 4 * k.numel()) * q.element_size()
+    return nbytes, flops
+
+
+def flash_bwd_row(dev, flush, checks, launches, extra) -> dict:
+    """The `kernels` entry of the backward kernel at h2o-danube-1.8b's
+    training attention (FLASH_BWD_TRAIN, bf16): checked per element
+    (`bwd_check`), as is its fp32 form at the same shape, and timed spun
+    (`spun_ms`) beside the plain gradient and the library yardstick, the
+    backward of one `scaled_dot_product_attention` with the band as a
+    boolean mask (timed only: the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, s, t, h, kv, d, causal, window = FLASH_BWD_TRAIN
+    g = torch.Generator(device="cpu").manual_seed(25)
+    q, k, v, dout = [torch.randn(sh, generator=g).to(torch.bfloat16).to(dev)
+                     for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    gates = bwd_check(got, q, k, v, o, dout, causal, window, "bf16")
+    repeat_equal = same_bits(tuple(got), tuple(again))
+    del again
+    # the fp32 form at the same shape, on the same inputs widened
+    q32, k32, v32, dout32 = (x.float() for x in (q, k, v, dout))
+    o32 = fa.flash_attention(q32, k32, v32, causal=causal, window=window)
+    got32 = fa.flash_attention_bwd(q32, k32, v32, o32, dout32, causal=causal, window=window)
+    gates32 = bwd_check(got32, q32, k32, v32, o32, dout32, causal, window, "fp32")
+    del got32, q32, k32, v32, o32, dout32
+    if not (all(g_["ok"] for g_ in (*gates.values(), *gates32.values())) and repeat_equal):
+        fail(f"flash_attention_bwd at the training shape: bf16 {gates}, fp32 {gates32}, "
+             f"repeat_equal {repeat_equal}")
+    ms, spin_ms, host_ms = spun_ms(
+        "flash_attention_bwd",
+        lambda: fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window),
+        5, flush)
+    plain_ms = timed_ms(lambda: ref.attention_bwd(q, k, v, o, dout, causal=causal,
+                                                  window=window), 2, flush)
+    # the library yardstick: SDPA's backward over the same inputs in its
+    # [B, H, S, D] layout, the band as an explicit boolean mask
+    pos = torch.arange(s, device=dev)[:, None] + (t - s)
+    cols = torch.arange(t, device=dev)[None, :]
+    mask = (cols <= pos) & (cols > pos - window)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    library = lambda: torch.autograd.grad(out, leaves, dout_t, retain_graph=True)
+    lib_err = max(float((a.transpose(1, 2).float() - w_.float()).abs().max())
+                  for a, w_ in zip(library(), got))
+    library_ms = timed_ms(library, 5, flush)
+    del out, leaves, mask
+    nbytes, flops = flash_bwd_work(q, k, causal, window)
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / BF16_FLOPS
+    return {
+        "name": "flash_attention_bwd[bf16]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: it stands for XLA's autodiff of the reference's
+        # jnp attention oracle, the reference's training gradient
+        "replaces": "src/repro/kernels/ref.py:25 (autodiff of attention; no pallas_call)",
+        "launches": launches, "kernels_per_launch": 2,
+        "shape": {"q": list(q.shape), "k": list(k.shape), "causal": causal,
+                  "window": window, "dtype": "bfloat16"},
+        "max_abs_err": gates["plain"]["max_abs_err"],
+        "max_rel_err": gates["plain"]["max_rel_err"],
+        "err_over_rms": gates["plain"]["err_over_rms"], "tol": BWD_TOL["bf16"],
+        "given_o": gates["given_o"],
+        "gate": "|err| <= tol[0] * |want| + tol[1] * rms(want) per element and "
+                "gradient, want the plain gradient in fp32 of the inputs widened; "
+                "given_o: the same against `bwd_given_o` under BWD_O_TOL",
+        "fp32_at_this_shape": gates32,
+        "repeat_equal": repeat_equal,
+        "checks": checks,
+        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops, "peak_flops": BF16_FLOPS,
+        "tflops": flops / ms / 1e9, "of_bound": max(t_bytes, t_ops) / ms,
+        "library_ms": library_ms,
+        "library_call": "autograd.grad of scaled_dot_product_attention(attn_mask=band, "
+                        "enable_gqa=True)",
+        "library_max_abs_err": lib_err,
+        **extra,
+    }
+
+
 def flash_work(q, k, causal, window):
     """Bytes the call must move (q, k and v read once, out written once)
     and operations it must do for THESE shapes: 4 * D per unmasked
@@ -1151,6 +1441,303 @@ def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
             "launches": g_launch, "tokens_equal": True,
             "max_abs_logit_err": worst, "tol": "1e-4 * (1 + |want|)",
             "router_min_gap": gap, "ok": True}
+
+
+def train_kernels() -> dict:
+    """The launch counters the trainer's path reads: flash attention's
+    forward and backward (each backward call is two CUDA kernels)."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def train_expected(cfg, n_micro) -> dict:
+    """Launches of one train step: the forward kernel twice a layer and
+    microbatch under remat (the forward, then its recomputation in the
+    backward pass), the backward kernel once."""
+    n_attn = cfg.layer_kinds().count("attn")
+    return {"flash_attention": n_attn * n_micro * (2 if cfg.remat else 1),
+            "flash_attention_bwd": n_attn * n_micro}
+
+
+def train_split(cfg, state, batch, n_micro) -> dict:
+    """One `train_step` split by stage between CUDA events: around each of
+    its calls to `lm_loss` (the forward, summed over the microbatches) and
+    to `optimizer.update`; the backward is the step's time less those two
+    (``torch.autograd.grad``, the layers' recomputation included, and the
+    fp32 gradient sums). Each stage's peak of allocated memory is read at
+    its end (the allocator's count: no sync); the backward's is the peak
+    between a forward's end and the next stage's start."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as TS
+    spans = {"forward": [], "optimizer": []}
+    peak = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    real = {"forward": T.lm_loss, "optimizer": opt.update}
+
+    def read_peak(stage):
+        peak[stage] = max(peak[stage], torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(stage):
+        def call(*args, **kw):
+            read_peak("backward")          # since the last forward's end
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real[stage](*args, **kw)
+            ev[1].record()
+            spans[stage].append(ev)
+            read_peak(stage)
+            return out
+        return call
+
+    step = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    T.lm_loss, opt.update = timed("forward"), timed("optimizer")
+    try:
+        step[0].record()
+        out = TS.train_step(cfg, state, batch, n_micro=n_micro)
+        step[1].record()
+    finally:
+        T.lm_loss, opt.update = real["forward"], real["optimizer"]
+    torch.cuda.synchronize()
+    del out
+    ms = {stage: sum(a.elapsed_time(b) for a, b in evs) for stage, evs in spans.items()}
+    total = step[0].elapsed_time(step[1])
+    return {"step_ms": total, "forward_ms": ms["forward"],
+            "backward_ms": total - ms["forward"] - ms["optimizer"],
+            "optimizer_ms": ms["optimizer"], "peak_mem_gb": peak}
+
+
+def train_phase(dev) -> dict:
+    """The main path of training at full width: `launch.train`'s `init`,
+    `train` and `resume` on TRAIN. Steps 0-1, a checkpoint, steps 2-3 (the
+    uninterrupted run); then the state is freed, a fresh state (other
+    weights) takes the checkpoint through `resume`, and steps 2-3 run again:
+    their losses and grad norms must equal the uninterrupted run's to
+    rtol=1e-6 (the reference's tests/test_training.py). Each step runs
+    under the sync debug mode (no host sync inside a step), must give a
+    finite loss and grad norm, and must launch the flash kernels
+    `train_expected` times (counts zeroed just before the run, read after
+    each step)."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_step as TS
+    from repro_torch.training import tree as tr
+    arch, batch, seq, n_micro, steps = TRAIN
+    cfg = configs.get(arch)
+    kernels, expect = train_kernels(), train_expected(cfg, n_micro)
+    ckpt_dir = ROOT / "train_ckpt"
+    step_fn, step_ms, per_step = TS.train_step, [], []
+
+    def checked_step(*args, **kw):
+        before = {name: k.launches for name, k in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = step_fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step.append({name: k.launches - before[name] for name, k in kernels.items()})
+        return out
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = dict(batch=batch, seq=seq, n_micro=n_micro, seed=0, device=dev, log=print)
+    n_tensors = sum(t.numel() for t in tr.leaves(T.abstract_params(cfg)))
+    TS.train_step = checked_step
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        # steps 0 and 1 with a checkpoint after step 1, then steps 2 and 3
+        # from the state in memory (no name here keeps a handed-over state)
+        t0 = time.perf_counter()
+        metrics = []
+        for state, m in L.train(cfg, L.init(cfg, seed=0, device=dev), 0, 2,
+                                ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY, **run):
+            metrics.append(m)
+        # the first run's time outside its steps: the weights' draw and the
+        # checkpoint's save (copy to the host, write, sync)
+        save_s = time.perf_counter() - t0 - 1e-3 * sum(step_ms)
+        rest = L.train(cfg, state, 2, steps, **run)
+        del state
+        for state, m in rest:
+            metrics.append(m)
+        launches = {name: k.launches for name, k in kernels.items()}
+        whole = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ckpt_gb = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file()) / 1e9
+        del state, rest
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, start = L.resume(ckpt_dir, L.init(cfg, seed=1, device=dev))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rerun = L.train(cfg, state, start, steps, **run)
+        del state
+        again = []
+        for state, m in rerun:
+            again.append(m)
+    finally:
+        TS.train_step = step_fn
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    resumed = [(float(m["loss"]), float(m["grad_norm"])) for m in again]
+    split = train_split(cfg, state, pipeline.batch_for_step(cfg, steps, batch, seq, 0,
+                                                            device=dev), n_micro)
+    del state, again
+    torch.cuda.empty_cache()
+    if start != 2 or len(resumed) != steps - 2:
+        fail(f"train: resumed at step {start} with {len(resumed)} steps; want 2 and "
+             f"{steps - 2}")
+    if not all(np.isfinite(whole + resumed).ravel()):
+        fail(f"train: a loss or grad norm is not finite: {whole}, resumed {resumed}")
+    bad = [i for i, got in enumerate(per_step) if got != expect]
+    if bad:
+        fail(f"train: kernel launches per step {per_step} != {expect}")
+    if not np.allclose(resumed, whole[start:], rtol=1e-6, atol=0):
+        fail(f"train: the resumed steps {resumed} != the uninterrupted run's "
+             f"{whole[start:]} (rtol 1e-6)")
+    steady = sorted(step_ms[1:])
+    med = steady[len(steady) // 2]
+    return dict(
+        arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, window=cfg.sliding_window, dtype=cfg.dtype, remat=cfg.remat,
+        n_params=cfg.n_params(), n_params_tensors=n_tensors, batch=batch, seq=seq,
+        n_micro=n_micro, steps=steps, losses=[m[0] for m in whole],
+        grad_norms=[m[1] for m in whole], resumed_from=start - 1,
+        resumed_losses=[m[0] for m in resumed], resumed_grad_norms=[m[1] for m in resumed],
+        resumed_bit_equal=resumed == whole[start:],
+        step_ms=step_ms, step_ms_median=med, step_ms_spread=[steady[0], steady[-1]],
+        step_ms_over="the steps after the first of both runs",
+        tokens_per_s=batch * seq / (med / 1e3), peak_mem_gb=peak_gb,
+        init_and_ckpt_save_s=save_s, ckpt_restore_s=restore_s, ckpt_gb=ckpt_gb,
+        launches=launches, launches_per_step=per_step[0], expected_per_step=expect,
+        backward_cuda_kernels_per_step=2 * expect["flash_attention_bwd"],
+        split=split, host_syncs="none (sync debug mode 'error' around each step)")
+
+
+def adamw_direction(m, v, step):
+    """AdamW's d = m_hat / (sqrt(v_hat) + eps) of an element after ``step``
+    steps, in float64, from the moments in its state."""
+    m, v = m.double(), v.double()
+    return (m / (1 - ADAMW["b1"] ** step)) / (
+        (v / (1 - ADAMW["b2"] ** step)).sqrt() + ADAMW["eps"])
+
+
+def update_close(new, old, ref_new, ref_old, m, v, ref_m, ref_v, step, lr, p_rel):
+    """The largest excess of |(new - old) - (ref_new - ref_old)| over its
+    bound, lr_t * (|d - d_ref| + wd * |old - ref_old|) + p_rel * max(|new|,
+    |ref_new|) + lr_t * 1e-5 (TRAIN_TOL's note), and the largest
+    difference of the updates, over one leaf. <= 0 passes."""
+    lr_t = lr * min(1.0, step / ADAMW["warmup"])
+    new, old, ref_new, ref_old = (x.double() for x in (new, old, ref_new, ref_old))
+    diff = ((new - old) - (ref_new - ref_old)).abs()
+    bound = lr_t * ((adamw_direction(m, v, step) - adamw_direction(ref_m, ref_v, step)).abs()
+                    + ADAMW["weight_decay"] * (old - ref_old).abs() + 1e-5) \
+        + p_rel * torch.maximum(new.abs(), ref_new.abs())
+    return float((diff - bound).max()), float(diff.max())
+
+
+def train_vs_cpu(dev, cfg, seed, batch, seq, n_micro=1) -> dict:
+    """One `train_step` of ``cfg`` on the card and on the CPU (the plain
+    path) from the same weights and batch, at TRAIN_VS_CPU_LR: loss, grad
+    norm, the moments and every parameter's update within TRAIN_TOL; the
+    card's launches one step's."""
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_step as TS
+    from repro_torch.training import tree as tr
+    form = "bf16" if cfg.param_dtype == torch.bfloat16 else "fp32"
+    tol = TRAIN_TOL[form]
+    cpu_params = T.init_params(cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(seed))
+    kernels = train_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    g_state, g_m = TS.train_step(
+        cfg, TS.init_state(cfg, tr.tree_map(lambda t: t.to(dev), cpu_params)),
+        pipeline.batch_for_step(cfg, 0, batch, seq, seed, device=dev), n_micro=n_micro,
+        lr=TRAIN_VS_CPU_LR)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    t0 = time.perf_counter()
+    c_state, c_m = TS.train_step(cfg, TS.init_state(cfg, cpu_params),
+                                 pipeline.batch_for_step(cfg, 0, batch, seq, seed,
+                                                         device="cpu"), n_micro=n_micro,
+                                 lr=TRAIN_VS_CPU_LR)
+    cpu_s = time.perf_counter() - t0
+    if launches != train_expected(cfg, n_micro) or any(k.launches != launches[n]
+                                                      for n, k in kernels.items()):
+        fail(f"train_vs_cpu {cfg.name}: launches {launches}; want "
+             f"{train_expected(cfg, n_micro)} on the card and none on the CPU")
+    errs = {}
+    for key in ("loss", "grad_norm"):
+        got, want = float(g_m[key]), float(c_m[key])
+        errs[key] = abs(got - want) / abs(want)
+        if not (np.isfinite(got) and errs[key] <= tol[key]):
+            fail(f"train_vs_cpu {cfg.name}: {key} {got} vs CPU {want}")
+    for name in ("m", "v"):
+        worst = 0.0
+        for g, c in zip(tr.leaves(getattr(g_state.opt, name)),
+                        tr.leaves(getattr(c_state.opt, name))):
+            rel = float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
+            worst = max(worst, rel)
+        errs[name] = worst
+        if worst > tol[name]:
+            fail(f"train_vs_cpu {cfg.name}: {name} differs by {worst} of its largest value")
+    excess, upd_err, moved, n_el = -np.inf, 0.0, 0, 0
+    for leaf in zip(*(tr.leaves(t) for t in (
+            g_state.params, cpu_params, c_state.params, cpu_params, g_state.opt.m,
+            g_state.opt.v, c_state.opt.m, c_state.opt.v))):
+        leaf = [x.to(dev) for x in leaf]
+        e, d = update_close(*leaf, step=1, lr=TRAIN_VS_CPU_LR, p_rel=tol["p_rel"])
+        excess, upd_err = max(excess, e), max(upd_err, d)
+        moved += int((leaf[2] != leaf[3]).sum())
+        n_el += leaf[3].numel()
+    if excess > 0:
+        fail(f"train_vs_cpu {cfg.name}: a parameter's update differs from the CPU's "
+             f"by {excess} past its bound")
+    return {"config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "batch": batch, "seq": seq, "n_micro": n_micro,
+            "lr": TRAIN_VS_CPU_LR, "loss": float(g_m["loss"]), "loss_cpu": float(c_m["loss"]),
+            "rel_err": errs, "max_abs_update_err": upd_err,
+            "update_err_over_bound": excess, "moved_share_cpu": moved / n_el, "tol": tol,
+            "launches": launches, "gpu_s": gpu_s, "cpu_s": cpu_s, "ok": True}
+
+
+def train_refusals(dev) -> dict:
+    """The recurrent and MoE smoke configs cannot train on the card yet:
+    their scan and router kernels have no backward kernel, and their
+    wrappers raise under grad rather than cut the graph."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as L
+    from repro_torch.training import train_step as TS
+    out = {}
+    for arch in ("recurrentgemma-9b", "rwkv6-3b", "deepseek-v2-236b", "deepseek-v3-671b"):
+        cfg = configs.smoke(arch)
+        try:
+            TS.train_step(cfg, L.init(cfg, seed=0, device=dev),
+                          pipeline.batch_for_step(cfg, 0, 2, 16, device=dev))
+        except NotImplementedError as e:
+            if not str(e).startswith("later slice"):
+                fail(f"train refusal {arch}: {e}")
+            out[arch] = str(e)
+            continue
+        fail(f"train refusal {arch}: a train step ran on the card without a "
+             "backward kernel for its scan or router")
+    return out
 
 
 def scan_inputs(name, shape, dtype, seed, dev):
@@ -2331,7 +2918,7 @@ def sim_fleet_events_phase(dev) -> dict:
 
 def sim_jbof12_phase(dev) -> dict:
     """The paper's JBOF on every platform: ms per window (XBOF and XBOF+
-    REPEATS times, the others once), kernels per window, each platform's
+    SIM_REPEATS times, the others once), kernels per window, each platform's
     per-SSD metrics against the JAX reference's pins, XBOF and XBOF+
     against the port's CPU path (tables equal), and fig. 9c's utilization
     gap and fig. 12's BOM saving beside the paper's."""
@@ -2345,7 +2932,7 @@ def sim_jbof12_phase(dev) -> dict:
     for name, make in P.ALL.items():
         plat = make()
         runs = []
-        for _ in range(REPEATS if name in SIM_REPEATED else 1):
+        for _ in range(SIM_REPEATS if name in SIM_REPEATED else 1):
             traj, sec = sim_loop(S, S.prepare(plat, wls, arr, cfg, device=dev))
             runs.append(1e3 * sec / c["windows"])
         res = S.summarize(plat, cfg, traj)
@@ -2415,7 +3002,7 @@ def sim_trace8_obs_phase(dev) -> tuple[dict, int, tuple]:
         return window(*args, **kw)
 
     runs, launches = [], []
-    for _ in range(REPEATS):
+    for _ in range(SIM_REPEATS):
         prepared = S.prepare(plat, wls, arr, cfg, device=dev)
         ops.shards_window = capture
         sw.shards_window.launches = 0
@@ -2495,7 +3082,7 @@ def sim_fleet_phase(dev) -> dict:
         for mode, fed in (("federated", True), ("isolated", False)):
             cfg = S.SimConfig(warmup=c["warmup"], n_enclosures=e, fabric_federation=fed)
             runs = []
-            for _ in range(REPEATS if fed else 1):
+            for _ in range(SIM_REPEATS if fed else 1):
                 traj, sec = sim_loop(S, S.prepare(plat, wls, arr, cfg, device=dev))
                 runs.append(1e3 * sec / c["windows"])
             res = S.summarize(plat, cfg, traj)
@@ -2542,6 +3129,11 @@ def main() -> None:
     print(card_line(), flush=True)
 
     start = t0 = time.perf_counter()
+    laps = {}   # each phase's end, seconds from the start (the `run` line)
+
+    def lap(name):
+        laps[name] = time.perf_counter() - start
+
     _build.build()
     ptxas = [ln.strip() for log in _build.LOG.values() for ln in log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
@@ -2567,6 +3159,9 @@ def main() -> None:
                                                         "ftl_kernel"),
                                 "window_ptxas": ptxas_rows(_build.LOG.get("shards_window", ""),
                                                            "shards_window_kernel"),
+                                "flash_bwd_ptxas": ptxas_rows(
+                                    _build.LOG.get("flash_attention_bwd", ""),
+                                    "dq_kernel|dkdv_kernel"),
                                 "wkv_hmma": hmma}}),
           flush=True)
     if hgmma == 0:
@@ -2575,6 +3170,7 @@ def main() -> None:
     if hmma == 0:
         fail("the WKV library holds no HMMA instruction: its bf16 kernel is "
              "not on the tensor cores")
+    lap("build")
 
     # ---- 1. every kernel form against its plain version; each call
     # repeated, and equal bit for bit
@@ -2607,6 +3203,16 @@ def main() -> None:
     bad = [c for c in fchecks if not c["ok"]]
     if bad:
         fail(f"flash kernel disagrees with its plain version: {bad}")
+    bchecks = flash_bwd_checks(dev)
+    print(json.dumps({"flash_bwd_checks": {
+        "n": len(bchecks), "ok": all(c["ok"] for c in bchecks),
+        "repeat_equal": all(c["repeat_equal"] for c in bchecks),
+        **{key: {f: {m: max(c[key][m] for c in bchecks if c["form"] == f)
+                     for m in ("max_abs_err", "err_over_rms")} for f in BWD_TOL}
+           for key in ("plain", "given_o")}}}), flush=True)
+    bad = [c for c in bchecks if not c["ok"]]
+    if bad:
+        fail(f"flash backward kernel disagrees with its plain version: {bad}")
     schecks = scan_checks(dev)
     print(json.dumps({"scan_checks": {
         "n": len(schecks), "ok": all(c["ok"] for c in schecks),
@@ -2625,12 +3231,14 @@ def main() -> None:
     bad = [c for c in rchecks if not c["ok"]]
     if bad:
         fail(f"router kernel disagrees with its plain version: {bad}")
+    lap("checks")
 
     # ---- 1b. the FTL lookup at SSD scale (frees its tables when done)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB > L2
     floor_ms = launch_floor_ms(flush)
     ftl_line, ftl_row = ftl_phase(dev, flush, floor_ms)
     print(json.dumps({"ftl": ftl_line}), flush=True)
+    lap("ftl")
 
     # ---- 2. the main path: the engine at full width, four phases (one
     # shard and the hierarchical engine, fp32 and int8 pages)
@@ -2645,6 +3253,7 @@ def main() -> None:
     by_window = {phase: line["shards_window_launches"]
                  for phase, line in engine_out.items() if line["shards_window_launches"]}
     print(json.dumps({"engine": engine_out}), flush=True)
+    lap("engine")
 
     # ---- 2'. the failure plane: the failover phases at full width, then
     # fig. 23's own scenario, each driven once through `drive_events`
@@ -2656,22 +3265,27 @@ def main() -> None:
         by_form[form][phase] = line["launches"]
         launches[form] += line["launches"]
     print(json.dumps({"failover": failover, "card": card}), flush=True)
+    lap("failover")
 
     # ---- 2a. the JBOF simulator: the paper's JBOF on every platform,
     # fig. 20 trace-driven with both planes, fig. 22's 4096-SSD fleet
     t_sim = time.perf_counter()
     print(json.dumps({"sim_jbof12": sim_jbof12_phase(dev), "card": card}), flush=True)
+    lap("sim_jbof12")
     trace8, by_window["sim_trace8_obs"], _ = sim_trace8_obs_phase(dev)
     print(json.dumps({"sim_trace8_obs": trace8, "card": card}), flush=True)
+    lap("sim_trace8_obs")
     fleet = sim_fleet_phase(dev)
     print(json.dumps({"sim_fleet4096": fleet, "card": card,
                       "sim_seconds": time.perf_counter() - t_sim}), flush=True)
+    lap("sim_fleet4096")
     # the failure plane on the simulator: fig. 23's run, the fleet's events
     t_ev = time.perf_counter()
     print(json.dumps({"sim_events8_obs": sim_events8_obs_phase(dev), "card": card}),
           flush=True)
     print(json.dumps({"sim_fleet_events": sim_fleet_events_phase(dev), "card": card,
                       "sim_events_seconds": time.perf_counter() - t_ev}), flush=True)
+    lap("sim_events")
 
     # ---- 2b. the model zoo's serve path at full width, a sliding window
     # past its size, then the recurrent families (each model is freed
@@ -2690,6 +3304,29 @@ def main() -> None:
     moe_v3_line, moe_v3_in = model_phase(*MODEL_MOE_V3[:4], dev,
                                          n_layers=MODEL_MOE_V3[4], repeat=True)
     print(json.dumps({"model_moe_v3": moe_v3_line}), flush=True)
+    lap("models")
+
+    # ---- 2c. the trainer's main path at full width (h2o-danube-1.8b),
+    # with a checkpoint and a restart; then one step on the card against
+    # the CPU path, and the families whose kernels have no backward yet
+    from repro_torch import configs
+    from repro_torch.models.config import ArchConfig
+    train_line = train_phase(dev)
+    print(json.dumps({"train_h2o_danube": train_line, "card": card}), flush=True)
+    lap("train_h2o_danube")
+    full2 = dataclasses.replace(configs.get(TRAIN[0]), name=f"{TRAIN[0]}-2-layers",
+                                n_layers=2)
+    narrow = ArchConfig(**NARROW)
+    vs_cpu = [train_vs_cpu(dev, full2, 13, *TRAIN_VS_CPU),
+              train_vs_cpu(dev, narrow, 15, 2, 128),
+              train_vs_cpu(dev, dataclasses.replace(narrow, name="narrow-d128-bf16",
+                                                    dtype="bfloat16"), 17, 2, 128)]
+    print(json.dumps({"train_gpu_vs_cpu": {"steps": vs_cpu,
+                                           "refused_on_the_card": train_refusals(dev)},
+                      "card": card}), flush=True)
+    lap("train_gpu_vs_cpu")
+    train_gpu_cpu_launches = {name: sum(c["launches"][name] for c in vs_cpu)
+                              for name in train_kernels()}
 
     # ---- 3. each kernel form on the inputs the main path gave it
     fp_args, _ = main_inputs["fp32"]["paged_attention"]
@@ -2788,8 +3425,6 @@ def main() -> None:
                     "the fp32 2-shard config, trace-driven with obs (stats and state)"],
         "steps": [6, 8, 8, 8], "sharded_totals": [cross, borrowed, planes], "ok": True}}),
         flush=True)
-    from repro_torch import configs
-    from repro_torch.models.config import ArchConfig
     # the DeepSeek smoke configs at a prompt of 1040: 2080 tokens take the
     # MoE's sorted-capacity dispatch in the prefill, the one-hot in decode
     model_checks = {cfg.name: gpu_vs_cpu_model(dev, cfg, seed, prompt)
@@ -2800,6 +3435,7 @@ def main() -> None:
                         (9, configs.smoke("deepseek-v2-236b"), 1040),
                         (11, configs.smoke("deepseek-v3-671b"), 1040))}
     print(json.dumps({"gpu_vs_cpu_model": model_checks}), flush=True)
+    lap("gpu_vs_cpu")
     gpu_cpu_launches = {name: sum(c["launches"][name] for c in model_checks.values())
                         for name in kernel_table()}
 
@@ -2826,7 +3462,10 @@ def main() -> None:
     kernels.append(flash_row(
         "flash_attention[bf16,window]", "bf16", q, k, v, causal, window,
         window_line["launches"]["flash_attention"], flush, fchecks,
-        {"on_main_path": True, "phase": "model_window"}))
+        {"on_main_path": True, "phase": "model_window",
+         # the same kernel at the same shapes on the trainer's path
+         "launches_train_h2o_danube": train_line["launches"]["flash_attention"],
+         "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention"]}))
     del window_in, q, k, v
     q, k, v, causal, window = flash_in(hybrid_in)
     kernels.append(flash_row(
@@ -2834,6 +3473,12 @@ def main() -> None:
         hybrid_line["launches"]["flash_attention"], flush, fchecks,
         {"on_main_path": True, "phase": "model_hybrid"}))
     del q, k, v
+
+    # the backward kernel at the trainer's attention shape
+    kernels.append(flash_bwd_row(
+        dev, flush, bchecks, train_line["launches"]["flash_attention_bwd"],
+        {"on_main_path": True, "phase": "train_h2o_danube",
+         "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention_bwd"]}))
 
     # ---- 6. the scan kernels on the inputs the recurrent models gave their
     # first layer (bf16), and the same inputs in fp32 (a form the main path
@@ -2873,7 +3518,9 @@ def main() -> None:
     kernels.append({**ftl_row, "on_main_path": True, "phase": "ftl"})
 
     # the script's own time, from the card line to here, the build included
-    print(json.dumps({"run": {"seconds": time.perf_counter() - start}}), flush=True)
+    lap("kernel_rows")
+    print(json.dumps({"run": {"seconds": time.perf_counter() - start,
+                              "phase_end_s": laps}}), flush=True)
     # floor_ms: one trivial launch, spun (`launch_floor_ms`)
     print(json.dumps({"kernels": kernels, "floor_ms": floor_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,21 @@ and reports for each window:
   likewise exclusive;
 - the kernels that take most device time.
 
+With ``--train`` it profiles one training step instead
+(`training.train_step.train_step` at ``--batch`` x ``--prompt-len``
+tokens in ``--n-micro`` microbatches, the state from
+`launch.train.init`), after one warm-up step:
+
+    python3 scripts/torch_model_profile.py --train --arch h2o-danube-1.8b \
+        --batch 2 --prompt-len 8192 --n-micro 2
+
+and splits it into the forward (`lm_loss`), the optimizer
+(`optimizer.update`) and the backward (the rest: the layers'
+recomputation under remat, the products' gradients and the flash
+backward kernel, `attention_bwd`), each as the device ms of the kernels
+inside the stage's ranges (``stage_ms``), beside the per-layer split
+above.
+
 Prints the card's name and power limit, then one JSON line. Needs a CUDA
 device.
 """
@@ -128,19 +143,19 @@ def _split(prof, labels, counts=None) -> tuple[dict, dict, float, int, list]:
     return dict(kernel_ms), dict(host_ms), busy, n, top
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-14b")
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=2048)
-    ap.add_argument("--decode-steps", type=int, default=8)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("torch_model_profile: needs a CUDA device")
-    sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import MODEL_MOE_V2, MODEL_MOE_V3
-    from repro_torch import configs
+def _inclusive_ms(prof, label: str) -> float:
+    """Device ms of the kernels inside any device-side span of ``label``,
+    ranges nested in it included."""
+    device = [e for e in prof.events() if e.device_type == CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in device if e.name == label]
+    return sum(e.time_range.elapsed_us() / 1e3 for e in device
+               if e.name != label and any(a <= e.time_range.start and e.time_range.end <= b
+                                          for a, b in spans))
+
+
+def label_layers() -> set:
+    """Wrap the model zoo's layer functions in profiler ranges; return the
+    labels."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention as A
     from repro_torch.models import decode as D
@@ -148,23 +163,6 @@ def main() -> None:
     from repro_torch.models import rglru as RG
     from repro_torch.models import rwkv6 as RW
     from repro_torch.models import transformer as T
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
-    dev = torch.device("cuda", 0)
-    cfg = configs.get(args.arch)
-    cut = {m[0]: m[4] for m in (MODEL_MOE_V2, MODEL_MOE_V3)}
-    if args.arch in cut:
-        cfg = dataclasses.replace(cfg, n_layers=cut[args.arch])
-    params = T.init_params(cfg, device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(1))
-    max_len = args.prompt_len + 2 * args.decode_steps + 2
-
     labels = {"embed", "norm", "attention_proj", "attention", "cache_write",
               "mlp", "unembed", "rec_block", "time_mix", "channel_mix",
               "recurrence", "mla_attend", "moe", "router", "topk_router",
@@ -184,7 +182,102 @@ def main() -> None:
             (ops, "topk_router", "topk_router"), (M, "_moe_sorted", "moe_dispatch"),
             (M, "_moe_small_batch", "moe_dispatch"), (M, "_expert_ffn", "experts")):
         _label(module, attr, label)
+    return labels
 
+
+def _timed(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def profile_train(args, cfg, dev) -> None:
+    """One train step, profiled after a warm-up step, then unprofiled."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_step as TS
+    labels = label_layers() | {"forward", "optimizer", "attention_bwd"}
+    for module, attr, label in ((T, "lm_loss", "forward"), (O, "update", "optimizer"),
+                                (fa, "flash_attention_bwd", "attention_bwd")):
+        _label(module, attr, label)
+    batch = pipeline.batch_for_step(cfg, 0, args.batch, args.prompt_len, device=dev)
+    held = {"state": L.init(cfg, seed=0, device=dev)}
+
+    def step():   # the state handed over, so only the step holds two
+        held["state"], held["metrics"] = TS.train_step(cfg, held.pop("state"), batch,
+                                                       n_micro=args.n_micro)
+
+    _timed(step)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = _timed(step)
+    wall_unprofiled = _timed(step)
+    device_ms, host_ms, busy, n_kernels, top = _split(prof, labels)
+    fwd, opt = _inclusive_ms(prof, "forward"), _inclusive_ms(prof, "optimizer")
+    print(json.dumps({"config": {"arch": args.arch, "batch": args.batch,
+                                 "seq": args.prompt_len, "n_micro": args.n_micro,
+                                 "dtype": cfg.dtype, "layers": cfg.n_layers,
+                                 "remat": cfg.remat},
+                      "train_step": {
+                          "wall_ms": wall, "wall_ms_unprofiled": wall_unprofiled,
+                          "device_busy_ms": busy if busy else "not measured",
+                          "device_idle_share": 1.0 - busy / wall if busy else "not measured",
+                          "kernels": n_kernels,
+                          "stage_ms": {"forward": fwd, "backward": busy - fwd - opt,
+                                       "optimizer": opt},
+                          "device_ms_by_layer": dict(sorted(device_ms.items())),
+                          "host_ms_by_layer": dict(sorted(host_ms.items())),
+                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "loss": float(held["metrics"]["loss"]),
+                          "top_kernels": [{"name": name[:90], "ms": ms, "launches": n}
+                                          for name, (ms, n) in top]}}))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=2048)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step (batch x prompt-len tokens)")
+    ap.add_argument("--n-micro", type=int, default=1)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_model_profile: needs a CUDA device")
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import MODEL_MOE_V2, MODEL_MOE_V3
+    from repro_torch import configs
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    dev = torch.device("cuda", 0)
+    cfg = configs.get(args.arch)
+    cut = {m[0]: m[4] for m in (MODEL_MOE_V2, MODEL_MOE_V3)}
+    if args.arch in cut:
+        cfg = dataclasses.replace(cfg, n_layers=cut[args.arch])
+    if args.train:
+        return profile_train(args, cfg, dev)
+    params = T.init_params(cfg, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    max_len = args.prompt_len + 2 * args.decode_steps + 2
+
+    labels = label_layers()
     state = {}
 
     def do_prefill():
@@ -197,15 +290,8 @@ def main() -> None:
             state["logits"], state["cache"] = D.decode_step(
                 cfg, params, state["cache"], tok)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0)
-
-    timed(do_prefill)   # warm-up: kernel build and load, cuBLAS handles
-    timed(do_decode)
+    _timed(do_prefill)   # warm-up: kernel build and load, cuBLAS handles
+    _timed(do_decode)
     out = {"config": {"arch": args.arch, "batch": args.batch,
                       "prompt_len": args.prompt_len,
                       "decode_steps": args.decode_steps, "dtype": cfg.dtype,
@@ -218,10 +304,10 @@ def main() -> None:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            wall = timed(fn)
+            wall = _timed(fn)
         if phase == "decode":
             do_prefill()
-        wall_unprofiled = timed(fn)
+        wall_unprofiled = _timed(fn)
         device_ms, host_ms, busy, n_kernels, top = _split(prof, labels)
         out[phase] = {
             "per": "prefill" if per == 1 else "decode step",

@@ -37,7 +37,16 @@ Ported so far:
   (`kernels/csrc/ftl_lookup.cu`);
 - the JBOF simulator (`jbof.sim.simulate` with `jbof.platforms`,
   `workloads` and `bom`): static, trace-driven (the SHARDS window kernel),
-  multi-enclosure, observed and event-scheduled runs.
+  multi-enclosure, observed and event-scheduled runs;
+- training (`launch.train`: `training.train_step`, microbatched AdamW
+  from `training.optimizer`, `training.checkpoint`'s two-slot
+  checkpoint/restart, the `data.pipeline` batches, `models.transformer.
+  lm_loss` with remat; `training.compression` off the path). Prefill
+  flash attention carries a gradient (`kernels.flash_attention.
+  FlashAttention`, whose backward is `kernels/csrc/flash_attention_bwd.cu`),
+  so the dense family trains on the card; every other CUDA wrapper raises
+  ``NotImplementedError("later slice: no backward kernel ...")`` under
+  grad, so the recurrent and MoE families train on the CPU path only.
 
 Configurations and architectures outside these raise
 ``NotImplementedError("later slice")``.

@@ -18,8 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("paged_attention", "flash_attention", "rglru_scan", "rwkv6_scan",
-           "moe_router", "ftl_lookup", "shards_window")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
+           "rglru_scan", "rwkv6_scan", "moe_router", "ftl_lookup", "shards_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

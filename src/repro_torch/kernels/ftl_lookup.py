@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import refuse_grad
 
 _ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
 
@@ -56,6 +57,7 @@ def ftl_lookup(lpns: torch.Tensor, directory: torch.Tensor,
     mapping_cache [n_slots, entries_per_segment], all int32. Returns (ppn
     [N] int32, hit [N] bool)."""
     _check(lpns, directory, mapping_cache, entries_per_segment)
+    refuse_grad("ftl_lookup", lpns, directory, mapping_cache)
     n = lpns.shape[0]
     ppn = torch.empty((n,), dtype=torch.int32, device=lpns.device)
     hit = torch.empty((n,), dtype=torch.bool, device=lpns.device)

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import refuse_grad
 
 _ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
 
@@ -53,6 +54,7 @@ def topk_router(scores: torch.Tensor, k: int, bias: torch.Tensor | None = None):
     """Launch the CUDA kernel. scores [T, E] float32, bias [E] float32 or
     None. Returns (weights [T, k] float32, indices [T, k] int32)."""
     _check(scores, bias)
+    refuse_grad("topk_router", scores, bias)
     t, e = scores.shape
     w = torch.empty((t, k), dtype=torch.float32, device=scores.device)
     idx = torch.empty((t, k), dtype=torch.int32, device=scores.device)

@@ -21,10 +21,13 @@ from . import shards_window as _sw
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0,
               scale: float | None = None) -> torch.Tensor:
-    """Prefill attention: q [B, S, H, D] over k, v [B, T, KV, D]."""
+    """Prefill attention: q [B, S, H, D] over k, v [B, T, KV, D]. A CUDA
+    tensor goes through `FlashAttention`: the forward kernel, and under a
+    gradient the backward kernel (when nothing needs one, as in serving,
+    the forward kernel is all it launches)."""
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

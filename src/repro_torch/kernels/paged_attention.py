@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import refuse_grad
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2
@@ -93,6 +94,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with k_scale/v_scale fp32 [P]; page_table int32 [B, max_pages] (-1 =
     hole); lengths int32 [B]. Returns [B, H, D] in q's dtype."""
     kind = _check(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale)
+    refuse_grad("paged_attention", q, k_pool, v_pool, k_scale, v_scale)
     b, h, d = q.shape
     p, page, kv, _ = k_pool.shape
     out = torch.empty_like(q)

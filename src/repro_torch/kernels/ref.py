@@ -32,6 +32,16 @@ def check_mask_args(causal: bool, window: int) -> None:
             "chunked forms disagree on causal=False with window > 0)")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """A CUDA wrapper whose kernel has no backward kernel yet raises when
+    grad mode is on and a floating input needs a gradient: its output,
+    filled through ctypes, would leave the autograd graph without a word."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise NotImplementedError(f"later slice: no backward kernel for {name}")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0,
               scale: float | None = None) -> torch.Tensor:
@@ -55,6 +65,21 @@ def _band(rows: torch.Tensor, cols: torch.Tensor, causal: bool, window: int):
     if window:
         mask &= cols[None, :] > rows[:, None] - window
     return mask
+
+
+def attention_bwd(q, k, v, o, dout, causal=True, window=0, scale=None):
+    """The gradients (dq, dk, dv) of `attention`(q, k, v) under the
+    cotangent ``dout``: torch.autograd.grad through the plain forward,
+    which it recomputes (``o``, the forward's output, is taken for the
+    backward kernel's signature and not read). The plain version of
+    `kernels.flash_attention.flash_attention_bwd`; the tests and
+    `chip_smoke.py` hold the kernel against it, the main path never runs
+    it."""
+    del o
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention(*leaves, causal=causal, window=window, scale=scale)
+        return torch.autograd.grad(out, leaves, dout)
 
 
 def attention_dense(q, k, v, causal=True, window=0, scale=None):

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import refuse_grad
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
@@ -65,6 +66,7 @@ def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
     bfloat16; h0 [B, W] of any float dtype or None (zeros). Returns (out
     [B, T, W] in x's dtype, h_T = out[:, -1])."""
     _check(x, a, h0)
+    refuse_grad("rglru", x, a, h0)
     b, t, w = x.shape
     out = torch.empty_like(x)
     if h0 is not None:

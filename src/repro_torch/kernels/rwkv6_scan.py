@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import refuse_grad
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
@@ -75,6 +76,7 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
     H, V] in r's dtype and, with ``return_state``, the final state [B, H,
     K, V] in r's dtype."""
     _check(r, k, v, w, u, s0)
+    refuse_grad("rwkv6_wkv", r, k, v, w, u, s0)
     b, t, h, dk = r.shape
     dv = v.shape[-1]
     u = u.to(torch.float32).contiguous()

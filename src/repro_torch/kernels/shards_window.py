@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import shards_constants
+from .ref import refuse_grad, shards_constants
 
 _ERR_SHAPE = -1  # the C entry's code for a shape beyond the kernel's limits
 # the largest table (K, with B = 16 buckets) that fits an H100's 227 KB of
@@ -73,6 +73,7 @@ def shards_window(addrs: torch.Tensor, last_seen: torch.Tensor,
     [N]; window: refs int64 [N, A], mask bool [N, A]. Returns the six
     updated tensors (new buffers; the inputs are not written)."""
     _check(addrs, last_seen, clock, hist, cold, total, refs, mask)
+    refuse_grad("shards_window", hist, cold, total)
     scale, inv_rate = shards_constants(sample_mod, sample_thresh, bucket_width)
     out = [torch.empty_like(t) for t in (addrs, last_seen, clock, hist, cold, total)]
     n, k = addrs.shape

@@ -63,8 +63,30 @@ def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- embedding
+class _Embedding(torch.autograd.Function):
+    """``table[tokens]`` whose gradient sums each row's cotangents in a
+    fixed order: a product of the tokens' one-hot [N, V] and the cotangent
+    [N, D] (fp32 sums inside the matmul), where indexing's backward would
+    use ``index_put_(accumulate=True)``, whose CUDA atomics add in no fixed
+    order (a restarted run must repeat bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, tokens, table):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, dy):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1, 1).long()
+        one_hot = torch.zeros((flat.shape[0], ctx.vocab), dtype=dy.dtype, device=dy.device)
+        one_hot.scatter_(1, flat, 1.0)
+        return None, one_hot.T @ dy.reshape(flat.shape[0], -1)
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    return _Embedding.apply(tokens, table)
 
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor, tied: bool) -> torch.Tensor:

@@ -14,6 +14,12 @@ the layer parameters are STACKED along a leading layer axis
 ``experts`` [L, E, D, F]) and the forward walks the stacks in a Python
 loop where the reference scans them. Other families raise
 ``NotImplementedError("later slice")``.
+
+Training: `lm_loss` (token cross-entropy, DeepSeek-v3's MTP term, the MoE
+aux loss) over `forward`, whose layers are checkpointed (recomputed in
+the backward pass, as the reference's `jax.checkpoint`) when ``cfg.remat``
+and grad mode is on; `abstract_params` gives the tree's shapes and dtypes
+from the meta device.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from . import attention as attn
@@ -46,6 +53,8 @@ class _Init:
 
     def dense(self, shape, in_axis=-2, n=0, dtype=None):
         dt = dtype or self.cfg.param_dtype
+        if self.device.type == "meta":   # shapes and dtypes only
+            return torch.empty((n, *shape) if n else shape, dtype=dt, device=self.device)
         if not n:
             return dense_init(shape, in_axis, dt, generator=self.gen,
                               device=self.device)
@@ -62,6 +71,8 @@ class _Init:
         (a whole layer's DeepSeek-v3 wi_gate would need 15 GB)."""
         dt = self.cfg.param_dtype
         out = torch.empty((n, *shape), dtype=dt, device=self.device)
+        if self.device.type == "meta":
+            return out
         for i in range(n):
             for e in range(shape[0]):
                 dense_init(shape, 1, dt, generator=self.gen,
@@ -228,7 +239,7 @@ def init_params(cfg: ArchConfig, *, device=None,
     expert) matrix at a time."""
     require_in_slice(cfg)
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     init = _Init(cfg, dev, generator)
     p: dict = {
@@ -255,6 +266,13 @@ def init_params(cfg: ArchConfig, *, device=None,
                     "proj": init.dense((2 * cfg.d_model, cfg.d_model)),
                     "norm": _norm_p(init)}
     return p
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The parameter tree's shapes and dtypes, as tensors on the meta
+    device: nothing is allocated or drawn (the reference's
+    ``jax.eval_shape`` of `init_params`)."""
+    return init_params(cfg, device="meta")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -354,40 +372,90 @@ def _rec_block(cfg: ArchConfig, lp: dict, x, state=None):
     return x, st
 
 
+def _layer(cfg: ArchConfig, block, *args, **kw):
+    """One layer's body; recomputed in the backward pass (non-reentrant
+    checkpoint: only its input is kept) when ``cfg.remat`` and grad mode is
+    on, as the reference checkpoints its scanned bodies."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, cfg, *args, use_reentrant=False, **kw)
+    return block(cfg, *args, **kw)
+
+
 def _hybrid_forward(cfg: ArchConfig, params: Params, x):
     """Period-pattern dispatch (recurrentgemma: rec, rec, attn): layer i of
     each kind takes the next slice of that kind's stack."""
     for kind, i in kind_layers(cfg):
         if kind == "attn":
-            x, _ = _attn_block(cfg, layer_params(params["attn_layers"], i), x,
-                               window=cfg.local_window)
+            x, _ = _layer(cfg, _attn_block, layer_params(params["attn_layers"], i), x,
+                          window=cfg.local_window)
         else:
-            x, _ = _rec_block(cfg, layer_params(params["rec_layers"], i), x)
+            x, _ = _layer(cfg, _rec_block, layer_params(params["rec_layers"], i), x)
     return x
 
 
-def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor):
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            return_hidden: bool = False):
     """Full-sequence forward: tokens [B, S] -> (logits [B, S, V], aux
-    loss). The aux loss is the MoE layers' load-balance loss summed (0 with
-    DeepSeek-v3's aux-free bias, and in every other family)."""
+    loss[, the final-normed hidden state [B, S, D] with
+    ``return_hidden``]). The aux loss is the MoE layers' load-balance loss
+    summed (0 with DeepSeek-v3's aux-free bias, and in every other
+    family)."""
     require_in_slice(cfg)
     x = embed_tokens(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.mla is not None:  # DeepSeek
         for lp in deepseek_layers(cfg, params):
-            x, laux = _attn_block(cfg, lp, x, window=0)
+            x, laux = _layer(cfg, _attn_block, lp, x, window=0)
             if laux is not None:
                 aux = aux + laux
     elif cfg.recurrent == "rwkv6":
         for i in range(cfg.n_layers):
-            x, _ = _rec_block(cfg, layer_params(params["layers"], i), x)
+            x, _ = _layer(cfg, _rec_block, layer_params(params["layers"], i), x)
     elif cfg.pattern_period > 1:
         x = _hybrid_forward(cfg, params, x)
     else:
         for i in range(cfg.n_layers):
-            x, _ = _attn_block(cfg, layer_params(params["layers"], i), x,
-                               window=cfg.sliding_window)
+            x, _ = _layer(cfg, _attn_block, layer_params(params["layers"], i), x,
+                          window=cfg.sliding_window)
     x = norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = unembed(x, params.get("lm_head", params["embed"]),
                      tied="lm_head" not in params)
+    if return_hidden:
+        return logits, aux, x
     return logits, aux
+
+
+# ============================================================= loss
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy: fp32 log-softmax, the target's entry."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+
+
+def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+            targets: torch.Tensor, input_embeds=None, enc_embeds=None,
+            mtp_weight: float = 0.3):
+    """Mean next-token cross-entropy over targets [B, S] -> (loss + coef *
+    aux, (loss, aux)); with DeepSeek-v3's ``mtp`` block, plus ``mtp_weight``
+    times the cross-entropy of its prediction of token t + 2 from [h_t ;
+    emb(t + 1)] (targets rolled by one, sharing embedding and head); coef is
+    the MoE's ``router_aux_coef`` (0 without MoE). The modality stubs'
+    ``input_embeds`` / ``enc_embeds`` wait for their slice."""
+    if input_embeds is not None or enc_embeds is not None:
+        raise NotImplementedError(
+            "later slice: input_embeds / enc_embeds (modality frontends)")
+    logits, aux, h = forward(cfg, params, tokens, return_hidden=True)
+    loss = torch.mean(_xent(logits, targets))
+    if cfg.mtp_depth and "mtp" in params:
+        mp = params["mtp"]
+        emb_next = embed(targets, params["embed"])     # t+1 embeddings
+        hn = norm(h, mp["norm"], cfg.norm, cfg.norm_eps)
+        x_in = torch.cat([hn, emb_next], dim=-1) @ mp["proj"]
+        x_mtp, _ = _attn_block(cfg, mp["layer"], x_in, window=0)
+        logits_mtp = unembed(norm(x_mtp, params["final_norm"], cfg.norm, cfg.norm_eps),
+                             params.get("lm_head", params["embed"]),
+                             tied="lm_head" not in params)
+        targets_mtp = torch.roll(targets, -1, dims=-1)
+        loss = loss + mtp_weight * torch.mean(_xent(logits_mtp, targets_mtp))
+    coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    return loss + coef * aux, (loss, aux)

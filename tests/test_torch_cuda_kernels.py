@@ -16,7 +16,11 @@ with stale page ids, pages of 1 and 32 slots, group 1 and 8, head_dim 64,
 and pools off 16 bytes, each call repeated and equal bit for bit. Flash attention: the sweep of tests/test_kernels.py under its
 three masks, head_dim 80 and 16, ragged lengths and rows with no valid
 key, and the edges of the bf16 kernel's tiles (S and T off the tile
-sizes, S = 1, head dims 32 to 256, windows with S < T). Scans: the
+sizes, S = 1, head dims 32 to 256, windows with S < T). Flash backward:
+head dims 8 to 256, GQA groups 1, 4 and 8, its three masks, S < T, T off
+its key tiles and rows with no valid key, against the plain gradient and
+repeated bit for bit; `ops.attention`'s autograd Function launching it,
+serving's launches unchanged, and every other wrapper refusing grad. Scans: the
 sweeps of tests/test_kernels.py, ragged lengths, initial states (h0, s0)
 and the final WKV state, at the widths of
 recurrentgemma-9b and rwkv6-3b; for the RG-LRU kernel also T and W across
@@ -38,6 +42,9 @@ rows, windows of A = 1 to 4096 references, masks all off, all on and
 padded as the engine's page tables are, repeated addresses, the EMPTY
 marker as a valid reference, sample rates 1 and 1/64, 1 to 64 nodes, from
 an empty and from a carried state; every output bit for bit."""
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -323,6 +330,146 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
     shifted[1:] = qb.flatten()
     with pytest.raises(ValueError, match="16 bytes"):               # TMA alignment
         fa.flash_attention(shifted[1:].view(qb.shape), kb, vb)
+
+
+# ------------------------------------------------------- flash backward
+# (b, s, t, h, kv, d, causal, window): head dims 64, 80, 128, 256 (and 8,
+# 16, 40: any multiple of 8), GQA groups 1, 4 and 8, causal, non-causal
+# and causal with a window, S = T and S < T, T off the kernel's key tiles
+# (64 keys, 32 above D = 128), rows with no valid key (S > T)
+BWD_SHAPES = {
+    "d64-g1-causal": (2, 256, 256, 4, 4, 64, True, 0),
+    "d64-g4-full-ragged": (1, 200, 200, 8, 2, 64, False, 0),
+    "d80-g4-window": (1, 300, 300, 32, 8, 80, True, 96),
+    "d80-g8-causal-s<t": (2, 100, 300, 8, 1, 80, True, 0),
+    "d128-g8-window-s<t": (1, 130, 333, 16, 2, 128, True, 100),
+    "d128-g1-full": (2, 128, 128, 4, 4, 128, False, 0),
+    "d256-g4-causal-ragged": (1, 190, 190, 8, 2, 256, True, 0),
+    "d256-g8-window-s<t": (1, 200, 260, 8, 1, 256, True, 64),
+    "d256-g1-full-s<t": (1, 70, 150, 2, 2, 256, False, 0),
+    "d40-g2-causal": (1, 97, 97, 4, 2, 40, True, 0),
+    "d16-no-key-rows": (1, 80, 50, 4, 2, 16, True, 0),
+    "d8-g2-causal": (1, 33, 33, 2, 1, 8, True, 0),
+}
+def _bwd_inputs(shape, dtype, seed, dev):
+    b, s, t, h, kv, d, causal, window = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, dout = [torch.randn(sh, generator=g).to(getattr(torch, dtype)).to(dev)
+                     for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
+    return q, k, v, ref.attention(q, k, v, causal=causal, window=window).contiguous(), dout
+
+
+def _bwd_close(got, q, k, v, o, dout, causal, window, dtype):
+    """chip_smoke's gates (`bwd_check`): each gradient per element within
+    c1 * |want| + c2 * rms(want) of the plain gradient in fp32 of the
+    inputs widened (BWD_TOL) and of the backward's formulas given the same
+    o (BWD_O_TOL)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    for name, g_, x in zip(("dq", "dk", "dv"), got, (q, k, v)):
+        assert g_.dtype == x.dtype and g_.shape == x.shape, name
+    gates = chip_smoke.bwd_check(got, q, k, v, o, dout, causal, window,
+                                 "fp32" if dtype == "float32" else "bf16")
+    assert all(g_["ok"] for g_ in gates.values()), gates
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(BWD_SHAPES))
+def test_flash_bwd_kernel_matches_plain(dev, name, dtype):
+    """The backward kernel's (dq, dk, dv) against the plain gradient, and a
+    repeated call equal bit for bit (no atomics)."""
+    shape = BWD_SHAPES[name]
+    causal, window = shape[6], shape[7]
+    q, k, v, o, dout = _bwd_inputs(shape, dtype, seed=len(name), dev=dev)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+    _bwd_close(got, q, k, v, o, dout, causal, window, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_function_backward_launches_the_kernel(dev, dtype):
+    """`ops.attention` on inputs that need a gradient: one forward and one
+    backward launch, gradients equal to the plain version's."""
+    shape = BWD_SHAPES["d80-g4-window"]
+    q, k, v, _, dout = _bwd_inputs(shape, dtype, seed=3, dev=dev)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = ops.attention(*leaves, causal=True, window=96)
+    # a cotangent that is a view, not contiguous: the backward copies it
+    out.backward(dout.transpose(1, 2).contiguous().transpose(1, 2))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == fwd + 1
+    assert fa.flash_attention_bwd.launches == bwd + 1
+    _bwd_close([x.grad for x in leaves], q, k, v, out.detach(), dout, True, 96, dtype)
+
+
+def test_attention_without_grad_launches_the_forward_only(dev):
+    """What serving launches is unchanged: nothing needs a gradient, one
+    forward launch and no backward, under grad mode or not."""
+    q, k, v, _, _ = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "bfloat16", 4, dev)
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    ops.attention(q, k, v)
+    with torch.no_grad():
+        ops.attention(q.requires_grad_(), k, v)
+    assert fa.flash_attention.launches == fwd + 2
+    assert fa.flash_attention_bwd.launches == bwd
+
+
+def test_every_other_wrapper_refuses_grad(dev):
+    """No CUDA wrapper hands back a result cut from the autograd graph:
+    those without a backward kernel raise under grad mode when a floating
+    input needs a gradient, and run as before under no_grad."""
+    x = torch.rand((1, 64, 64), device=dev, requires_grad=True)
+    a = torch.rand((1, 64, 64), device=dev)
+    r = torch.rand((1, 16, 2, 16), device=dev, requires_grad=True)
+    w = torch.rand((1, 16, 2, 16), device=dev)
+    u = torch.rand((2, 16), device=dev)
+    scores = torch.rand((8, 16), device=dev, requires_grad=True)
+    q, k, v, o, dout = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "float32", 5, dev)
+    calls = {
+        "rglru": lambda: rg.rglru(x, a),
+        "rwkv6_wkv": lambda: wkv.rwkv6_wkv(r, w, w, w, u),
+        "topk_router": lambda: mr.topk_router(scores, 2),
+        "flash_attention": lambda: fa.flash_attention(q.requires_grad_(), k, v),
+        "flash_attention_bwd": lambda: fa.flash_attention_bwd(q.requires_grad_(), k, v,
+                                                              o, dout),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="later slice: no backward kernel"):
+            call()
+        with torch.no_grad():
+            call()
+    pargs, kw = _inputs("float32", SHAPES["sweep0"], 6, dev)
+    pargs[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="paged_attention"):
+        pa.paged_attention(*pargs, **kw)
+    sargs, consts = _sw_inputs(48, "a1", 1, dev)
+    sargs = list(sargs)
+    sargs[3] = sargs[3].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="shards_window"):
+        sw.shards_window(*sargs, *consts)
+
+
+def test_flash_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v, o, dout = _bwd_inputs(BWD_SHAPES["d16-no-key-rows"], "float32", 7, dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o.bfloat16(), dout)        # dtype
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, dout[:, :-1])           # shape
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, dout.transpose(1, 2).contiguous()
+                               .transpose(1, 2))                    # layout
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, dout, causal=False, window=8)
+    qd, kd, vd, od, dd = (torch.zeros((1, 4, 2, 12), device=dev) for _ in range(5))
+    with pytest.raises(ValueError, match="limits"):                  # D not a multiple of 8
+        fa.flash_attention_bwd(qd, kd, vd, od, dd)
 
 
 # ---------------------------------------------------------------- scans

@@ -42,7 +42,16 @@ nvcc per source, all at once), then:
    4, 4096 and 1000 tokens, rows with exact ties, E = 31, 32, 33, 160,
    256 and 1024 with k = 1 and 16, rows of -0.0 and +0.0, rows of one
    value, a bias that makes every sel negative and rows off 16 bytes
-   (indices exact; each call repeated and equal bit for bit);
+   (indices exact; each call repeated and equal bit for bit); and the
+   backward kernels of the scans and the router against their plain
+   gradients (`scan_bwd_checks`, `router_bwd_checks`): the RG-LRU's value
+   for value on the forward's sweep, with a = 1 and x = 0 (infinite and
+   NaN gradients at the plain gradient's places), the WKV's per element
+   under WKV_BWD_TOL on its sweep (w = 0 and w = 1 exactly, s0 and a
+   final-state cotangent), both also at the training shapes (step 4's
+   rows), and the router's
+   under ROUTER_BWD_TOL with ties, k = E and picks summing below 1e-9, at
+   DeepSeek's full widths too; each call repeated bit for bit;
 1b. drives the FTL lookup (`kernels.ops.ftl_lookup`, its one entry point)
    at SSD scale: a burst of 2^20 LPNs against a 4 TB SSD's 1862-segment
    directory with half of its 524288-entry mapping pages cached (1.95 GB
@@ -153,7 +162,11 @@ nvcc per source, all at once), then:
    training attention (FLASH_BWD_TRAIN), checked per element against the
    plain gradient in fp32 with its fp32 form, spun, beside its plain gradient,
    the backward of `scaled_dot_product_attention` with the band as a mask
-   and its bound (10 * D flops a pair and head at the bf16 peak);
+   and its bound (10 * D flops a pair and head at the bf16 peak); the
+   scans' backward rows (`rglru_bwd[bf16]`, `rwkv6_wkv_bwd[bf16]`) on
+   random inputs at their training shapes and the router's
+   (`topk_router_bwd[v2]`, `[v3]`) at DeepSeek's full widths, each
+   checked, spun, beside `floor_ms`, its plain gradient and its bound;
    The SHARDS window kernel's row (`shards_window`, not a TPU kernel: it
    stands for the reference's `lax.scan`; its launches count the
    simulator's `sim_trace8_obs` too) is timed on `trace_fp32`'s
@@ -171,9 +184,18 @@ nvcc per source, all at once), then:
    (`train_split`); then one train step on the card against the CPU path
    (`train_gpu_vs_cpu`: the full width at 2 layers in bf16, the narrow
    fp32 config and a bf16 twin, within TRAIN_TOL; each parameter's
-   update, at TRAIN_VS_CPU_LR, against the CPU's) and the recurrent and
-   MoE smoke configs refused on the card (their kernels have no backward
-   kernel yet);
+   update, at TRAIN_VS_CPU_LR, against the CPU's);
+3b. trains the recurrent families at full published width, depth cut
+   (TRAIN_FAMILIES: recurrentgemma-9b at one (rec, rec, attn) period,
+   rwkv6-3b at 8 layers; bf16, batch 2 x 4096, 2 microbatches, remat, 3
+   steps) through `launch.train`, each step under the sync debug mode with
+   finite numbers and exactly `train_expected`'s launches of every forward
+   and backward kernel (RG-LRU 8 and 4 a step with flash 4 and 2; WKV 32
+   and 16), with ms a step, tokens/s, peak memory and `train_split`; then
+   one step on the card against the CPU path for recurrentgemma-9b at 3
+   layers in bf16 and rwkv6-3b at 2 in fp32 (batch 1, seq 512; rwkv6's
+   within RWKV6_TRAIN_TOL) and for the recurrentgemma, rwkv6, deepseek-v2
+   and deepseek-v3 smoke configs (fp32), launches included;
 5. checks the engine (4 replicas with int8 pages; and 8 replicas in 2
    shards, metered, with fp32 pages redirecting across shards and with
    int8 pages borrowing link bytes across shards, and the fp32 one
@@ -186,15 +208,18 @@ nvcc per source, all at once), then:
    against the same code on the CPU (the plain path).
 
 The `build` line also carries nvcc's registers and spills of each flash,
-WKV, RG-LRU, paged-attention, router, FTL and SHARDS window instantiation, the count of HGMMA (wgmma)
+WKV, RG-LRU, paged-attention, router, FTL and SHARDS window instantiation
+and of each backward kernel, the count of HGMMA (wgmma)
 instructions in the flash library's SASS and of HMMA (mma.sync)
 instructions in the WKV library's (cuobjdump); a count of 0 fails the run.
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
 `paged_checks`, `flash_checks`, `flash_bwd_checks`, `scan_checks`,
-`router_checks`, `ftl`, `engine`, `sim_jbof12`, `sim_trace8_obs`,
-`sim_fleet4096`, `model`, `model_window`, `model_hybrid`, `model_rwkv`,
-`model_moe_v2`, `model_moe_v3`, `train_h2o_danube`, `train_gpu_vs_cpu`,
+`router_checks`, `scan_bwd_checks`, `router_bwd_checks`, `ftl`, `engine`,
+`sim_jbof12`, `sim_trace8_obs`, `sim_fleet4096`, `model`, `model_window`,
+`model_hybrid`, `model_rwkv`, `model_moe_v2`, `model_moe_v3`,
+`train_h2o_danube`, `train_recurrentgemma_9b`, `train_rwkv6_3b`,
+`train_gpu_vs_cpu`,
 `gpu_vs_cpu_engine`, `gpu_vs_cpu_model`), the script's
 own time (`run`, the build included, with `phase_end_s`: each phase's
 end in seconds from the start), the `kernels` JSON line — per kernel form its checks and its numbers of step 4 — and
@@ -361,6 +386,17 @@ MODEL_MOE_V3 = ("deepseek-v3-671b", 4, 1024, 32, 5)
 # is restored into a fresh state that runs steps 2 and 3 again.
 TRAIN = ("h2o-danube-1.8b", 2, 8192, 2, 4)
 TRAIN_CKPT_EVERY = 2
+# the recurrent families' training at full published width, depth cut:
+# phase -> (arch, layers, batch, seq, microbatches, steps). recurrentgemma-9b
+# (src/repro/configs/recurrentgemma_9b.py) at one (rec, rec, attn) period
+# of its 38 layers (1.705e9 parameters, 1.05e9 of them the tied embedding);
+# rwkv6-3b (src/repro/configs/rwkv6_3b.py) at 8 of its 32 layers (1.044e9
+# parameters; at 32 its AdamW state alone is ~76 GB). Each: batch 2 x 4096
+# in 2 microbatches under remat, 3 steps
+TRAIN_FAMILIES = {
+    "train_recurrentgemma_9b": ("recurrentgemma-9b", 3, 2, 4096, 2, 3),
+    "train_rwkv6_3b": ("rwkv6-3b", 8, 2, 4096, 2, 3),
+}
 # the trainer on the card against the CPU path: the full width at 2 layers
 # (bf16, batch 1, seq 512), the narrow fp32 dense config and its bf16 twin
 # (batch 2, seq 128). Gates: fp32 loss and grad norm within 1e-5, moments
@@ -380,6 +416,19 @@ TRAIN_VS_CPU = (1, 512)
 TRAIN_TOL = {"fp32": dict(loss=1e-5, grad_norm=1e-5, m=1e-4, v=2e-4, p_rel=1e-5),
              "bf16": dict(loss=1e-2, grad_norm=3e-2, m=3e-2, v=6e-2, p_rel=2 ** -7)}
 TRAIN_VS_CPU_LR = 0.1    # lr_t = 0.1 * 1 / 100 at the first of 100 warm-up steps
+# rwkv6-3b at full width, 2 layers, runs in fp32 (batch 1, seq 512): in
+# bf16 the card's step differs from the CPU's by 0.155 (m) with the kernels
+# and by 0.086 with the plain WKV scan on the card, which says nothing of
+# the kernels. RWKV6_TRAIN_TOL is set from the fp32 readings of
+# scripts/torch_train_tolerance.py (H100, PERF.md): over seeds 21-23 the
+# kernel step differs from the CPU's by at most 1.93e-4 (m), 2.28e-4 (v)
+# and 1.39e-5 (grad norm), the plain scan on the card by 1.67e-4, 2.08e-4
+# and 1.46e-5, the kernel step from the plain one on the card by 3.1e-5
+# (m): the rest of the card's arithmetic, not the kernels, passes
+# TRAIN_TOL's 1e-4. The limits are about twice the largest of these; each
+# WKV backward output scaled by 1 + 1e-3 reads m 5.26e-4 to 1.46e-3 and v
+# 1.05e-3 to 2.58e-3, past them
+RWKV6_TRAIN_TOL = dict(TRAIN_TOL["fp32"], grad_norm=3e-5, m=4e-4, v=5e-4)
 ADAMW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, warmup=100)  # the defaults
 # the JBOF simulator (`jbof.sim.simulate`, ROADMAP queue 1 item 4), three
 # phases. `sim_jbof12`: the paper's JBOF of fig. 9
@@ -627,6 +676,42 @@ BWD_O_TOL = {"fp32": (1e-6, 1e-3), "bf16": (2 ** -8, 2e-4)}
 # h2o-danube-1.8b's training attention: one microbatch of 8192 tokens, 32
 # query heads and 8 KV heads of 80, its sliding window of 4096
 FLASH_BWD_TRAIN = (1, 8192, 8192, 32, 8, 80, True, 4096)
+# the backward kernels of the scans and the router against their plain
+# gradients (`ref.rglru_bwd`, `ref.rwkv6_wkv_bwd`, `ref.topk_router_bwd`:
+# autograd of the plain forward, in the inputs' dtype as the trainer runs
+# them). The RG-LRU kernel does the plain gradient's IEEE operations in its
+# order: value for value, NaN where it has NaN (`same_values`). The WKV and
+# router kernels sum in another order: per element |err| <= c1 |want| + c2
+# rms(want) (`grad_gate`), c1 a rounding of the output (bf16: one ulp,
+# 2^-7 of the value, where the two fp32 sums straddle a rounding; the
+# router's fp32 a few ulps), c2 what a sum's order spreads over a row;
+# non-finite wants at the same places with the same values. The router's
+# c2: its sum over the picks, in another order, errs by ulps of the
+# largest term, dw / max(s, 1e-9) (10 dw for a softmax's picks summing
+# to 0.1), and rms over [T, E] is sqrt(k / E) of the picks' own (0.19 at
+# k = 6 of 160); the first card run measured 1.56e-06
+WKV_BWD_TOL = {"fp32": (1e-5, 1e-4), "bf16": (2 ** -7, 1e-3)}
+ROUTER_BWD_TOL = (1e-6, 1e-5)
+# the sweeps: the forward checks' shapes; the RG-LRU's also with a = 1 on
+# a quarter of the elements and x = 0 on half of those ("one-x0": da =
+# -inf, and NaN where x = 0); the WKV's ("zero-one": w = 0 and w = 1
+# exactly) with a final-state cotangent wherever s0 is given
+RGLRU_BWD_CHECKS = RGLRU_CHECKS + [(2, 70, 130, True, "one-x0"),
+                                   (1, 33, 64, False, "one-x0")]
+RWKV6_BWD_CHECKS = RWKV6_CHECKS
+# (t, e, k, pattern, bias): the router's sweep and DeepSeek's widths, rows
+# with exact ties, k = E, rows whose picked scores sum below 1e-9 ("tiny":
+# the clamp's branch) and rows of -0.0 and +0.0
+ROUTER_BWD_CHECKS = [(t, e, k, "random", bias) for t, e, k in ROUTER_CHECKS
+                     for bias in (False, True)] + [
+    (64, 160, 6, "ties", False), (64, 256, 8, "ties", True), (64, 8, 8, "random", False),
+    (37, 16, 16, "ties", True), (64, 160, 6, "tiny", False), (64, 33, 16, "zeros", True)]
+# the training shapes: a microbatch of recurrentgemma-9b's RG-LRU (x, a [1,
+# 4096, 4096]) and of rwkv6-3b's WKV ([1, 4096, 40, 64]), bf16; the router
+# at DeepSeek's full widths and a prefill's 4096 tokens
+RGLRU_BWD_TRAIN = (1, 4096, 4096)
+WKV_BWD_TRAIN = (1, 4096, 40, 64)
+ROUTER_BWD_FULL = [("v2", 4096, 160, 6, False), ("v3", 4096, 256, 8, True)]
 # the narrow fp32 config of gpu_vs_cpu_model: head_dim 128 with a prompt
 # of 128, the shape at which the JAX prefill reaches its Pallas kernel
 NARROW = dict(name="narrow-d128", family="dense", n_layers=2, d_model=256,
@@ -858,7 +943,7 @@ def ptxas_rows(log: str, kernels: str) -> list[dict]:
     csrc/ftl_lookup.cu)."""
     rows, name = [], None
     for ln in log.splitlines():
-        m = re.search(rf"Compiling entry function '\w*?({kernels})(?:I(\w*?)EEEv|E)", ln)
+        m = re.search(rf"Compiling entry function '\w*?({kernels})(?:I(\w*?)EEE?v|E)", ln)
         if m and m.group(2) is None:
             name = m.group(1)
             rows.append({"kernel": name})
@@ -1444,20 +1529,32 @@ def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
 
 
 def train_kernels() -> dict:
-    """The launch counters the trainer's path reads: flash attention's
-    forward and backward (each backward call is two CUDA kernels)."""
+    """The launch counters the trainer's path reads: each kernel's forward
+    and backward wrapper (a flash or WKV backward call is two CUDA
+    kernels)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as wkv
     return {"flash_attention": fa.flash_attention,
-            "flash_attention_bwd": fa.flash_attention_bwd}
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "rglru": rg.rglru, "rglru_bwd": rg.rglru_bwd,
+            "rwkv6_wkv": wkv.rwkv6_wkv, "rwkv6_wkv_bwd": wkv.rwkv6_wkv_bwd,
+            "topk_router": mr.topk_router, "topk_router_bwd": mr.topk_router_bwd}
 
 
 def train_expected(cfg, n_micro) -> dict:
-    """Launches of one train step: the forward kernel twice a layer and
-    microbatch under remat (the forward, then its recomputation in the
-    backward pass), the backward kernel once."""
-    n_attn = cfg.layer_kinds().count("attn")
-    return {"flash_attention": n_attn * n_micro * (2 if cfg.remat else 1),
-            "flash_attention_bwd": n_attn * n_micro}
+    """Launches of one train step: each kernel's forward twice a layer of
+    its kind and microbatch under remat (the forward, then its
+    recomputation in the backward pass), its backward once. The router
+    runs in every MoE layer (DeepSeek-v3's MTP block has a dense MLP, no
+    router); MLA launches no flash kernel."""
+    per_layer = prefill_launches(cfg)
+    out = {}
+    for name in ("flash_attention", "rglru", "rwkv6_wkv", "topk_router"):
+        out[name] = per_layer[name] * n_micro * (2 if cfg.remat else 1)
+        out[f"{name}_bwd"] = per_layer[name] * n_micro
+    return out
 
 
 def train_split(cfg, state, batch, n_micro) -> dict:
@@ -1510,6 +1607,93 @@ def train_split(cfg, state, batch, n_micro) -> dict:
             "optimizer_ms": ms["optimizer"], "peak_mem_gb": peak}
 
 
+def checked_steps(step_fn, kernels):
+    """(a `train_step` that runs ``step_fn`` under the sync debug mode,
+    between synchronizations, recording its wall ms and the launches of
+    each of ``kernels`` it made; the list of ms; the list of launches)."""
+    step_ms, per_step = [], []
+
+    def checked_step(*args, **kw):
+        before = {name: k.launches for name, k in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = step_fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step.append({name: k.launches - before[name] for name, k in kernels.items()})
+        return out
+
+    return checked_step, step_ms, per_step
+
+
+def train_family_phase(dev, phase) -> dict:
+    """A recurrent family's training at its full published width, depth
+    cut (TRAIN_FAMILIES): `launch.train`'s `init` and `train`, each step
+    under the sync debug mode, with finite losses and grad norms and
+    exactly `train_expected`'s launches every step (counts zeroed just
+    before the run); ms a step (median and spread of the steps after the
+    first), tokens/s, peak memory and the last state's `train_split`."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_step as TS
+    from repro_torch.training import tree as tr
+    arch, n_layers, batch, seq, n_micro, steps = TRAIN_FAMILIES[phase]
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, name=f"{arch}-{n_layers}-layers", n_layers=n_layers)
+    kernels, expect = train_kernels(), train_expected(cfg, n_micro)
+    step_fn = TS.train_step
+    checked_step, step_ms, per_step = checked_steps(step_fn, kernels)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    TS.train_step = checked_step
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        metrics = []
+        for state, m in L.train(cfg, L.init(cfg, seed=0, device=dev), 0, steps, batch=batch,
+                                seq=seq, n_micro=n_micro, seed=0, device=dev, log=print):
+            metrics.append(m)
+    finally:
+        TS.train_step = step_fn
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
+    split = train_split(cfg, state, pipeline.batch_for_step(cfg, steps, batch, seq, 0,
+                                                            device=dev), n_micro)
+    del state, metrics
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses).ravel()):
+        fail(f"{phase}: a loss or grad norm is not finite: {losses}")
+    if any(got != expect for got in per_step):
+        fail(f"{phase}: kernel launches per step {per_step} != {expect}")
+    steady = sorted(step_ms[1:])
+    med = steady[len(steady) // 2]
+    return dict(
+        arch=arch, config=f"src/repro/configs/{arch.replace('-', '_').replace('.', '_')}.py",
+        layers=n_layers, layers_published=full.n_layers,
+        cut=f"depth {full.n_layers} -> {n_layers} layers; every width as published",
+        layer_kinds=cfg.layer_kinds(), d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+        lru_width=cfg.lru_width, window=cfg.local_window, vocab=cfg.vocab, dtype=cfg.dtype,
+        remat=cfg.remat, n_params=cfg.n_params(),
+        n_params_tensors=sum(t.numel() for t in tr.leaves(T.abstract_params(cfg))),
+        batch=batch, seq=seq, n_micro=n_micro, steps=steps,
+        losses=[m[0] for m in losses], grad_norms=[m[1] for m in losses],
+        step_ms=step_ms, step_ms_median=med, step_ms_spread=[steady[0], steady[-1]],
+        step_ms_over="the steps after the first", tokens_per_s=batch * seq / (med / 1e3),
+        peak_mem_gb=peak_gb, run_s=run_s, launches=launches, launches_per_step=per_step[0],
+        expected_per_step=expect, split=split,
+        host_syncs="none (sync debug mode 'error' around each step)")
+
+
 def train_phase(dev) -> dict:
     """The main path of training at full width: `launch.train`'s `init`,
     `train` and `resume` on TRAIN. Steps 0-1, a checkpoint, steps 2-3 (the
@@ -1532,21 +1716,8 @@ def train_phase(dev) -> dict:
     cfg = configs.get(arch)
     kernels, expect = train_kernels(), train_expected(cfg, n_micro)
     ckpt_dir = ROOT / "train_ckpt"
-    step_fn, step_ms, per_step = TS.train_step, [], []
-
-    def checked_step(*args, **kw):
-        before = {name: k.launches for name, k in kernels.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = step_fn(*args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        per_step.append({name: k.launches - before[name] for name, k in kernels.items()})
-        return out
+    step_fn = TS.train_step
+    checked_step, step_ms, per_step = checked_steps(step_fn, kernels)
 
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1647,17 +1818,45 @@ def update_close(new, old, ref_new, ref_old, m, v, ref_m, ref_v, step, lr, p_rel
     return float((diff - bound).max()), float(diff.max())
 
 
-def train_vs_cpu(dev, cfg, seed, batch, seq, n_micro=1) -> dict:
+def leaf_names(tree, path="") -> list[str]:
+    """The '/'-joined key path of each leaf of a parameter tree, in the
+    leaves' order (`training.tree`: dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{path}/{k}")]
+    return [path]
+
+
+def rel_diffs(got_m, got_state, want_m, want_state) -> dict:
+    """Two train steps' relative differences: of the loss and the grad
+    norm, and of each moment's leaves, the largest over leaves of max|got
+    - want| / max|want| (the leaf named)."""
+    from repro_torch.training import tree as tr
+    out = {key: abs(float(got_m[key]) - float(want_m[key])) / abs(float(want_m[key]))
+           for key in ("loss", "grad_norm")}
+    for name in ("m", "v"):
+        worst, where = 0.0, None
+        for path, g, c in zip(leaf_names(want_state.params),
+                              tr.leaves(getattr(got_state.opt, name)),
+                              tr.leaves(getattr(want_state.opt, name))):
+            rel = float((g.to(c.device) - c).abs().max() / c.abs().max().clamp(min=1e-30))
+            if rel >= worst:
+                worst, where = rel, path
+        out[name], out[f"{name}_worst_leaf"] = worst, where
+    return out
+
+
+def train_vs_cpu(dev, cfg, seed, batch, seq, n_micro=1, tol=None) -> dict:
     """One `train_step` of ``cfg`` on the card and on the CPU (the plain
     path) from the same weights and batch, at TRAIN_VS_CPU_LR: loss, grad
-    norm, the moments and every parameter's update within TRAIN_TOL; the
-    card's launches one step's."""
+    norm, the moments and every parameter's update within ``tol`` (by
+    default TRAIN_TOL of the config's form); the card's launches one
+    step's."""
     from repro_torch.data import pipeline
     from repro_torch.models import transformer as T
     from repro_torch.training import train_step as TS
     from repro_torch.training import tree as tr
     form = "bf16" if cfg.param_dtype == torch.bfloat16 else "fp32"
-    tol = TRAIN_TOL[form]
+    tol = dict(tol or TRAIN_TOL[form])
     cpu_params = T.init_params(cfg, device="cpu",
                                generator=torch.Generator().manual_seed(seed))
     kernels = train_kernels()
@@ -1681,30 +1880,28 @@ def train_vs_cpu(dev, cfg, seed, batch, seq, n_micro=1) -> dict:
                                                       for n, k in kernels.items()):
         fail(f"train_vs_cpu {cfg.name}: launches {launches}; want "
              f"{train_expected(cfg, n_micro)} on the card and none on the CPU")
-    errs = {}
+    errs = rel_diffs(g_m, g_state, c_m, c_state)
     for key in ("loss", "grad_norm"):
-        got, want = float(g_m[key]), float(c_m[key])
-        errs[key] = abs(got - want) / abs(want)
-        if not (np.isfinite(got) and errs[key] <= tol[key]):
-            fail(f"train_vs_cpu {cfg.name}: {key} {got} vs CPU {want}")
+        if not (np.isfinite(float(g_m[key])) and errs[key] <= tol[key]):
+            fail(f"train_vs_cpu {cfg.name}: {key} {float(g_m[key])} vs CPU "
+                 f"{float(c_m[key])}")
     for name in ("m", "v"):
-        worst = 0.0
-        for g, c in zip(tr.leaves(getattr(g_state.opt, name)),
-                        tr.leaves(getattr(c_state.opt, name))):
-            rel = float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
-            worst = max(worst, rel)
-        errs[name] = worst
-        if worst > tol[name]:
-            fail(f"train_vs_cpu {cfg.name}: {name} differs by {worst} of its largest value")
+        if errs[name] > tol[name]:
+            fail(f"train_vs_cpu {cfg.name}: {name} differs by {errs[name]} of its largest "
+                 f"value (leaf {errs[f'{name}_worst_leaf']})")
     excess, upd_err, moved, n_el = -np.inf, 0.0, 0, 0
     for leaf in zip(*(tr.leaves(t) for t in (
             g_state.params, cpu_params, c_state.params, cpu_params, g_state.opt.m,
             g_state.opt.v, c_state.opt.m, c_state.opt.v))):
-        leaf = [x.to(dev) for x in leaf]
-        e, d = update_close(*leaf, step=1, lr=TRAIN_VS_CPU_LR, p_rel=tol["p_rel"])
-        excess, upd_err = max(excess, e), max(upd_err, d)
-        moved += int((leaf[2] != leaf[3]).sum())
-        n_el += leaf[3].numel()
+        flat = [x.reshape(-1) for x in leaf]
+        # in pieces: float64 copies of a 1e9-element embedding's eight
+        # leaves would not fit the card
+        for lo in range(0, flat[0].numel(), 1 << 25):
+            piece = [x[lo:lo + (1 << 25)].to(dev) for x in flat]
+            e, d = update_close(*piece, step=1, lr=TRAIN_VS_CPU_LR, p_rel=tol["p_rel"])
+            excess, upd_err = max(excess, e), max(upd_err, d)
+            moved += int((piece[2] != piece[3]).sum())
+        n_el += flat[3].numel()
     if excess > 0:
         fail(f"train_vs_cpu {cfg.name}: a parameter's update differs from the CPU's "
              f"by {excess} past its bound")
@@ -1714,30 +1911,6 @@ def train_vs_cpu(dev, cfg, seed, batch, seq, n_micro=1) -> dict:
             "rel_err": errs, "max_abs_update_err": upd_err,
             "update_err_over_bound": excess, "moved_share_cpu": moved / n_el, "tol": tol,
             "launches": launches, "gpu_s": gpu_s, "cpu_s": cpu_s, "ok": True}
-
-
-def train_refusals(dev) -> dict:
-    """The recurrent and MoE smoke configs cannot train on the card yet:
-    their scan and router kernels have no backward kernel, and their
-    wrappers raise under grad rather than cut the graph."""
-    from repro_torch import configs
-    from repro_torch.data import pipeline
-    from repro_torch.launch import train as L
-    from repro_torch.training import train_step as TS
-    out = {}
-    for arch in ("recurrentgemma-9b", "rwkv6-3b", "deepseek-v2-236b", "deepseek-v3-671b"):
-        cfg = configs.smoke(arch)
-        try:
-            TS.train_step(cfg, L.init(cfg, seed=0, device=dev),
-                          pipeline.batch_for_step(cfg, 0, 2, 16, device=dev))
-        except NotImplementedError as e:
-            if not str(e).startswith("later slice"):
-                fail(f"train refusal {arch}: {e}")
-            out[arch] = str(e)
-            continue
-        fail(f"train refusal {arch}: a train step ran on the card without a "
-             "backward kernel for its scan or router")
-    return out
 
 
 def scan_inputs(name, shape, dtype, seed, dev):
@@ -1753,6 +1926,10 @@ def scan_inputs(name, shape, dtype, seed, dev):
         if kind == "zero-one":
             pick = torch.rand((b, t, w), generator=g)
             a = torch.where(pick < 0.25, 0.0, torch.where(pick > 0.75, 1.0, a))
+        elif kind == "one-x0":
+            pick = torch.rand((b, t, w), generator=g)
+            a = torch.where(pick < 0.25, 1.0, a)
+            x = torch.where(pick < 0.125, 0.0, x)
         kw = {"h0": rnd(b, w)} if h0 else {}
         if offset:  # contiguous views `offset` elements into their storage
             bufs = [torch.empty(x.numel() + offset, dtype=dtype, device=dev)
@@ -1904,6 +2081,235 @@ def scan_row(name, form, args, kw, launches, flush, checks, extra) -> dict:
     }
 
 
+def same_values(got, want) -> bool:
+    """Whether two tuples of tensors (None skipped) hold the same values in
+    each element, NaN where the other has NaN (-0.0 and +0.0 alike)."""
+    for g_, w_ in zip(got, want):
+        if w_ is None:
+            if g_ is not None:
+                return False
+            continue
+        g_, w_ = g_.float(), w_.float()
+        if not bool(((g_ == w_) | (g_.isnan() & w_.isnan())).all()):
+            return False
+    return True
+
+
+def grad_gate(got, want, tol) -> dict:
+    """Gradients ``got`` against ``want`` (tuples, None skipped) under
+    ``tol`` = (c1, c2): where want is finite, |got - want| <= c1 * |want|
+    + c2 * rms(want), rms over the finite elements; where it is not, got
+    holds the same value (the same infinity, or NaN). Returns the worst
+    max abs error, err_over_rms (the largest (|err| - c1 |want|) /
+    rms(want), which must stay <= c2) and whether every output passed."""
+    c1, c2 = tol
+    errs, over, ok = [0.0], [-np.inf], True
+    for g_, w_ in zip(got, want):
+        if w_ is None:
+            ok &= g_ is None
+            continue
+        g_, w_ = g_.float(), w_.float()
+        fin = torch.isfinite(w_)
+        ok &= bool(((g_ == w_) | (g_.isnan() & w_.isnan()))[~fin].all())
+        ok &= bool(torch.isfinite(g_[fin]).all())
+        if not bool(fin.any()):
+            continue
+        err = (g_ - w_).abs()[fin]
+        rms = max(float(w_[fin].square().mean().sqrt()), 1e-30)
+        errs.append(float(err.max()))
+        over.append(float((err - c1 * w_[fin].abs()).max()) / rms)
+        ok &= over[-1] <= c2
+    return dict(max_abs_err=max(errs), err_over_rms=max(over), tol=tol, ok=ok)
+
+
+def scan_bwd_inputs(name, shape, dtype, seed, dev):
+    """A scan's forward inputs (`scan_inputs`) and cotangents: rglru (x, a,
+    h0, dout); rwkv6_wkv (r, k, v, w, u, s0, dout, ds_final), the final
+    state's cotangent given where s0 is."""
+    args, kw = scan_inputs(name, shape, dtype, seed, dev)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    if name == "rglru":
+        x = args[0]
+        return (*args, kw.get("h0"), torch.randn(x.shape, generator=g).to(dtype).to(dev))
+    v, s0 = args[2], kw.get("s0")
+    dout = (torch.randn(v.shape, generator=g) * 0.5).to(dtype).to(dev)
+    ds_final = (None if s0 is None
+                else (torch.randn(s0.shape, generator=g) * 0.5).to(dtype).to(dev))
+    return (*args, s0, dout, ds_final)
+
+
+def scan_bwd_fns(name):
+    """(the backward kernel's wrapper, its plain gradient) of a scan."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as wkv
+    return ((rg.rglru_bwd, ref.rglru_bwd) if name == "rglru"
+            else (wkv.rwkv6_wkv_bwd, ref.rwkv6_wkv_bwd))
+
+
+def scan_bwd_check(name, form, args, got) -> dict:
+    """A scan backward's outputs against its plain gradient: the RG-LRU's
+    value for value (`same_values`), the WKV's under WKV_BWD_TOL."""
+    want = scan_bwd_fns(name)[1](*args)
+    if name == "rglru":
+        gate = grad_gate(got, want, (0.0, 0.0))
+        gate["values_equal"] = same_values(got, want)
+        gate["ok"] = gate["values_equal"]
+    else:
+        gate = grad_gate(got, want, WKV_BWD_TOL[form])
+    gate["nonfinite"] = sum(int((~torch.isfinite(w_)).sum()) for w_ in want if w_ is not None)
+    return gate
+
+
+def scan_bwd_checks(dev) -> list[dict]:
+    """The scans' backward kernels against their plain gradients on
+    RGLRU_BWD_CHECKS and RWKV6_BWD_CHECKS, fp32 and bf16, each call
+    repeated and equal bit for bit (`bwd_row` checks the training
+    shapes)."""
+    checks = []
+    for name, shapes in (("rglru", RGLRU_BWD_CHECKS), ("rwkv6_wkv", RWKV6_BWD_CHECKS)):
+        kernel = scan_bwd_fns(name)[0]
+        for shape, form in ((s, f) for f in ("fp32", "bf16") for s in shapes):
+            dtype = torch.float32 if form == "fp32" else torch.bfloat16
+            args = scan_bwd_inputs(name, shape, dtype, len(checks), dev)
+            got, again = kernel(*args), kernel(*args)
+            torch.cuda.synchronize()
+            gate = scan_bwd_check(name, form, args, got)
+            same = same_bits(tuple(x for x in got if x is not None),
+                             tuple(x for x in again if x is not None))
+            ok = gate.pop("ok") and same
+            checks.append(dict(kernel=f"{name}_bwd", form=form, shape=list(shape), **gate,
+                               repeat_equal=same, ok=ok))
+            del args, got, again
+    return checks
+
+
+def router_bwd_checks(dev) -> list[dict]:
+    """The router's backward kernel against its plain gradient on
+    ROUTER_BWD_CHECKS and at DeepSeek's full widths (ROUTER_BWD_FULL), on
+    the forward kernel's indices, under ROUTER_BWD_TOL; each call repeated
+    and equal bit for bit."""
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    checks = []
+    cases = ROUTER_BWD_CHECKS + [(t, e, k, "random", bias)
+                                 for _, t, e, k, bias in ROUTER_BWD_FULL]
+    for t, e, k, pattern, bias in cases:
+        scores, b = router_inputs(t, e, bias, len(checks), dev, pattern)
+        _, idx = mr.topk_router(scores, k, bias=b)
+        dw = torch.randn((t, k), generator=torch.Generator().manual_seed(len(checks))).to(dev)
+        got, again = mr.topk_router_bwd(scores, idx, dw), mr.topk_router_bwd(scores, idx, dw)
+        torch.cuda.synchronize()
+        gate = grad_gate((got,), (ref.topk_router_bwd(scores, idx, dw),), ROUTER_BWD_TOL)
+        same = same_bits(got, again)
+        ok = gate.pop("ok") and same
+        checks.append(dict(shape=[t, e, k], bias=bias, pattern=pattern, **gate,
+                           repeat_equal=same, ok=ok))
+    return checks
+
+
+def bwd_row(name, form, shape, source, launches, flush, checks, floor_ms, extra) -> dict:
+    """The `kernels` entry of a scan's backward kernel (name "rglru" or
+    "rwkv6_wkv") on random inputs at its training shape: checked against
+    the plain gradient (`scan_bwd_check`), timed spun (`spun_ms`) beside
+    `floor_ms`, one run of the plain gradient and the bound: RG-LRU bytes
+    (x, a and dout read, dx and da written: 10 B an element in bf16; some
+    20 fp32 operations an element), WKV the larger of its bytes (r, k, v,
+    w and dout read, dr, dk, dv, dw written: 18 B an element in bf16) and
+    10 K V fp32 operations a (b, t, h)."""
+    kernel, plain_fn = scan_bwd_fns(name)
+    dtype = torch.bfloat16 if form == "bf16" else torch.float32
+    kind = "one-x0" if name == "rglru" else "main"
+    args = scan_bwd_inputs(name, (*shape, False, kind), dtype, 26, dev=flush.device)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    gate = scan_bwd_check(name, form, args, got)
+    if not gate["ok"]:
+        fail(f"{name}_bwd[{form}] at the training shape: {gate}")
+    del got
+    ms, spin_ms, host_ms = spun_ms(f"{name}_bwd", lambda: kernel(*args), 5, flush)
+    plain_ms = timed_ms(lambda: plain_fn(*args), 1, flush)
+    x = args[0]
+    es = x.element_size()
+    if name == "rglru":
+        nbytes, flops = 5 * x.numel() * es, 20 * x.numel()
+    else:
+        b, t, h, dk = x.shape
+        nbytes = 9 * x.numel() * es + 2 * h * dk * 4   # and u read, du written
+        flops = 10 * dk * dk * b * t * h
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / FP32_FLOPS
+    return {
+        "name": f"{name}_bwd[{form}]", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+        # no TPU kernel: it stands for XLA's autodiff of the reference's
+        # jnp oracle, the reference's training gradient
+        "replaces": ("src/repro/kernels/ref.py:271 (autodiff of rglru; no pallas_call)"
+                     if name == "rglru" else
+                     "src/repro/kernels/ref.py:228 (autodiff of rwkv6_wkv; no pallas_call)"),
+        "launches": launches,
+        "kernels_per_launch": 1 if name == "rglru" else 2,
+        "shape": {"args": [list(a.shape) for a in args if a is not None],
+                  "dtype": str(dtype).replace("torch.", "")},
+        **{key: gate[key] for key in ("max_abs_err", "err_over_rms", "tol")},
+        "values_equal": gate.get("values_equal"), "nonfinite": gate["nonfinite"],
+        "gate": ("value for value, NaN where the plain gradient has NaN"
+                 if name == "rglru" else
+                 "|err| <= tol[0] * |want| + tol[1] * rms(want) per element"),
+        "checks": [c for c in checks if c["kernel"] == f"{name}_bwd"],
+        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "floor_ms": floor_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops, "peak_flops": FP32_FLOPS,
+        "of_bound": max(t_bytes, t_ops) / ms,
+        # no single PyTorch call computes this recurrence's gradient
+        "library_ms": None,
+        **extra,
+    }
+
+
+def router_bwd_row(form, launches, flush, checks, floor_ms, extra) -> dict:
+    """The `kernels` entry of the router's backward kernel at DeepSeek's
+    full width (ROUTER_BWD_FULL, ``form`` "v2" or "v3"), on the forward
+    kernel's indices: checked, timed spun beside `floor_ms` and the plain
+    gradient, and its byte bound (idx, dw and the picked scores read, the
+    [T, E] gradient written)."""
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.kernels import ref
+    _, t, e, k, bias = next(c for c in ROUTER_BWD_FULL if c[0] == form)
+    scores, b = router_inputs(t, e, bias, 26, flush.device)
+    _, idx = mr.topk_router(scores, k, bias=b)
+    dw = torch.randn((t, k), generator=torch.Generator().manual_seed(26)).to(flush.device)
+    got = mr.topk_router_bwd(scores, idx, dw)
+    gate = grad_gate((got,), (ref.topk_router_bwd(scores, idx, dw),), ROUTER_BWD_TOL)
+    if not gate["ok"]:
+        fail(f"topk_router_bwd[{form}] at the full width: {gate}")
+    ms, spin_ms, host_ms = spun_ms(f"topk_router_bwd {form}",
+                                   lambda: mr.topk_router_bwd(scores, idx, dw), 50, flush)
+    plain_ms = timed_ms(lambda: ref.topk_router_bwd(scores, idx, dw), 10, flush)
+    nbytes = t * k * 12 + t * e * 4
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * 8 * t * k / FP32_FLOPS
+    return {
+        "name": f"topk_router_bwd[{form}]", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_router_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:214 (autodiff of topk_router; no pallas_call)",
+        "launches": launches,
+        "shape": {"scores": [t, e], "k": k, "bias": bias},
+        **{key: gate[key] for key in ("max_abs_err", "err_over_rms", "tol")},
+        "gate": "|err| <= tol[0] * |want| + tol[1] * rms(want) per element",
+        "checks": checks,
+        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "floor_ms": floor_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "of_bound": max(t_bytes, t_ops) / ms,
+        "of_bound_floor": max(t_bytes, t_ops, floor_ms) / ms,
+        # no single PyTorch call computes this gradient from (scores, idx, dw)
+        "library_ms": None,
+        **extra,
+    }
+
+
 def flash_row(name, form, q, k, v, causal, window, launches, flush, checks,
               extra) -> dict:
     """One `kernels` entry for the flash kernel on the inputs the main path
@@ -1973,7 +2379,8 @@ def router_inputs(t, e, bias, seed, dev, pattern="random"):
     "zeros", rows of -0.0 and +0.0 with a small positive score every 7th
     expert (k past those picks ties between the two zeros); "equal", rows
     of one value; "negbias", sigmoid scores and a bias near -2 (every sel
-    negative); "offset", the scores a view one element into their storage."""
+    negative); "tiny", scores below 1e-12 (a row's picks sum below 1e-9);
+    "offset", the scores a view one element into their storage."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     if pattern == "ties":
         scores = torch.randint(0, 4, (t, e), generator=g).float() / 8
@@ -1985,6 +2392,8 @@ def router_inputs(t, e, bias, seed, dev, pattern="random"):
         scores = torch.full((t, e), 1.0 / e)
     elif pattern == "negbias":
         scores = torch.sigmoid(torch.randn((t, e), generator=g))
+    elif pattern == "tiny":
+        scores = torch.rand((t, e), generator=g) * 1e-12
     else:
         scores = torch.softmax(torch.randn((t, e), generator=g), -1)
     b = torch.randn((e,), generator=g) * 0.1 if bias else None
@@ -3162,6 +3571,13 @@ def main() -> None:
                                 "flash_bwd_ptxas": ptxas_rows(
                                     _build.LOG.get("flash_attention_bwd", ""),
                                     "dq_kernel|dkdv_kernel"),
+                                "rglru_bwd_ptxas": ptxas_rows(
+                                    _build.LOG.get("rglru_scan_bwd", ""), "rglru_bwd_kernel"),
+                                "wkv_bwd_ptxas": ptxas_rows(
+                                    _build.LOG.get("rwkv6_scan_bwd", ""),
+                                    "wkv_bwd_kernel|wkv_bwd_sum_kernel"),
+                                "router_bwd_ptxas": ptxas_rows(
+                                    _build.LOG.get("moe_router_bwd", ""), "router_bwd_kernel"),
                                 "wkv_hmma": hmma}}),
           flush=True)
     if hgmma == 0:
@@ -3231,6 +3647,27 @@ def main() -> None:
     bad = [c for c in rchecks if not c["ok"]]
     if bad:
         fail(f"router kernel disagrees with its plain version: {bad}")
+    sbchecks = scan_bwd_checks(dev)
+    print(json.dumps({"scan_bwd_checks": {
+        "n": len(sbchecks), "ok": all(c["ok"] for c in sbchecks),
+        "repeat_equal": all(c["repeat_equal"] for c in sbchecks),
+        "rglru_values_equal": all(c.get("values_equal", True) for c in sbchecks),
+        "nonfinite_wants": sum(c["nonfinite"] for c in sbchecks),
+        **{f"{n}[{f}]": {m: max(c[m] for c in sbchecks if c["kernel"] == n and c["form"] == f)
+                         for m in ("max_abs_err", "err_over_rms")}
+           for n in ("rglru_bwd", "rwkv6_wkv_bwd") for f in ("fp32", "bf16")}}}), flush=True)
+    bad = [c for c in sbchecks if not c["ok"]]
+    if bad:
+        fail(f"scan backward kernel disagrees with its plain gradient: {bad}")
+    rbchecks = router_bwd_checks(dev)
+    print(json.dumps({"router_bwd_checks": {
+        "n": len(rbchecks), "ok": all(c["ok"] for c in rbchecks),
+        "repeat_equal": all(c["repeat_equal"] for c in rbchecks),
+        **{m: max(c[m] for c in rbchecks) for m in ("max_abs_err", "err_over_rms")}}}),
+        flush=True)
+    bad = [c for c in rbchecks if not c["ok"]]
+    if bad:
+        fail(f"router backward kernel disagrees with its plain gradient: {bad}")
     lap("checks")
 
     # ---- 1b. the FTL lookup at SSD scale (frees its tables when done)
@@ -3307,23 +3744,34 @@ def main() -> None:
     lap("models")
 
     # ---- 2c. the trainer's main path at full width (h2o-danube-1.8b),
-    # with a checkpoint and a restart; then one step on the card against
-    # the CPU path, and the families whose kernels have no backward yet
+    # with a checkpoint and a restart; the recurrent families at full width
+    # and cut depth; then one step on the card against the CPU path
     from repro_torch import configs
     from repro_torch.models.config import ArchConfig
     train_line = train_phase(dev)
     print(json.dumps({"train_h2o_danube": train_line, "card": card}), flush=True)
     lap("train_h2o_danube")
-    full2 = dataclasses.replace(configs.get(TRAIN[0]), name=f"{TRAIN[0]}-2-layers",
-                                n_layers=2)
+    family_lines = {}
+    for phase in TRAIN_FAMILIES:
+        family_lines[phase] = train_family_phase(dev, phase)
+        print(json.dumps({phase: family_lines[phase], "card": card}), flush=True)
+        lap(phase)
+    cut = lambda arch, n, dtype="bfloat16": dataclasses.replace(
+        configs.get(arch), name=f"{arch}-{n}-layers", n_layers=n, dtype=dtype)
     narrow = ArchConfig(**NARROW)
-    vs_cpu = [train_vs_cpu(dev, full2, 13, *TRAIN_VS_CPU),
+    vs_cpu = [train_vs_cpu(dev, cut(TRAIN[0], 2), 13, *TRAIN_VS_CPU),
+              train_vs_cpu(dev, cut("recurrentgemma-9b", 3), 19, *TRAIN_VS_CPU),
+              train_vs_cpu(dev, cut("rwkv6-3b", 2, "float32"), 21, *TRAIN_VS_CPU,
+                           tol=RWKV6_TRAIN_TOL),
               train_vs_cpu(dev, narrow, 15, 2, 128),
               train_vs_cpu(dev, dataclasses.replace(narrow, name="narrow-d128-bf16",
                                                     dtype="bfloat16"), 17, 2, 128)]
-    print(json.dumps({"train_gpu_vs_cpu": {"steps": vs_cpu,
-                                           "refused_on_the_card": train_refusals(dev)},
-                      "card": card}), flush=True)
+    # the recurrent and MoE smoke configs (fp32), which trained on the CPU
+    # path only before their kernels had backward kernels
+    vs_cpu += [train_vs_cpu(dev, configs.smoke(arch), seed, 2, 128)
+               for seed, arch in ((23, "recurrentgemma-9b"), (25, "rwkv6-3b"),
+                                  (27, "deepseek-v2-236b"), (29, "deepseek-v3-671b"))]
+    print(json.dumps({"train_gpu_vs_cpu": {"steps": vs_cpu}, "card": card}), flush=True)
     lap("train_gpu_vs_cpu")
     train_gpu_cpu_launches = {name: sum(c["launches"][name] for c in vs_cpu)
                               for name in train_kernels()}
@@ -3478,7 +3926,20 @@ def main() -> None:
     kernels.append(flash_bwd_row(
         dev, flush, bchecks, train_line["launches"]["flash_attention_bwd"],
         {"on_main_path": True, "phase": "train_h2o_danube",
+         "launches_train_recurrentgemma_9b":
+             family_lines["train_recurrentgemma_9b"]["launches"]["flash_attention_bwd"],
          "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention_bwd"]}))
+
+    # the scans' backward kernels at their training shapes (random bf16
+    # inputs), launched by the recurrent families' train phases
+    for name, shape, source, phase in (
+            ("rglru", RGLRU_BWD_TRAIN, "rglru_scan_bwd", "train_recurrentgemma_9b"),
+            ("rwkv6_wkv", WKV_BWD_TRAIN, "rwkv6_scan_bwd", "train_rwkv6_3b")):
+        kernels.append(bwd_row(
+            name, "bf16", shape, source, family_lines[phase]["launches"][f"{name}_bwd"],
+            flush, sbchecks, floor_ms,
+            {"on_main_path": True, "phase": phase,
+             "launches_train_gpu_vs_cpu": train_gpu_cpu_launches[f"{name}_bwd"]}))
 
     # ---- 6. the scan kernels on the inputs the recurrent models gave their
     # first layer (bf16), and the same inputs in fp32 (a form the main path
@@ -3515,6 +3976,12 @@ def main() -> None:
              else "softmax",
              "launches_gpu_vs_cpu_model": gpu_cpu_launches["topk_router"]}))
     del moe_v2_in, moe_v3_in
+    # the router's backward kernel at DeepSeek's full widths (random
+    # scores), launched by the DeepSeek smoke configs' train steps
+    for form in ("v2", "v3"):
+        kernels.append(router_bwd_row(
+            form, train_gpu_cpu_launches["topk_router_bwd"], flush, rbchecks, floor_ms,
+            {"on_main_path": True, "phase": "train_gpu_vs_cpu (deepseek smoke configs)"}))
     kernels.append({**ftl_row, "on_main_path": True, "phase": "ftl"})
 
     # the script's own time, from the card line to here, the build included

@@ -19,7 +19,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "rglru_scan", "rwkv6_scan", "moe_router", "ftl_lookup", "shards_window")
+           "rglru_scan", "rglru_scan_bwd", "rwkv6_scan", "rwkv6_scan_bwd", "moe_router",
+           "moe_router_bwd", "ftl_lookup", "shards_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -55,10 +55,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
     """RG-LRU recurrence over x, a [B, T, W] from h0 [B, W] (zeros when
-    None) -> (out [B, T, W], h_T)."""
+    None) -> (out [B, T, W], h_T). A CUDA tensor goes through `RGLRU`: the
+    forward kernel, and under a gradient the backward kernel."""
     if x.device.type == "cpu":
         return ref.rglru(x, a, h0=h0)
-    return _rg.rglru(x, a, h0=h0)
+    out = _rg.RGLRU.apply(x, a, h0)
+    return out, out[:, -1]
 
 
 # the decode step: no TPU kernel backs it (the reference runs its jnp
@@ -69,10 +71,12 @@ rglru_step = ref.rglru_step
 def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
     """RWKV6 WKV over r, k, w [B, T, H, K], v [B, T, H, V] with bonus u
     [H, K], from s0 [B, H, K, V] (zeros when None); with ``return_state``
-    also the final state."""
+    also the final state. A CUDA tensor goes through `RWKV6WKV`: the
+    forward kernel, and under a gradient the backward kernel."""
     if r.device.type == "cpu":
         return ref.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=return_state)
-    return _wkv.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=return_state)
+    out, s_fin = _wkv.RWKV6WKV.apply(r, k, v, w, u, s0)
+    return (out, s_fin) if return_state else out
 
 
 # the decode step, like `rglru_step`: the plain version on every device
@@ -83,10 +87,11 @@ def topk_router(scores: torch.Tensor, k: int, bias: torch.Tensor | None = None):
     """Top-k experts of scores [T, E] fp32 by ``scores + bias`` -> (weights
     [T, k] fp32 renormalizing the unbiased picked scores, indices [T, k]
     int32). No shape gate: the reference's ``E >= 128`` is a TPU lane
-    constraint."""
+    constraint. A CUDA tensor goes through `TopKRouter`: the forward
+    kernel, and under a gradient the backward kernel (for the scores)."""
     if scores.device.type == "cpu":
         return ref.topk_router(scores, k, bias=bias)
-    return _mr.topk_router(scores, k, bias=bias)
+    return _mr.TopKRouter.apply(scores, k, bias)
 
 
 def ftl_lookup(lpns: torch.Tensor, directory: torch.Tensor,

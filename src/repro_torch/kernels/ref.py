@@ -3,8 +3,12 @@
 Port of `repro.kernels.ref`: prefill attention (dense and chunked
 forms), decode attention, paged attention, the RG-LRU and RWKV6
 recurrences with their single decode steps, the FTL lookup, the MoE
-top-k router and the SHARDS window scan of the telemetry plane. The CPU path runs these; on the GPU `chip_smoke.py` and the
-CUDA tests hold each kernel against them on the same inputs.
+top-k router and the SHARDS window scan of the telemetry plane; and the
+gradients of prefill attention, the two recurrences and the router
+(autograd of the plain forward, the reference's training gradient),
+which the backward kernels are held against. The CPU path runs these;
+on the GPU `chip_smoke.py` and the CUDA tests hold each kernel against
+them on the same inputs.
 """
 from __future__ import annotations
 
@@ -33,9 +37,11 @@ def check_mask_args(causal: bool, window: int) -> None:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """A CUDA wrapper whose kernel has no backward kernel yet raises when
-    grad mode is on and a floating input needs a gradient: its output,
-    filled through ctypes, would leave the autograd graph without a word."""
+    """A CUDA wrapper raises when grad mode is on and a floating input
+    needs a gradient: its output, filled through ctypes, would leave the
+    autograd graph without a word. A kernel with a backward kernel carries
+    its gradient in an autograd Function that calls the wrapper with grad
+    mode off (the name says which); the others have none yet."""
     if torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.is_floating_point() and t.requires_grad
             for t in tensors):
@@ -234,6 +240,24 @@ def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
     return out, out[:, -1]
 
 
+def rglru_bwd(x, a, h0, dout):
+    """The gradients (dx, da, dh0) of `rglru`'s output out [B, T, W] under
+    the cotangent ``dout`` (a cotangent of h_T is out[:, -1]'s, so the
+    caller adds it into dout[:, -1]): torch.autograd.grad through the plain
+    forward, which it recomputes; dh0 is None without h0. The plain
+    version of `kernels.rglru_scan.rglru_bwd`; the tests and
+    `chip_smoke.py` hold the kernel against it, the main path never runs
+    it. Where |a| = 1 the sqrt's derivative is infinite: da is then -inf
+    or +inf, and NaN where x = 0, as the reference's autodiff gives."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, a)]
+        if h0 is not None:
+            leaves.append(h0.detach().requires_grad_())
+        out, _ = rglru(leaves[0], leaves[1], h0=leaves[2] if h0 is not None else None)
+        grads = torch.autograd.grad(out, leaves, dout)
+    return grads if h0 is not None else (*grads, None)
+
+
 def rglru_step(h: torch.Tensor, x_t: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
     """One decode step of `rglru`: h [B, W] -> h' [B, W] in h's dtype."""
     a32 = a_t.float()
@@ -263,6 +287,28 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
     if return_state:
         return out, S.to(r.dtype)
     return out
+
+
+def rwkv6_wkv_bwd(r, k, v, w, u, s0, dout, ds_final=None):
+    """The gradients (dr, dk, dv, dw, du, ds0) of `rwkv6_wkv`(...,
+    return_state=True) under the cotangents ``dout`` of out and
+    ``ds_final`` of the final state (None: zeros): torch.autograd.grad
+    through the plain forward, which it recomputes; ds0 is None without
+    s0. The plain version of `kernels.rwkv6_scan.rwkv6_wkv_bwd`; the tests
+    and `chip_smoke.py` hold the kernel against it, the main path never
+    runs it."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+        if s0 is not None:
+            leaves.append(s0.detach().requires_grad_())
+        out, s_fin = rwkv6_wkv(*leaves[:5], s0=leaves[5] if s0 is not None else None,
+                               return_state=True)
+        outs, cots = [out], [dout]
+        if ds_final is not None:
+            outs.append(s_fin)
+            cots.append(ds_final.to(s_fin.dtype))
+        grads = torch.autograd.grad(outs, leaves, cots)
+    return grads if s0 is not None else (*grads, None)
 
 
 def rwkv6_wkv_step(S, r_t, k_t, v_t, w_t, u):
@@ -315,6 +361,22 @@ def topk_router(scores: torch.Tensor, k: int, bias: torch.Tensor | None = None):
     picked = torch.gather(scores, -1, idx)
     w = picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9)
     return w, idx.to(torch.int32)
+
+
+def topk_router_bwd(scores, idx, dw):
+    """The gradient d scores [T, E] fp32 of `topk_router`'s weights under
+    the cotangent ``dw`` [T, k], for the selection ``idx`` [T, k] the
+    forward made (the bias only selects, so it has no gradient; the
+    indices have none): torch.autograd.grad through the weights' plain
+    formula, picked / max(sum, 1e-9), scattered into zeros at idx. The
+    plain version of `kernels.moe_router.topk_router_bwd`; the tests and
+    `chip_smoke.py` hold the kernel against it, the main path never runs
+    it."""
+    with torch.enable_grad():
+        leaf = scores.detach().requires_grad_()
+        picked = torch.gather(leaf, -1, idx.long())
+        w = picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9)
+        return torch.autograd.grad(w, leaf, dw)[0]
 
 
 # --------------------------------------------------------- shards window

@@ -16,6 +16,14 @@ where rows are off 16 bytes).
 only and raises on anything it does not take; the dispatcher
 `kernels.ops.rglru` sends CPU tensors to the plain version.
 ``rglru.launches`` counts launches.
+
+Its gradient: `RGLRU`, a ``torch.autograd.Function`` whose forward
+launches the kernel above unchanged (and saves x, a and h0) and whose
+backward launches `rglru_bwd`, the wrapper of `csrc/rglru_scan_bwd.cu`
+(no TPU kernel behind it: the reference's gradient is XLA's autodiff of
+its jnp oracle). It recomputes the fp32 states from chunk checkpoints and
+gives the plain gradient (`kernels.ref.rglru_bwd`) value for value.
+``rglru_bwd.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -37,6 +45,18 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("rglru_scan_bwd")
+    fn = lib.xbof_rglru_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.xbof_rglru_bwd_workspace.argtypes = [ctypes.c_int] * 3
+        lib.xbof_rglru_bwd_workspace.restype = ctypes.c_int64
     return lib
 
 
@@ -64,9 +84,10 @@ def _check(x, a, h0):
 def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
     """Launch the CUDA kernel. x, a [B, T, W], both float32 or both
     bfloat16; h0 [B, W] of any float dtype or None (zeros). Returns (out
-    [B, T, W] in x's dtype, h_T = out[:, -1])."""
+    [B, T, W] in x's dtype, h_T = out[:, -1]). Raises under grad mode when
+    an input needs a gradient: `RGLRU` carries one."""
     _check(x, a, h0)
-    refuse_grad("rglru", x, a, h0)
+    refuse_grad("rglru (use RGLRU)", x, a, h0)
     b, t, w = x.shape
     out = torch.empty_like(x)
     if h0 is not None:
@@ -85,3 +106,60 @@ def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
 
 
 rglru.launches = 0
+
+
+def rglru_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
+              dout: torch.Tensor):
+    """Launch the backward kernel: the gradients (dx, da, dh0) of
+    `rglru`'s out under the cotangent ``dout`` (contiguous, in x's dtype
+    and shape), dx and da in x's dtype, dh0 in h0's (None without h0).
+    Deterministic: no reduction, nothing atomic."""
+    _check(x, a, h0)
+    refuse_grad("rglru_bwd (no double backward)", x, a, h0, dout)
+    if dout.device != x.device or dout.dtype != x.dtype or dout.shape != x.shape:
+        raise ValueError(f"dout must match x ({tuple(x.shape)}, {x.dtype}, {x.device}); "
+                         f"got {tuple(dout.shape)}, {dout.dtype}, {dout.device}")
+    if not dout.is_contiguous():
+        raise ValueError("rglru_bwd needs a contiguous dout")
+    b, t, w = x.shape
+    lib = _bwd_lib()
+    dx, da = torch.empty_like(x), torch.empty_like(a)
+    h0f = None if h0 is None else h0.to(torch.float32).contiguous()
+    dh0 = None if h0 is None else torch.empty((b, w), dtype=torch.float32, device=x.device)
+    ws = torch.empty(max(lib.xbof_rglru_bwd_workspace(b, t, w), 1), dtype=torch.float32,
+                     device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.xbof_rglru_bwd(_KIND[x.dtype], x.data_ptr(), a.data_ptr(),
+                             None if h0f is None else h0f.data_ptr(), dout.data_ptr(),
+                             dx.data_ptr(), da.data_ptr(),
+                             None if dh0 is None else dh0.data_ptr(), ws.data_ptr(),
+                             b, t, w, stream)
+    if err == _ERR_SHAPE:
+        raise ValueError(f"shape beyond the backward kernel's limits "
+                         f"(csrc/rglru_scan_bwd.cu): x {tuple(x.shape)}")
+    if err != 0:
+        raise RuntimeError(f"rglru_bwd kernel launch failed: CUDA error {err}")
+    rglru_bwd.launches += 1
+    return dx, da, None if dh0 is None else dh0.to(h0.dtype)
+
+
+rglru_bwd.launches = 0
+
+
+class RGLRU(torch.autograd.Function):
+    """The RG-LRU scan with a gradient: the forward kernel, then the
+    backward kernel on ``dout.contiguous()``. It returns out only: the
+    caller takes h_T = out[:, -1] (a Function that also returned a view of
+    its own output would confuse autograd), so a cotangent of h_T reaches
+    the backward inside dout."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        out, _ = rglru(x, a, h0)
+        ctx.save_for_backward(x, a, h0)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, a, h0 = ctx.saved_tensors
+        return rglru_bwd(x, a, h0, dout.contiguous())

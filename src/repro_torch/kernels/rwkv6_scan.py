@@ -20,6 +20,16 @@ bytes. See the source's note for both designs and what bounds them.
 tensors only and raises on anything it does not take; the dispatcher
 `kernels.ops.rwkv6_wkv` sends CPU tensors to the plain version.
 ``rwkv6_wkv.launches`` counts launches.
+
+Its gradient: `RWKV6WKV`, a ``torch.autograd.Function`` whose forward
+launches the kernel above unchanged (and saves its inputs) and whose
+backward launches `rwkv6_wkv_bwd`, the wrapper of `csrc/rwkv6_scan_bwd.cu`
+(no TPU kernel behind it: the reference's gradient is XLA's autodiff of
+its jnp oracle): a reverse walk over chunks of 8 steps whose states it
+recomputes from checkpoints, in fp32 on the CUDA cores for both dtypes,
+the sums across its column slices in a fixed order. Plain version:
+`kernels.ref.rwkv6_wkv_bwd`. ``rwkv6_wkv_bwd.launches`` counts its calls,
+each two CUDA kernels (the walk, then the slices' sums).
 """
 from __future__ import annotations
 
@@ -41,6 +51,18 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("rwkv6_scan_bwd")
+    fn = lib.xbof_rwkv6_wkv_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.xbof_rwkv6_wkv_bwd_workspace.argtypes = [ctypes.c_int] * 4
+        lib.xbof_rwkv6_wkv_bwd_workspace.restype = ctypes.c_int64
     return lib
 
 
@@ -74,9 +96,10 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
     float32 or all bfloat16, with K = V in {16, 32, 64, 128}; u [H, K] and
     s0 [B, H, K, V] (or None: zeros) of any float dtype. Returns out [B, T,
     H, V] in r's dtype and, with ``return_state``, the final state [B, H,
-    K, V] in r's dtype."""
+    K, V] in r's dtype. Raises under grad mode when an input needs a
+    gradient: `RWKV6WKV` carries one."""
     _check(r, k, v, w, u, s0)
-    refuse_grad("rwkv6_wkv", r, k, v, w, u, s0)
+    refuse_grad("rwkv6_wkv (use RWKV6WKV)", r, k, v, w, u, s0)
     b, t, h, dk = r.shape
     dv = v.shape[-1]
     u = u.to(torch.float32).contiguous()
@@ -101,3 +124,77 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
 
 
 rwkv6_wkv.launches = 0
+
+
+def rwkv6_wkv_bwd(r, k, v, w, u, s0, dout, ds_final=None):
+    """Launch the backward kernel: the gradients (dr, dk, dv, dw, du, ds0)
+    of `rwkv6_wkv`(..., return_state=True) under the cotangents ``dout``
+    of out (contiguous, r's dtype, v's shape) and ``ds_final`` of the final
+    state ([B, H, K, V] of any float dtype, or None: zeros); dr, dk, dv and
+    dw in r's dtype, du in u's, ds0 in s0's (None without s0).
+    Deterministic: fixed-order sums, nothing atomic."""
+    _check(r, k, v, w, u, s0)
+    refuse_grad("rwkv6_wkv_bwd (no double backward)", r, k, v, w, u, s0, dout, ds_final)
+    if dout.device != r.device or dout.dtype != r.dtype or dout.shape != v.shape:
+        raise ValueError(f"dout must match v ({tuple(v.shape)}, {r.dtype}, {r.device}); "
+                         f"got {tuple(dout.shape)}, {dout.dtype}, {dout.device}")
+    if not dout.is_contiguous():
+        raise ValueError("rwkv6_wkv_bwd needs a contiguous dout")
+    b, t, h, dk = r.shape
+    dv_ = v.shape[-1]
+    if ds_final is not None and (ds_final.device != r.device
+                                 or tuple(ds_final.shape) != (b, h, dk, dv_)):
+        raise ValueError(f"ds_final must be [B, H, K, V] = {(b, h, dk, dv_)} on "
+                         f"{r.device}; got {tuple(ds_final.shape)} on {ds_final.device}")
+    lib = _bwd_lib()
+    n_ws = lib.xbof_rwkv6_wkv_bwd_workspace(b, t, h, dk)
+    if n_ws < 0 or dk != dv_:
+        raise ValueError(f"shape beyond the backward kernel's limits "
+                         f"(csrc/rwkv6_scan_bwd.cu: K = V in 16, 32, 64, 128): "
+                         f"r {tuple(r.shape)}, v {tuple(v.shape)}")
+    f32 = lambda x: None if x is None else x.to(torch.float32).contiguous()
+    uf, s0f, dsf = f32(u), f32(s0), f32(ds_final)
+    dr, dk_, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
+    du = torch.empty((h, dk), dtype=torch.float32, device=r.device)
+    ds0 = None if s0 is None else torch.empty((b, h, dk, dv_), dtype=torch.float32,
+                                              device=r.device)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=r.device)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = lib.xbof_rwkv6_wkv_bwd(
+        _KIND[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        uf.data_ptr(), ptr(s0f), dout.data_ptr(), ptr(dsf), dr.data_ptr(),
+        dk_.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ptr(ds0),
+        ws.data_ptr(), b, t, h, dk, dv_, stream)
+    if err == _ERR_SHAPE:
+        raise ValueError(f"shape beyond the backward kernel's limits "
+                         f"(csrc/rwkv6_scan_bwd.cu): r {tuple(r.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if err != 0:
+        raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: CUDA error {err}")
+    rwkv6_wkv_bwd.launches += 1
+    return (dr, dk_, dv, dw, du.to(u.dtype),
+            None if ds0 is None else ds0.to(s0.dtype))
+
+
+rwkv6_wkv_bwd.launches = 0
+
+
+class RWKV6WKV(torch.autograd.Function):
+    """The WKV scan with a gradient, as `rwkv6_wkv`(..., return_state=True):
+    (out, the final state). The forward kernel, then the backward kernel on
+    ``dout.contiguous()`` and the final state's cotangent, which is None
+    (zeros) when the caller discards the state, as training does."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        out, s_fin = rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return out, s_fin
+
+    @staticmethod
+    def backward(ctx, dout, ds_final):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dout = torch.zeros_like(v) if dout is None else dout.contiguous()
+        return rwkv6_wkv_bwd(r, k, v, w, u, s0, dout, ds_final)

@@ -3,10 +3,16 @@
 Port of `repro.training.checkpoint`, in its layout: two slots,
 ``slot{step % 2}/shard0.npz`` (the state's leaves as ``leaf_{i}`` in the
 reference's flatten order: dict keys sorted, NamedTuple fields in order)
-and ``manifest.json`` ({"step", "n_leaves", "extra"}). Each file is
+and ``manifest.json`` ({"step", "n_leaves", "extra"}). A save first
+unlinks the slot's manifest and syncs the slot's directory, so that the
+slot reads as incomplete while its leaves change; then each file is
 written to ``.tmp``, synced and moved into place with ``os.replace``, the
-manifest last, so a crash mid-save leaves the other slot whole; `restore`
-takes the newest slot that has both files.
+manifest last (its replace is the commit). A crash at any point of a save
+leaves its slot incomplete, never a manifest naming a step other than its
+leaves', and the other slot whole; `restore` takes the newest slot that
+has both files. The slots alternate by ``step % 2``: a caller whose saves
+all fall on one parity (the launcher with an even ``ckpt_every``) keeps
+one slot, and a crash mid-save then leaves no complete checkpoint.
 
 bf16 leaves are stored as their raw 16 bits in a 2-byte void dtype
 (``|V2``), the bytes and dtype that the reference's ``np.asarray`` of an
@@ -56,6 +62,10 @@ def save(ckpt_dir: str | Path, state: Any, step: int, extra: dict | None = None)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     slot = ckpt_dir / f"slot{step % 2}"
     slot.mkdir(exist_ok=True)
+    # the slot is incomplete from here until the new manifest lands: a
+    # crash cannot leave the old manifest over the new leaves
+    (slot / "manifest.json").unlink(missing_ok=True)
+    _fsync_dir(slot)
     leaves = tr.leaves(state)
     arrays = {f"leaf_{i}": _to_numpy(x) for i, x in enumerate(leaves)}
     tmp = slot / "shard0.npz.tmp"
@@ -66,8 +76,21 @@ def save(ckpt_dir: str | Path, state: Any, step: int, extra: dict | None = None)
     os.replace(tmp, slot / "shard0.npz")
     manifest = {"step": step, "n_leaves": len(leaves), "extra": extra or {}}
     mtmp = slot / "manifest.json.tmp"
-    mtmp.write_text(json.dumps(manifest))
+    with open(mtmp, "w") as f:
+        f.write(json.dumps(manifest))
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(mtmp, slot / "manifest.json")   # manifest last == commit record
+    _fsync_dir(slot)
+
+
+def _fsync_dir(path: Path) -> None:
+    """Make a directory's entries (an unlink, a replace) durable."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def latest_step(ckpt_dir: str | Path) -> int | None:

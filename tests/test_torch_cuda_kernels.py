@@ -422,20 +422,30 @@ def test_attention_without_grad_launches_the_forward_only(dev):
 
 
 def test_every_other_wrapper_refuses_grad(dev):
-    """No CUDA wrapper hands back a result cut from the autograd graph:
-    those without a backward kernel raise under grad mode when a floating
-    input needs a gradient, and run as before under no_grad."""
+    """No CUDA wrapper hands back a result cut from the autograd graph: a
+    forward wrapper whose gradient is an autograd Function (flash
+    attention, the scans, the router: `ops` calls the Function) and every
+    backward wrapper (no double backward) raise under grad mode when a
+    floating input needs a gradient, as do the wrappers without a backward
+    kernel (paged attention, the SHARDS window); all run as before under
+    no_grad."""
     x = torch.rand((1, 64, 64), device=dev, requires_grad=True)
     a = torch.rand((1, 64, 64), device=dev)
     r = torch.rand((1, 16, 2, 16), device=dev, requires_grad=True)
     w = torch.rand((1, 16, 2, 16), device=dev)
     u = torch.rand((2, 16), device=dev)
     scores = torch.rand((8, 16), device=dev, requires_grad=True)
+    idx = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    idx[:, 1] = 1
     q, k, v, o, dout = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "float32", 5, dev)
     calls = {
         "rglru": lambda: rg.rglru(x, a),
+        "rglru_bwd": lambda: rg.rglru_bwd(x, a, None, a),
         "rwkv6_wkv": lambda: wkv.rwkv6_wkv(r, w, w, w, u),
+        "rwkv6_wkv_bwd": lambda: wkv.rwkv6_wkv_bwd(r, w, w, w, u, None, w),
         "topk_router": lambda: mr.topk_router(scores, 2),
+        "topk_router_bwd": lambda: mr.topk_router_bwd(scores, idx,
+                                                       scores[:, :2].detach().contiguous()),
         "flash_attention": lambda: fa.flash_attention(q.requires_grad_(), k, v),
         "flash_attention_bwd": lambda: fa.flash_attention_bwd(q.requires_grad_(), k, v,
                                                               o, dout),
@@ -773,6 +783,180 @@ def test_router_wrapper_refuses_what_the_kernel_does_not_take(dev):
         mr.topk_router(scores, 17)
     with pytest.raises(ValueError, match="limits"):                 # E > 1024
         mr.topk_router(torch.rand((2, 1025), device=dev), 4)
+
+
+# ------------------------------------------- scan and router backward
+# the backward kernels against their plain gradients through
+# chip_smoke's gates (`scan_bwd_check`: the RG-LRU value for value, NaN
+# where the plain gradient has NaN; the WKV per element under WKV_BWD_TOL;
+# `grad_gate` under ROUTER_BWD_TOL for the router), each call repeated bit
+# for bit. (b, t, w, h0[, a[, offset]]): the forward's sweep and edges,
+# with a = 1 and x = 0 ("one-x0": infinite and NaN gradients)
+RGLRU_BWD_SHAPES = {
+    "sweep0": (2, 256, 64, False), "ragged-200-h0": (2, 200, 96, True),
+    "t1-h0": (3, 1, 40, True), "t17-h0": (1, 17, 64, True), "t33": (3, 33, 64, False),
+    "blocks-over-sms-h0": (1, 66, 9000, True),
+    "a-zero-one-h0": (2, 100, 96, True, "zero-one"),
+    "a-one-x0-h0": (2, 70, 130, True, "one-x0"), "a-one-x0": (1, 33, 64, False, "one-x0"),
+    "offset1-w130-h0": (2, 70, 130, True, "sigmoid", 1),
+}
+# (b, t, h, k, s0[, decay]), a final-state cotangent wherever s0 is given
+RWKV6_BWD_SHAPES = {
+    "sweep0": (1, 256, 2, 64, False), "sweep1": (2, 128, 4, 128, False),
+    "k16-s0": (3, 70, 4, 16, True), "k32-ragged-200-s0": (2, 200, 3, 32, True),
+    "t1-s0": (2, 1, 3, 64, True), "t9-s0": (1, 9, 2, 64, True),
+    "grid-2x80-heads": (2, 512, 80, 64, False),
+    "w-zero-one-s0": (2, 200, 3, 64, True, "zero-one"),
+    "w-near0-k128-s0": (1, 130, 2, 128, True, "near0"),
+    "w-main": (2, 300, 4, 64, False, "main"),
+}
+# (t, e, k, pattern, bias): the sweep, DeepSeek's prefill widths, ties,
+# k = E, picks summing below 1e-9 ("tiny"), rows of -0.0 and +0.0, the
+# smoke configs' 8 experts
+ROUTER_BWD_SHAPES = {
+    "sweep0": (256, 128, 6, "random", False), "v2-prefill": (4096, 160, 6, "random", False),
+    "v3-prefill-bias": (4096, 256, 8, "random", True), "ties-bias": (64, 256, 8, "ties", True),
+    "k-eq-e": (64, 8, 8, "random", False), "k16-e16-ties": (37, 16, 16, "ties", True),
+    "tiny": (64, 160, 6, "tiny", False), "zeros-bias": (64, 33, 16, "zeros", True),
+    "smoke-e8-bias": (24, 8, 2, "random", True),
+}
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def _scan_bwd(dev, name, shape, dtype, seed):
+    """One backward call and its repeat, the launch count, the gate."""
+    cs = _chip_smoke()
+    kernel = cs.scan_bwd_fns(name)[0]
+    args = cs.scan_bwd_inputs(name, shape, getattr(torch, dtype), seed, dev)
+    before = kernel.launches
+    got, again = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    for g_, x in zip(got, args):
+        assert g_ is None if x is None else (g_.dtype == x.dtype and g_.shape == x.shape)
+    for a_, b_ in zip(got, again):
+        assert (a_ is None and b_ is None) or torch.equal(a_.view(torch.uint8),
+                                                          b_.view(torch.uint8))
+    gate = cs.scan_bwd_check(name, "fp32" if dtype == "float32" else "bf16", args, got)
+    assert gate["ok"], gate
+    return gate
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(RGLRU_BWD_SHAPES))
+def test_rglru_bwd_kernel_matches_plain(dev, name, dtype):
+    gate = _scan_bwd(dev, "rglru", RGLRU_BWD_SHAPES[name], dtype, len(name))
+    if "one-x0" in name:
+        assert gate["nonfinite"] > 0        # -inf and NaN, at the same places
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(RWKV6_BWD_SHAPES))
+def test_rwkv6_bwd_kernel_matches_plain(dev, name, dtype):
+    _scan_bwd(dev, "rwkv6_wkv", RWKV6_BWD_SHAPES[name], dtype, len(name))
+
+
+@pytest.mark.parametrize("name", list(ROUTER_BWD_SHAPES))
+def test_router_bwd_kernel_matches_plain(dev, name):
+    cs = _chip_smoke()
+    t, e, k, pattern, bias = ROUTER_BWD_SHAPES[name]
+    scores, b = cs.router_inputs(t, e, bias, len(name), dev, pattern)
+    _, idx = mr.topk_router(scores, k, bias=b)
+    dw = torch.randn((t, k), generator=torch.Generator().manual_seed(3)).to(dev)
+    before = mr.topk_router_bwd.launches
+    got, again = mr.topk_router_bwd(scores, idx, dw), mr.topk_router_bwd(scores, idx, dw)
+    torch.cuda.synchronize()
+    assert mr.topk_router_bwd.launches == before + 2
+    assert torch.equal(got, again)
+    gate = cs.grad_gate((got,), (ref.topk_router_bwd(scores, idx, dw),), cs.ROUTER_BWD_TOL)
+    assert gate["ok"], gate
+    assert int((got != 0).sum(-1).max()) <= k      # the picks' columns only
+
+
+def _block_inputs(dev, dtype):
+    """Inputs of the three Functions that need gradients, and cotangents."""
+    cs = _chip_smoke()
+    dt = getattr(torch, dtype)
+    x, a, h0, dx = cs.scan_bwd_inputs("rglru", (2, 70, 130, True), dt, 3, dev)
+    r, k, v, w, u, s0, dout, ds = cs.scan_bwd_inputs("rwkv6_wkv", (2, 40, 3, 32, True),
+                                                     dt, 4, dev)
+    scores, bias = cs.router_inputs(24, 8, True, 5, dev)
+    leaves = [t.clone().requires_grad_() for t in (x, a, h0, r, k, v, w, u, s0, scores,
+                                                   bias)]
+    return leaves, (dx, dout, ds)
+
+
+def _launches():
+    return [f.launches for f in (rg.rglru, rg.rglru_bwd, wkv.rwkv6_wkv, wkv.rwkv6_wkv_bwd,
+                                 mr.topk_router, mr.topk_router_bwd)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_and_router_functions_launch_their_backward(dev, dtype):
+    """`ops.rglru`, `ops.rwkv6_wkv` and `ops.topk_router` on inputs that
+    need gradients: one forward and one backward launch each, and the
+    plain gradients (a cotangent of h_T lands in dout's last row; the WKV
+    with and without its final state's cotangent; the bias gets none)."""
+    cs = _chip_smoke()
+    leaves, (dx, dout, ds) = _block_inputs(dev, dtype)
+    x, a, h0, r, k, v, w, u, s0, scores, bias = leaves
+    before = _launches()
+    out, h_t = ops.rglru(x, a, h0)
+    o, s_fin = ops.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+    wt, idx = ops.topk_router(scores, 2, bias=bias)
+    dh = torch.randn_like(h_t)
+    dwt = torch.randn_like(wt)
+    torch.autograd.backward((out, h_t, o, s_fin, wt), (dx, dh, dout, ds, dwt))
+    torch.cuda.synchronize()
+    assert [n - m for n, m in zip(_launches(), before)] == [1] * 6
+    assert not idx.requires_grad and bias.grad is None
+    d_all = dx.clone()
+    d_all[:, -1] += dh
+    assert cs.same_values([t.grad for t in (x, a, h0)], ref.rglru_bwd(x, a, h0, d_all))
+    form = "fp32" if dtype == "float32" else "bf16"
+    want = ref.rwkv6_wkv_bwd(r, k, v, w, u, s0, dout, ds)
+    gate = cs.grad_gate([t.grad for t in (r, k, v, w, u, s0)], want, cs.WKV_BWD_TOL[form])
+    assert gate["ok"], gate
+    gate = cs.grad_gate((scores.grad,), (ref.topk_router_bwd(scores, idx, dwt),),
+                        cs.ROUTER_BWD_TOL)
+    assert gate["ok"], gate
+    # the model's use: the final state discarded, no cotangent for it
+    for t in (r, k, v, w, u, s0):
+        t.grad = None
+    o, _ = ops.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+    o.backward(dout)
+    gate = cs.grad_gate([t.grad for t in (r, k, v, w, u, s0)],
+                        ref.rwkv6_wkv_bwd(r, k, v, w, u, s0, dout), cs.WKV_BWD_TOL[form])
+    assert gate["ok"], gate
+
+
+def test_functions_under_checkpoint(dev):
+    """The three Functions inside a non-reentrant `torch.utils.checkpoint`
+    (the trainer's remat): each forward kernel runs twice (the forward and
+    its recomputation), each backward once, and the gradients equal those
+    of the same block without the checkpoint bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    def block(x, a, h0, r, k, v, w, u, s0, scores, bias):
+        h, _ = ops.rglru(x, a, h0)
+        o, _ = ops.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+        wt, _ = ops.topk_router(scores, 2, bias=bias)
+        return h.float().square().sum() + o.float().square().sum() + wt.square().sum()
+
+    leaves, _ = _block_inputs(dev, "bfloat16")
+    grads = torch.autograd.grad(block(*leaves), leaves[:-1])
+    before = _launches()
+    loss = checkpoint(block, *leaves, use_reentrant=False)
+    again = torch.autograd.grad(loss, leaves[:-1])
+    torch.cuda.synchronize()
+    assert [n - m for n, m in zip(_launches(), before)] == [2, 1, 2, 1, 2, 1]
+    for g_, a_ in zip(grads, again):
+        assert torch.equal(g_, a_)
 
 
 # ---------------------------------------------------------------- ftl

@@ -15,6 +15,7 @@ the launcher's restart, and the plain attention gradient.
   over the mask sweep, within 1e-5 * (1 + |want|) (fp32 in both)."""
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -206,6 +207,41 @@ def test_two_slot_rotation_survives_partial_write(tmp_path):
     assert got is not None and got[1] == 5
     assert tckpt.latest_step(tmp_path / "none") is None
     assert tckpt.restore(tmp_path / "none", state) is None
+
+
+@pytest.mark.parametrize("saved,crashed,want", [((9,), 19, None), ((4, 5), 6, 5)],
+                         ids=["same-slot", "other-slot"])
+def test_crash_between_the_replaces_never_mislabels_a_slot(tmp_path, monkeypatch,
+                                                           saved, crashed, want):
+    """A save that dies after its leaves land and before its manifest does
+    (the module's ``os.replace`` raising on the manifest's) leaves its
+    slot incomplete: `restore` gives the newest complete slot with its own
+    leaves, or None; never a step whose manifest names other leaves."""
+    tcfg = tconfigs.smoke("granite-8b")
+    params = TT.init_params(tcfg, device="cpu")
+    state_at = lambda step: TTS.init_state(tcfg, tr.tree_map(lambda t: t + step, params))
+    for step in saved:
+        tckpt.save(tmp_path, state_at(step), step)
+    real = tckpt.os.replace
+
+    def replace(src, dst):
+        if Path(dst).name == "manifest.json":
+            raise OSError("crash before the manifest's replace")
+        real(src, dst)
+
+    monkeypatch.setattr(tckpt.os, "replace", replace)
+    with pytest.raises(OSError, match="crash"):
+        tckpt.save(tmp_path, state_at(crashed), crashed)
+    monkeypatch.setattr(tckpt.os, "replace", real)
+    assert tckpt.latest_step(tmp_path) == want
+    got = tckpt.restore(tmp_path, state_at(0))
+    if want is None:
+        assert got is None
+        return
+    restored, step = got
+    assert step == want
+    for a, b in zip(tr.leaves(restored), tr.leaves(state_at(want))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", list(tconfigs.PORTED) + ["vision", "encdec"])

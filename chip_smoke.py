@@ -121,8 +121,14 @@ nvcc per source, all at once), then:
    layers); then the DeepSeek MoE/MLA family at full published width,
    depth cut to fit the card (bf16, batch 4, prompt 1024, 32 greedy
    tokens): deepseek-v2-236b's 1 dense + 7 MoE layers and
-   deepseek-v3-671b's 3 dense + 2 MoE layers. Each kernel must run once
-   per layer of its kind in the prefill, and the router once per MoE
+   deepseek-v3-671b's 3 dense + 2 MoE layers; then whisper-tiny whole
+   (bf16: 16 clips of 1500 frames from the audio stub through its 4
+   encoder layers, a 4-token decoder prompt, 128 greedy tokens through its
+   4 decoder layers with cross-attention) and qwen2-vl-2b whole (bf16: 4 x
+   2048 embedding positions from the vision stub, M-RoPE, 32 greedy
+   tokens). Each kernel must run once
+   per layer of its kind in the prefill (flash twice a decoder layer of an
+   encoder-decoder, once an encoder layer), and the router once per MoE
    layer in every decode step too (every launch count zeroed just before
    the run, read just after; MLA launches no flash kernel), the logits
    must be finite, and decode must not synchronize with the host; the
@@ -130,7 +136,10 @@ nvcc per source, all at once), then:
    tokens and logits bit for bit. Each
    kernel is held against its plain version on the inputs the first and
    last layers of its kind gave it (the router also on the first decode
-   step's). Each model is freed before the next starts;
+   step's; whisper's flash on its encoder's, its first decoder layer's
+   self- and cross-attention's and its last cross-attention's), and each
+   model line counts its flash calls by shape. Each model is freed before
+   the next starts;
 4. times each kernel form on the inputs the main path gave it, beside its
    plain version, one PyTorch library call computing the same function
    where there is one, and the least time the card could take (bytes over
@@ -162,7 +171,10 @@ nvcc per source, all at once), then:
    training attention (FLASH_BWD_TRAIN), checked per element against the
    plain gradient in fp32 with its fp32 form, spun, beside its plain gradient,
    the backward of `scaled_dot_product_attention` with the band as a mask
-   and its bound (10 * D flops a pair and head at the bf16 peak); the
+   and its bound (10 * D flops a pair and head at the bf16 peak), and the
+   same at whisper-tiny's training cross-attention (FLASH_BWD_WHISPER);
+   the flash rows at whisper's encoder and cross shapes and qwen2-vl's
+   prefill, on their phases' inputs, with their launches at that shape; the
    scans' backward rows (`rglru_bwd[bf16]`, `rwkv6_wkv_bwd[bf16]`) on
    random inputs at their training shapes and the router's
    (`topk_router_bwd[v2]`, `[v3]`) at DeepSeek's full widths, each
@@ -184,27 +196,35 @@ nvcc per source, all at once), then:
    (`train_split`); then one train step on the card against the CPU path
    (`train_gpu_vs_cpu`: the full width at 2 layers in bf16, the narrow
    fp32 config and a bf16 twin, within TRAIN_TOL; each parameter's
-   update, at TRAIN_VS_CPU_LR, against the CPU's);
+   update, at TRAIN_VS_CPU_LR, against the CPU's); and whisper-tiny
+   whole the same way (TRAIN_WHISPER: 16 clips x 448 decoder tokens over
+   1500 frames, 2 microbatches, 3 steps, the restart at step 2; 48
+   forward and 24 backward flash launches a step);
 3b. trains the recurrent families at full published width, depth cut
    (TRAIN_FAMILIES: recurrentgemma-9b at one (rec, rec, attn) period,
-   rwkv6-3b at 8 layers; bf16, batch 2 x 4096, 2 microbatches, remat, 3
-   steps) through `launch.train`, each step under the sync debug mode with
+   rwkv6-3b at 8 layers; and qwen2-vl-2b whole from its stub's
+   embeddings; bf16, batch 2 x 4096, 2 microbatches, remat, 3 steps)
+   through `launch.train`, each step under the sync debug mode with
    finite numbers and exactly `train_expected`'s launches of every forward
    and backward kernel (RG-LRU 8 and 4 a step with flash 4 and 2; WKV 32
    and 16), with ms a step, tokens/s, peak memory and `train_split`; then
    one step on the card against the CPU path for recurrentgemma-9b at 3
    layers in bf16 and rwkv6-3b at 2 in fp32 (batch 1, seq 512; rwkv6's
-   within RWKV6_TRAIN_TOL) and for the recurrentgemma, rwkv6, deepseek-v2
-   and deepseek-v3 smoke configs (fp32), launches included;
+   within RWKV6_TRAIN_TOL), whisper-tiny whole (bf16, batch 1 x 448) and
+   qwen2-vl-2b at 2 layers (bf16, batch 1 x 512), and for the
+   recurrentgemma, rwkv6, deepseek-v2, deepseek-v3, whisper and qwen2-vl
+   smoke configs (fp32), launches included;
 5. checks the engine (4 replicas with int8 pages; and 8 replicas in 2
    shards, metered, with fp32 pages redirecting across shards and with
    int8 pages borrowing link bytes across shards, and the fp32 one
    trace-driven with the observability plane on, whose integer and bool
    state — the SHARDS table and clock, the rings' cursor and the event
-   log's count included — must equal bit for bit every step), and five narrow fp32 models (a dense one,
+   log's count included — must equal bit for bit every step), and seven narrow fp32 models (a dense one,
    recurrentgemma-smoke and rwkv6-smoke with a prompt of 128,
    deepseek-v2-smoke and deepseek-v3-smoke with a prompt of 1040, whose
-   2080 tokens take the MoE's sorted dispatch; 8 decode steps), on the GPU
+   2080 tokens take the MoE's sorted dispatch, whisper-smoke and
+   qwen2-vl-smoke with a prompt of 128 and their stubs' embeddings; 8
+   decode steps), on the GPU
    against the same code on the CPU (the plain path).
 
 The `build` line also carries nvcc's registers and spills of each flash,
@@ -218,8 +238,9 @@ Prints the card's name and power limit, a JSON line per phase (`build`,
 `router_checks`, `scan_bwd_checks`, `router_bwd_checks`, `ftl`, `engine`,
 `sim_jbof12`, `sim_trace8_obs`, `sim_fleet4096`, `model`, `model_window`,
 `model_hybrid`, `model_rwkv`, `model_moe_v2`, `model_moe_v3`,
-`train_h2o_danube`, `train_recurrentgemma_9b`, `train_rwkv6_3b`,
-`train_gpu_vs_cpu`,
+`model_whisper_tiny`, `model_qwen2_vl_2b`, `train_h2o_danube`,
+`train_whisper_tiny`, `train_recurrentgemma_9b`, `train_rwkv6_3b`,
+`train_qwen2_vl_2b`, `train_gpu_vs_cpu`,
 `gpu_vs_cpu_engine`, `gpu_vs_cpu_model`), the script's
 own time (`run`, the build included, with `phase_end_s`: each phase's
 end in seconds from the start), the `kernels` JSON line — per kernel form its checks and its numbers of step 4 — and
@@ -379,6 +400,14 @@ MODEL_RWKV = ("rwkv6-3b", 4, 2048, 32)
 # dense [B, 128, S, S] scores (below 4096 keys) to 1 GB in bf16.
 MODEL_MOE_V2 = ("deepseek-v2-236b", 4, 1024, 32, 8)
 MODEL_MOE_V3 = ("deepseek-v3-671b", 4, 1024, 32, 5)
+# the encoder-decoder and the M-RoPE model at their full published configs
+# (bf16): whisper-tiny (4 + 4 layers), 16 clips of 1500 frames (30 s of
+# audio each, the audio stub's frame embeddings), a 4-token decoder prompt
+# (the start-of-transcript sequence), 128 greedy tokens; qwen2-vl-2b (28
+# layers), 4 x 2048 embedding positions (an image's patches and its text,
+# through the vision stub), 32 greedy tokens, like qwen3-14b's phase
+MODEL_WHISPER = ("whisper-tiny", 16, 4, 128)
+MODEL_QWEN2_VL = ("qwen2-vl-2b", 4, 2048, 32)
 # the trainer (`launch.train`'s functions): h2o-danube-1.8b at its full
 # published config, bf16 (1.83e9 parameters: the largest config of the
 # repo whose AdamW state fits one card): (arch, batch, seq, microbatches,
@@ -386,6 +415,11 @@ MODEL_MOE_V3 = ("deepseek-v3-671b", 4, 1024, 32, 5)
 # is restored into a fresh state that runs steps 2 and 3 again.
 TRAIN = ("h2o-danube-1.8b", 2, 8192, 2, 4)
 TRAIN_CKPT_EVERY = 2
+# whisper-tiny whole, through the same `init`, `train` and `resume`: 16
+# clips of 1500 frames under 448 decoder tokens (whisper's full decoder
+# window), 2 microbatches, remat, 3 steps; a checkpoint after step 1 is
+# restored into a fresh state that runs step 2 again
+TRAIN_WHISPER = ("whisper-tiny", 16, 448, 2, 3)
 # the recurrent families' training at full published width, depth cut:
 # phase -> (arch, layers, batch, seq, microbatches, steps). recurrentgemma-9b
 # (src/repro/configs/recurrentgemma_9b.py) at one (rec, rec, attn) period
@@ -396,6 +430,10 @@ TRAIN_CKPT_EVERY = 2
 TRAIN_FAMILIES = {
     "train_recurrentgemma_9b": ("recurrentgemma-9b", 3, 2, 4096, 2, 3),
     "train_rwkv6_3b": ("rwkv6-3b", 8, 2, 4096, 2, 3),
+    # qwen2-vl-2b (src/repro/configs/qwen2_vl_2b.py) whole, all 28 layers
+    # (1.544e9 parameters; its AdamW state ~15 GB), from the vision stub's
+    # embeddings: batch 2 x 4096 in 2 microbatches under remat, 3 steps
+    "train_qwen2_vl_2b": ("qwen2-vl-2b", 28, 2, 4096, 2, 3),
 }
 # the trainer on the card against the CPU path: the full width at 2 layers
 # (bf16, batch 1, seq 512), the narrow fp32 dense config and its bf16 twin
@@ -642,7 +680,14 @@ FLASH_SHAPES = [(b, s, s, h, kv, d, c, w) for b, s, h, kv, d in FLASH_SWEEP
     (1, 200, 200, 6, 3, 96, False, 0), (1, 300, 300, 16, 1, 256, True, 128),
     (1, 200, 300, 32, 8, 80, True, 96),
     # more work items than SMs: each persistent block walks several
-    (2, 1100, 1100, 16, 4, 64, True, 0), (1, 650, 650, 48, 2, 256, True, 200)]
+    (2, 1100, 1100, 16, 4, 64, True, 0), (1, 650, 650, 48, 2, 256, True, 200),
+    # the model zoo's enc-dec and M-RoPE shapes: whisper-tiny's causal
+    # encoder over 1500 frames, its cross-attention (4 decoder queries over
+    # 1500 keys, unmasked, the last key tile ragged) and its decoder's
+    # 4-token self-attention, 16 clips at head_dim 64; qwen2-vl-2b's
+    # prefill (12 query heads over 2 KV heads of 128)
+    (16, 1500, 1500, 6, 6, 64, True, 0), (16, 4, 1500, 6, 6, 64, False, 0),
+    (16, 4, 4, 6, 6, 64, True, 0), (4, 2048, 2048, 12, 2, 128, True, 0)]
 # the flash backward kernel vs its plain version (`ref.attention_bwd`),
 # random inputs: (b, s, t, h, kv, d, causal, window) — head dims 64, 80,
 # 128 and 256 (and 8, 16 and 40: any multiple of 8), GQA groups 1, 4 and
@@ -654,7 +699,12 @@ FLASH_BWD_SHAPES = [
     (1, 130, 333, 16, 2, 128, True, 100), (2, 128, 128, 4, 4, 128, False, 0),
     (1, 190, 190, 8, 2, 256, True, 0), (1, 200, 260, 8, 1, 256, True, 64),
     (1, 70, 150, 2, 2, 256, False, 0), (1, 97, 97, 4, 2, 40, True, 0),
-    (1, 80, 50, 4, 2, 16, True, 0), (1, 33, 33, 2, 1, 8, True, 0)]
+    (1, 80, 50, 4, 2, 16, True, 0), (1, 33, 33, 2, 1, 8, True, 0),
+    # the trainers' enc-dec and M-RoPE shapes: a microbatch of
+    # whisper-tiny's cross-attention (448 decoder tokens over 1500 frames,
+    # unmasked) and encoder (causal over 1500), qwen2-vl-2b's causal 4096
+    (8, 448, 1500, 6, 6, 64, False, 0), (8, 1500, 1500, 6, 6, 64, True, 0),
+    (1, 4096, 4096, 12, 2, 128, True, 0)]
 # the gates, per element of each gradient: |got - want| <= c1 * |want| + c2
 # * rms(want), (c1, c2) from a table by form. Two wants, both in fp32 of
 # the inputs (bf16 ones widened: the kernel widens them and sums in fp32
@@ -676,6 +726,9 @@ BWD_O_TOL = {"fp32": (1e-6, 1e-3), "bf16": (2 ** -8, 2e-4)}
 # h2o-danube-1.8b's training attention: one microbatch of 8192 tokens, 32
 # query heads and 8 KV heads of 80, its sliding window of 4096
 FLASH_BWD_TRAIN = (1, 8192, 8192, 32, 8, 80, True, 4096)
+# whisper-tiny's training cross-attention: a microbatch of 8 clips, 448
+# decoder queries over 1500 encoder keys, 6 heads of 64, unmasked
+FLASH_BWD_WHISPER = (8, 448, 1500, 6, 6, 64, False, 0)
 # the backward kernels of the scans and the router against their plain
 # gradients (`ref.rglru_bwd`, `ref.rwkv6_wkv_bwd`, `ref.topk_router_bwd`:
 # autograd of the plain forward, in the inputs' dtype as the trainer runs
@@ -855,14 +908,24 @@ def timed_spun_ms(fn, iters, flush):
     return total / iters, spin[0].elapsed_time(spin[1]), host
 
 
+SPUN_ATTEMPTS = 3
+
+
 def spun_ms(label, fn, iters, flush):
-    """`timed_spun_ms`, failing the run when the host's time outlasted the
-    spin (the window would then hold the host's gap before the launch)."""
-    ms, spin_ms, host_ms = timed_spun_ms(fn, iters, flush)
-    if host_ms >= spin_ms:
-        fail(f"{label}: the wrapper's host time ({host_ms} ms) outlasted the spin "
-             f"({spin_ms} ms), so ms_spun would hold the host's gap")
-    return ms, spin_ms, host_ms
+    """`timed_spun_ms`, taken again (up to SPUN_ATTEMPTS times in all) when
+    the host's time outlasted the spin, since the window would then hold
+    the host's gap before the launch (a pause of the host, such as a
+    garbage collection, spoils one measurement); fails the run when no
+    attempt kept the host inside the spin. Returns the first sound
+    attempt's numbers and the attempts taken (1 when the first was
+    sound), which each timed row prints as ``spun_attempts``."""
+    for attempt in range(1, SPUN_ATTEMPTS + 1):
+        ms, spin_ms, host_ms = timed_spun_ms(fn, iters, flush)
+        if host_ms < spin_ms:
+            return ms, spin_ms, host_ms, attempt
+    fail(f"{label}: the wrapper's host time ({host_ms} ms) outlasted the spin "
+         f"({spin_ms} ms) in {SPUN_ATTEMPTS} attempts, so ms_spun would hold the "
+         "host's gap")
 
 
 def launch_floor_ms(flush) -> float:
@@ -1153,17 +1216,20 @@ def flash_bwd_work(q, k, causal, window):
     return nbytes, flops
 
 
-def flash_bwd_row(dev, flush, checks, launches, extra) -> dict:
-    """The `kernels` entry of the backward kernel at h2o-danube-1.8b's
-    training attention (FLASH_BWD_TRAIN, bf16): checked per element
+def flash_bwd_row(dev, flush, checks, launches, extra, shape=FLASH_BWD_TRAIN,
+                  name="flash_attention_bwd[bf16]") -> dict:
+    """The `kernels` entry of the backward kernel at a training attention
+    shape (h2o-danube-1.8b's, FLASH_BWD_TRAIN, or whisper-tiny's
+    cross-attention, FLASH_BWD_WHISPER; bf16): checked per element
     (`bwd_check`), as is its fp32 form at the same shape, and timed spun
     (`spun_ms`) beside the plain gradient and the library yardstick, the
     backward of one `scaled_dot_product_attention` with the band as a
-    boolean mask (timed only: the port never calls it)."""
+    boolean mask, or no mask where nothing is masked (timed only: the port
+    never calls it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    b, s, t, h, kv, d, causal, window = FLASH_BWD_TRAIN
+    b, s, t, h, kv, d, causal, window = shape
     g = torch.Generator(device="cpu").manual_seed(25)
     q, k, v, dout = [torch.randn(sh, generator=g).to(torch.bfloat16).to(dev)
                      for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
@@ -1181,9 +1247,9 @@ def flash_bwd_row(dev, flush, checks, launches, extra) -> dict:
     gates32 = bwd_check(got32, q32, k32, v32, o32, dout32, causal, window, "fp32")
     del got32, q32, k32, v32, o32, dout32
     if not (all(g_["ok"] for g_ in (*gates.values(), *gates32.values())) and repeat_equal):
-        fail(f"flash_attention_bwd at the training shape: bf16 {gates}, fp32 {gates32}, "
+        fail(f"{name} at the training shape {shape}: bf16 {gates}, fp32 {gates32}, "
              f"repeat_equal {repeat_equal}")
-    ms, spin_ms, host_ms = spun_ms(
+    ms, spin_ms, host_ms, attempts = spun_ms(
         "flash_attention_bwd",
         lambda: fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window),
         5, flush)
@@ -1193,7 +1259,11 @@ def flash_bwd_row(dev, flush, checks, launches, extra) -> dict:
     # [B, H, S, D] layout, the band as an explicit boolean mask
     pos = torch.arange(s, device=dev)[:, None] + (t - s)
     cols = torch.arange(t, device=dev)[None, :]
-    mask = (cols <= pos) & (cols > pos - window)
+    mask = None
+    if causal or window:
+        mask = (cols <= pos) if causal else torch.ones_like(cols <= pos)
+        if window:
+            mask &= cols > pos - window
     leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
     dout_t = dout.transpose(1, 2)
@@ -1201,11 +1271,13 @@ def flash_bwd_row(dev, flush, checks, launches, extra) -> dict:
     lib_err = max(float((a.transpose(1, 2).float() - w_.float()).abs().max())
                   for a, w_ in zip(library(), got))
     library_ms = timed_ms(library, 5, flush)
+    library_call = ("autograd.grad of scaled_dot_product_attention(attn_mask="
+                    f"{'band' if mask is not None else 'None'}, enable_gqa=True)")
     del out, leaves, mask
     nbytes, flops = flash_bwd_work(q, k, causal, window)
     t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / BF16_FLOPS
     return {
-        "name": "flash_attention_bwd[bf16]", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         # no TPU kernel: it stands for XLA's autodiff of the reference's
         # jnp attention oracle, the reference's training gradient
@@ -1223,14 +1295,14 @@ def flash_bwd_row(dev, flush, checks, launches, extra) -> dict:
         "fp32_at_this_shape": gates32,
         "repeat_equal": repeat_equal,
         "checks": checks,
-        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "plain_ms": plain_ms,
+        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "spun_attempts": attempts,
+        "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops, "peak_flops": BF16_FLOPS,
         "tflops": flops / ms / 1e9, "of_bound": max(t_bytes, t_ops) / ms,
         "library_ms": library_ms,
-        "library_call": "autograd.grad of scaled_dot_product_attention(attn_mask=band, "
-                        "enable_gqa=True)",
+        "library_call": library_call,
         "library_max_abs_err": lib_err,
         **extra,
     }
@@ -1274,14 +1346,44 @@ def kernel_table() -> dict:
 def prefill_launches(cfg) -> dict:
     """Launches of each kernel in one prefill: one per layer of its kind.
     MLA attends in plain PyTorch (as the reference does), so a DeepSeek
-    model launches no flash kernel; its router runs once per MoE layer."""
+    model launches no flash kernel; its router runs once per MoE layer. An
+    encoder-decoder launches flash once per encoder layer and twice per
+    decoder layer (self-attention, then cross-attention)."""
     kinds = cfg.layer_kinds()
     n_rec = kinds.count("rec")
-    return {"flash_attention": kinds.count("attn") if cfg.mla is None else 0,
+    flash = kinds.count("attn") if cfg.mla is None else 0
+    if cfg.is_encdec:
+        flash = cfg.n_enc_layers + 2 * cfg.n_layers
+    return {"flash_attention": flash,
             "rglru": n_rec if cfg.recurrent == "rglru" else 0,
             "rwkv6_wkv": n_rec if cfg.recurrent == "rwkv6" else 0,
             "topk_router": (cfg.n_layers - cfg.moe.first_k_dense
                             if cfg.moe is not None else 0)}
+
+
+def flash_roles(cfg) -> dict:
+    """The flash calls of one prefill that `model_phase` holds against the
+    plain version, by call index: the first and the last layer's; for an
+    encoder-decoder the encoder's first, the first decoder layer's self-
+    and cross-attention and the last call (the last cross-attention)."""
+    n = prefill_launches(cfg)["flash_attention"]
+    if cfg.is_encdec:
+        e = cfg.n_enc_layers
+        return {0: "encoder", e: "decoder_self", e + 1: "cross", n - 1: "last_cross"}
+    return {0: "first_layer", n - 1: "last_layer"}
+
+
+def by_shape(counts) -> list:
+    """A flash wrapper's ``launches_by_shape`` as JSON rows."""
+    return [dict(q=list(q), k=list(k), causal=c, window=w, calls=n)
+            for (q, k, c, w), n in counts.items()]
+
+
+def shape_calls(rows, q_shape, k_shape, causal, window) -> int:
+    """The launches at one shape among `by_shape`'s rows."""
+    return sum(r["calls"] for r in rows
+               if [r["q"], r["k"], r["causal"], r["window"]]
+               == [list(q_shape), list(k_shape), causal, window])
 
 
 def expected_launches(cfg, gen) -> dict:
@@ -1321,8 +1423,10 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
     same seed must give the same tokens and logits bit for bit); return
     its JSON line and, per kernel,
     the (args, kwargs) its dispatcher got, by call index: from the first
-    and last layers of its kind in the prefill and, for the router, from
-    the first MoE layer of the first decode step."""
+    and last layers of its kind in the prefill (for flash the calls of
+    `flash_roles`) and, for the router, from the first MoE layer of the
+    first decode step. The line also gives the flash launches by shape,
+    as the wrapper counts them where it launches the kernel."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -1333,11 +1437,15 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
     per_prefill = prefill_launches(cfg)
     saved = {name: getattr(ops, attr) for name, (attr, _, _) in table.items()}
     captured = {name: {} for name in table}
+    roles = flash_roles(cfg)
+    flash = table["flash_attention"][1]
     decode_step = D.decode_step
 
     def capture(name):
         n = per_prefill[name]
         keep = {0, n - 1} | ({n} if name == "topk_router" and gen else set())
+        if name == "flash_attention":
+            keep = set(roles)
         dispatch, calls = saved[name], [0]
 
         def wrapper(*args, **kw):
@@ -1361,6 +1469,7 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
     for name, (attr, kernel, _) in table.items():
         setattr(ops, attr, capture(name))
         kernel.launches = 0
+    flash.launches_by_shape.clear()
     D.decode_step = checked_step
     try:
         out = serve.run_model(arch, batch, prompt, gen, seed=0, device=dev,
@@ -1370,6 +1479,7 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
             setattr(ops, attr, saved[name])
         D.decode_step = decode_step
     launches = {name: kernel.launches for name, (_, kernel, _) in table.items()}
+    flash_shapes = dict(flash.launches_by_shape)
     logits = out["logits"]
     line = dict(arch=arch, layers=cfg.n_layers, kinds=cfg.layer_kinds(),
                 d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
@@ -1381,8 +1491,14 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
                 full_layers=full.n_layers,
                 mla=dataclasses.asdict(cfg.mla) if cfg.mla else None,
                 moe=dataclasses.asdict(cfg.moe) if cfg.moe else None,
+                enc_layers=cfg.n_enc_layers, enc_seq=cfg.enc_seq if cfg.is_encdec else None,
+                frontend=cfg.frontend, mrope_sections=list(cfg.mrope_sections),
+                inputs=("tokens" if not cfg.frontend else
+                        "enc_embeds [B, enc_seq, D] + decoder tokens" if cfg.is_encdec
+                        else "input_embeds [B, prompt, D]"),
                 batch=batch, prompt=prompt, gen=gen, launches=launches,
                 expected_launches=expect,
+                flash_calls_by_shape=by_shape(flash_shapes),
                 prefill_ms=out["prefill_ms"],
                 decode_ms_per_token=out["decode_ms_per_token"],
                 tok_per_s=out["tok_per_s"],
@@ -1434,6 +1550,8 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
                 tol = SCAN_TOL[name]["bf16"]
                 err, rel, ok = compare(got, want, tol)
             line["checks"].append(dict(kernel=name, call=layer,
+                                       role=roles.get(layer) if name == "flash_attention"
+                                       else None,
                                        shapes=[list(a.shape) for a in args
                                                if torch.is_tensor(a)],
                                        kw={k: v for k, v in kw.items()
@@ -1444,10 +1562,12 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
                 fail(f"{arch} {name} call {layer}: kernel disagrees "
                      f"with its plain version (max abs err {err}, relative {rel})")
             del got, want
-    # the first layer's inputs (and the router's at the first decode step)
-    # are kept, for the kernels line
+    # the first layer's inputs (and the router's at the first decode step;
+    # an encoder-decoder's first cross-attention's) are kept, for the
+    # kernels line
     line_calls = {name: {0} | ({per_prefill[name]} if name == "topk_router" else set())
                   for name in table}
+    line_calls["flash_attention"] |= {i for i, r in roles.items() if r == "cross"}
     captured = {name: {i: c for i, c in calls.items() if i in line_calls[name]}
                 for name, calls in captured.items() if calls}
     torch.cuda.empty_cache()
@@ -1456,7 +1576,10 @@ def model_phase(arch, batch, prompt, gen, dev, n_layers=None,
 
 def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
     """A narrow fp32 model, the same weights on both devices: prefill a
-    prompt of ``prompt`` (batch 2), then 8 greedy decode steps. The CUDA run (kernels) and
+    prompt of ``prompt`` (batch 2; a frontend's embeddings, an
+    encoder-decoder's encoder input too: `launch.serve.draw_inputs`, drawn
+    on the CPU), then 8 greedy
+    decode steps. The CUDA run (kernels) and
     the CPU run (plain versions) must give equal tokens, and logits within
     1e-4 * (1 + |want|); the CUDA run must launch each kernel once per
     layer of its kind in the prefill, and the router once per MoE layer
@@ -1465,6 +1588,7 @@ def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
     selection score: a CPU and a GPU product may order two scores closer
     than that differently, and then pick another expert."""
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
     table, expect = kernel_table(), expected_launches(cfg, 8)
@@ -1475,8 +1599,7 @@ def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
         return ({k: to_dev(x) for k, x in node.items()} if isinstance(node, dict)
                 else node.to(dev))
 
-    tokens = torch.randint(0, cfg.vocab, (2, prompt),
-                           generator=torch.Generator().manual_seed(seed + 1))
+    inputs = serve.draw_inputs(cfg, 2, prompt, seed + 1, "cpu")
     route, gaps = ops.topk_router, []
 
     def gap_recorder(scores, k, bias=None):
@@ -1487,13 +1610,13 @@ def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
         return route(scores, k, bias=bias)
 
     runs = {}
-    for name, params, toks in (("cuda", to_dev(cpu_params), tokens.to(dev)),
-                               ("cpu", cpu_params, tokens)):
+    for name, params, args in (("cuda", to_dev(cpu_params), to_dev(inputs)),
+                               ("cpu", cpu_params, inputs)):
         for _, kernel, _ in table.values():
             kernel.launches = 0
         ops.topk_router = gap_recorder if name == "cuda" else route
         try:
-            logits, cache = D.prefill(cfg, params, toks, max_len=prompt + 8)
+            logits, cache = D.prefill(cfg, params, max_len=prompt + 8, **args)
             steps = [logits.cpu()]
             greedy = []
             for _ in range(8):
@@ -1679,10 +1802,12 @@ def train_family_phase(dev, phase) -> dict:
     return dict(
         arch=arch, config=f"src/repro/configs/{arch.replace('-', '_').replace('.', '_')}.py",
         layers=n_layers, layers_published=full.n_layers,
-        cut=f"depth {full.n_layers} -> {n_layers} layers; every width as published",
+        cut=(f"depth {full.n_layers} -> {n_layers} layers; every width as published"
+             if n_layers < full.n_layers else "none: every layer and width as published"),
         layer_kinds=cfg.layer_kinds(), d_model=cfg.d_model,
         heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim, d_ff=cfg.d_ff,
         lru_width=cfg.lru_width, window=cfg.local_window, vocab=cfg.vocab, dtype=cfg.dtype,
+        frontend=cfg.frontend, mrope_sections=list(cfg.mrope_sections),
         remat=cfg.remat, n_params=cfg.n_params(),
         n_params_tensors=sum(t.numel() for t in tr.leaves(T.abstract_params(cfg))),
         batch=batch, seq=seq, n_micro=n_micro, steps=steps,
@@ -1694,17 +1819,19 @@ def train_family_phase(dev, phase) -> dict:
         host_syncs="none (sync debug mode 'error' around each step)")
 
 
-def train_phase(dev) -> dict:
+def train_phase(dev, spec=TRAIN) -> dict:
     """The main path of training at full width: `launch.train`'s `init`,
-    `train` and `resume` on TRAIN. Steps 0-1, a checkpoint, steps 2-3 (the
-    uninterrupted run); then the state is freed, a fresh state (other
-    weights) takes the checkpoint through `resume`, and steps 2-3 run again:
+    `train` and `resume` on ``spec`` (TRAIN, or TRAIN_WHISPER). Steps 0-1,
+    a checkpoint, steps 2 on (the uninterrupted run); then the state is
+    freed, a fresh state (other weights) takes the checkpoint through
+    `resume`, and steps 2 on run again:
     their losses and grad norms must equal the uninterrupted run's to
     rtol=1e-6 (the reference's tests/test_training.py). Each step runs
     under the sync debug mode (no host sync inside a step), must give a
     finite loss and grad norm, and must launch the flash kernels
     `train_expected` times (counts zeroed just before the run, read after
-    each step)."""
+    each step). The line gives the uninterrupted run's flash launches by
+    shape, as the wrappers count them."""
     import shutil
     from repro_torch import configs
     from repro_torch.data import pipeline
@@ -1712,7 +1839,7 @@ def train_phase(dev) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.training import train_step as TS
     from repro_torch.training import tree as tr
-    arch, batch, seq, n_micro, steps = TRAIN
+    arch, batch, seq, n_micro, steps = spec
     cfg = configs.get(arch)
     kernels, expect = train_kernels(), train_expected(cfg, n_micro)
     ckpt_dir = ROOT / "train_ckpt"
@@ -1728,6 +1855,8 @@ def train_phase(dev) -> dict:
     try:
         for k in kernels.values():
             k.launches = 0
+        for name in ("flash_attention", "flash_attention_bwd"):
+            kernels[name].launches_by_shape.clear()
         # steps 0 and 1 with a checkpoint after step 1, then steps 2 and 3
         # from the state in memory (no name here keeps a handed-over state)
         t0 = time.perf_counter()
@@ -1743,6 +1872,8 @@ def train_phase(dev) -> dict:
         for state, m in rest:
             metrics.append(m)
         launches = {name: k.launches for name, k in kernels.items()}
+        flash_shapes = {name: by_shape(kernels[name].launches_by_shape)
+                        for name in ("flash_attention", "flash_attention_bwd")}
         whole = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         ckpt_gb = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file()) / 1e9
@@ -1766,15 +1897,15 @@ def train_phase(dev) -> dict:
     del state, again
     torch.cuda.empty_cache()
     if start != 2 or len(resumed) != steps - 2:
-        fail(f"train: resumed at step {start} with {len(resumed)} steps; want 2 and "
-             f"{steps - 2}")
+        fail(f"train {arch}: resumed at step {start} with {len(resumed)} steps; want 2 "
+             f"and {steps - 2}")
     if not all(np.isfinite(whole + resumed).ravel()):
-        fail(f"train: a loss or grad norm is not finite: {whole}, resumed {resumed}")
+        fail(f"train {arch}: a loss or grad norm is not finite: {whole}, resumed {resumed}")
     bad = [i for i, got in enumerate(per_step) if got != expect]
     if bad:
-        fail(f"train: kernel launches per step {per_step} != {expect}")
+        fail(f"train {arch}: kernel launches per step {per_step} != {expect}")
     if not np.allclose(resumed, whole[start:], rtol=1e-6, atol=0):
-        fail(f"train: the resumed steps {resumed} != the uninterrupted run's "
+        fail(f"train {arch}: the resumed steps {resumed} != the uninterrupted run's "
              f"{whole[start:]} (rtol 1e-6)")
     steady = sorted(step_ms[1:])
     med = steady[len(steady) // 2]
@@ -1782,6 +1913,7 @@ def train_phase(dev) -> dict:
         arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
         heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim, d_ff=cfg.d_ff,
         vocab=cfg.vocab, window=cfg.sliding_window, dtype=cfg.dtype, remat=cfg.remat,
+        enc_layers=cfg.n_enc_layers, enc_seq=cfg.enc_seq if cfg.is_encdec else None,
         n_params=cfg.n_params(), n_params_tensors=n_tensors, batch=batch, seq=seq,
         n_micro=n_micro, steps=steps, losses=[m[0] for m in whole],
         grad_norms=[m[1] for m in whole], resumed_from=start - 1,
@@ -1792,6 +1924,7 @@ def train_phase(dev) -> dict:
         tokens_per_s=batch * seq / (med / 1e3), peak_mem_gb=peak_gb,
         init_and_ckpt_save_s=save_s, ckpt_restore_s=restore_s, ckpt_gb=ckpt_gb,
         launches=launches, launches_per_step=per_step[0], expected_per_step=expect,
+        flash_calls_by_shape=flash_shapes,
         backward_cuda_kernels_per_step=2 * expect["flash_attention_bwd"],
         split=split, host_syncs="none (sync debug mode 'error' around each step)")
 
@@ -2227,7 +2360,8 @@ def bwd_row(name, form, shape, source, launches, flush, checks, floor_ms, extra)
     if not gate["ok"]:
         fail(f"{name}_bwd[{form}] at the training shape: {gate}")
     del got
-    ms, spin_ms, host_ms = spun_ms(f"{name}_bwd", lambda: kernel(*args), 5, flush)
+    ms, spin_ms, host_ms, attempts = spun_ms(f"{name}_bwd", lambda: kernel(*args), 5,
+                                             flush)
     plain_ms = timed_ms(lambda: plain_fn(*args), 1, flush)
     x = args[0]
     es = x.element_size()
@@ -2256,7 +2390,8 @@ def bwd_row(name, form, shape, source, launches, flush, checks, floor_ms, extra)
                  if name == "rglru" else
                  "|err| <= tol[0] * |want| + tol[1] * rms(want) per element"),
         "checks": [c for c in checks if c["kernel"] == f"{name}_bwd"],
-        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "floor_ms": floor_ms,
+        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "spun_attempts": attempts,
+        "floor_ms": floor_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2284,8 +2419,8 @@ def router_bwd_row(form, launches, flush, checks, floor_ms, extra) -> dict:
     gate = grad_gate((got,), (ref.topk_router_bwd(scores, idx, dw),), ROUTER_BWD_TOL)
     if not gate["ok"]:
         fail(f"topk_router_bwd[{form}] at the full width: {gate}")
-    ms, spin_ms, host_ms = spun_ms(f"topk_router_bwd {form}",
-                                   lambda: mr.topk_router_bwd(scores, idx, dw), 50, flush)
+    ms, spin_ms, host_ms, attempts = spun_ms(
+        f"topk_router_bwd {form}", lambda: mr.topk_router_bwd(scores, idx, dw), 50, flush)
     plain_ms = timed_ms(lambda: ref.topk_router_bwd(scores, idx, dw), 10, flush)
     nbytes = t * k * 12 + t * e * 4
     t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * 8 * t * k / FP32_FLOPS
@@ -2298,8 +2433,8 @@ def router_bwd_row(form, launches, flush, checks, floor_ms, extra) -> dict:
         **{key: gate[key] for key in ("max_abs_err", "err_over_rms", "tol")},
         "gate": "|err| <= tol[0] * |want| + tol[1] * rms(want) per element",
         "checks": checks,
-        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "floor_ms": floor_ms,
-        "plain_ms": plain_ms,
+        "ms": ms, "spin_ms": spin_ms, "host_ms_max": host_ms, "spun_attempts": attempts,
+        "floor_ms": floor_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "of_bound": max(t_bytes, t_ops) / ms,
@@ -2344,6 +2479,10 @@ def flash_row(name, form, q, k, v, causal, window, launches, flush, checks,
     lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
     ms = timed_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
                   5, flush)
+    # spun (`spun_ms`): the window holds the launch and not the host's gap
+    # before it, which the shortest shapes (whisper's cross-attention) need
+    ms_spun, spin_ms, host_ms, attempts = spun_ms(
+        name, lambda: fa.flash_attention(q, k, v, causal=causal, window=window), 5, flush)
     plain_ms = timed_ms(lambda: ref.attention(q, k, v, causal=causal, window=window),
                         3, flush)
     library_ms = timed_ms(library, 10, flush)
@@ -2360,13 +2499,15 @@ def flash_row(name, form, q, k, v, causal, window, launches, flush, checks,
         "max_abs_err": err, "max_rel_err": rel, "tol": TOL[form],
         "gate": "max_abs_err / max|want| <= tol",
         "checks": [c for c in checks if c["form"] == form],
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "ms_spun": ms_spun, "spin_ms": spin_ms, "host_ms_max": host_ms,
+        "spun_attempts": attempts, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
         "peak_flops": peak,
         # achieved rate and the share of the bound this run reached
         "tflops": flops / ms / 1e9, "of_bound": max(t_bytes, t_ops) / ms,
+        "of_bound_spun": max(t_bytes, t_ops) / ms_spun,
         "library_ms": library_ms, "library_call": library_call,
         "library_max_abs_err": lib_err,
         **extra,
@@ -2467,13 +2608,14 @@ def router_row(name, scores, k, bias, decode_in, launches, flush, checks,
             fail(f"{name}: a second call on the main path's {pre or 'prefill_'}inputs "
                  "gave other bits")
         ms = timed_ms(lambda: mr.topk_router(s, k, **kw), 20, flush)
-        ms_spun, spin_ms, host_ms = spun_ms(f"{name} {pre or 'prefill'}",
-                                            lambda: mr.topk_router(s, k, **kw), 50, flush)
+        ms_spun, spin_ms, host_ms, attempts = spun_ms(
+            f"{name} {pre or 'prefill'}", lambda: mr.topk_router(s, k, **kw), 50, flush)
         bound, bound_by, nbytes, flops = router_bound(*s.shape, k, kw.get("bias") is not None)
         row.update({f"{pre}shape": list(s.shape), f"{pre}max_abs_err": err,
                     f"{pre}idx_equal": same, f"{pre}repeat_equal": repeat,
                     f"{pre}ms": ms, f"{pre}ms_spun": ms_spun, f"{pre}spin_ms": spin_ms,
-                    f"{pre}host_ms_max": host_ms, f"{pre}bound_ms": bound,
+                    f"{pre}host_ms_max": host_ms, f"{pre}spun_attempts": attempts,
+                    f"{pre}bound_ms": bound,
                     f"{pre}bound_by": bound_by, f"{pre}bytes": nbytes,
                     f"{pre}flops": flops, f"{pre}of_bound": bound / ms_spun,
                     f"{pre}of_bound_floor": max(bound, floor_ms) / ms_spun})
@@ -2626,7 +2768,7 @@ def ftl_phase(dev, flush, floor_ms) -> tuple[dict, dict]:
     if not all(c["exact"] and c["repeat_equal"] for c in sweep):
         fail(f"ftl: kernel differs from its plain version on the sweep: {sweep}")
     ms = timed_ms(lambda: fk.ftl_lookup(lpns, directory, cache, entries), 20, flush)
-    ms_spun, spin_ms, host_ms = spun_ms(
+    ms_spun, spin_ms, host_ms, attempts = spun_ms(
         "ftl", lambda: fk.ftl_lookup(lpns, directory, cache, entries), 20, flush)
     plain_ms = timed_ms(lambda: ref.ftl_lookup(lpns, directory, cache, entries),
                         10, flush)
@@ -2635,7 +2777,7 @@ def ftl_phase(dev, flush, floor_ms) -> tuple[dict, dict]:
     # the kernel's gathers fetch, but it does not compute the lookup (no
     # directory walk, no misses), so it is no library_ms
     flat = ftl_hit_positions(lpns, directory, entries)
-    gather_ms, gather_spin_ms, gather_host_ms = spun_ms(
+    gather_ms, gather_spin_ms, gather_host_ms, gather_attempts = spun_ms(
         "ftl gather", lambda: cache.view(-1).index_select(0, flat), 20, flush)
     # the least bytes THIS burst needs, and the same with a whole sector
     # per mapping gather
@@ -2658,14 +2800,14 @@ def ftl_phase(dev, flush, floor_ms) -> tuple[dict, dict]:
         "max_abs_err": burst_err, "gate": "bit for bit (PPNs and hits)",
         "checks": sweep, "repeat_equal": repeat_equal,
         "ms": ms, "ms_spun": ms_spun, "spin_ms": spin_ms, "host_ms_max": host_ms,
-        "plain_ms": plain_ms, "floor_ms": floor_ms,
+        "spun_attempts": attempts, "plain_ms": plain_ms, "floor_ms": floor_ms,
         # integer work: a division, a few compares per LPN
         "bound_ms": t_bytes, "bound_by": "bytes",
         "of_bound": t_bytes / ms_spun, "of_bound_floor": max(t_bytes, floor_ms) / ms_spun,
         "bytes": nbytes, "hits": n_hits,
         "sector_bound_ms": 1e3 * sector_bytes / HBM_BPS, "sector_bytes": sector_bytes,
         "gather_ms": gather_ms, "gather_spin_ms": gather_spin_ms,
-        "gather_host_ms_max": gather_host_ms,
+        "gather_host_ms_max": gather_host_ms, "gather_spun_attempts": gather_attempts,
         "gather_call": "mapping_cache.view(-1).index_select(0, hit positions) "
                        "(the hit entries only: a yardstick, not the lookup)",
         # no single PyTorch call computes the two-level translation
@@ -2991,7 +3133,7 @@ def window_row(call, by_phase, flush, floor_ms) -> dict:
         fail(f"shards_window: kernel differs from its plain version ({equal}) or "
              f"from itself ({repeat_equal}) on the main path's last window")
     ms = timed_ms(lambda: sw.shards_window(*args, **kw), 20, flush)
-    ms_spun, spin_ms, host_ms = spun_ms(
+    ms_spun, spin_ms, host_ms, attempts = spun_ms(
         "shards_window", lambda: sw.shards_window(*args, **kw), 20, flush)
     plain_ms = timed_ms(lambda: ref.shards_window(*args, **kw), 1, flush)
     nbytes = window_bytes(args)
@@ -3011,7 +3153,7 @@ def window_row(call, by_phase, flush, floor_ms) -> dict:
         "max_abs_err": err, "gate": "bit for bit (all six state tensors)",
         "repeat_equal": repeat_equal,
         "ms": ms, "ms_spun": ms_spun, "spin_ms": spin_ms, "host_ms_max": host_ms,
-        "plain_ms": plain_ms, "floor_ms": floor_ms,
+        "spun_attempts": attempts, "plain_ms": plain_ms, "floor_ms": floor_ms,
         # a serial chain of warp reductions per sampled reference: bytes are
         # the only bound the table gives, and the kernel is far from it
         "bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes,
@@ -3742,6 +3884,14 @@ def main() -> None:
                                          n_layers=MODEL_MOE_V3[4], repeat=True)
     print(json.dumps({"model_moe_v3": moe_v3_line}), flush=True)
     lap("models")
+    # the encoder-decoder (frame embeddings through the encoder, decoder
+    # tokens with cross-attention) and the M-RoPE model (patch embeddings)
+    whisper_line, whisper_in = model_phase(*MODEL_WHISPER, dev)
+    print(json.dumps({"model_whisper_tiny": whisper_line, "card": card}), flush=True)
+    lap("model_whisper_tiny")
+    qwen2_vl_line, qwen2_vl_in = model_phase(*MODEL_QWEN2_VL, dev)
+    print(json.dumps({"model_qwen2_vl_2b": qwen2_vl_line, "card": card}), flush=True)
+    lap("model_qwen2_vl_2b")
 
     # ---- 2c. the trainer's main path at full width (h2o-danube-1.8b),
     # with a checkpoint and a restart; the recurrent families at full width
@@ -3751,6 +3901,9 @@ def main() -> None:
     train_line = train_phase(dev)
     print(json.dumps({"train_h2o_danube": train_line, "card": card}), flush=True)
     lap("train_h2o_danube")
+    whisper_train = train_phase(dev, TRAIN_WHISPER)
+    print(json.dumps({"train_whisper_tiny": whisper_train, "card": card}), flush=True)
+    lap("train_whisper_tiny")
     family_lines = {}
     for phase in TRAIN_FAMILIES:
         family_lines[phase] = train_family_phase(dev, phase)
@@ -3771,6 +3924,12 @@ def main() -> None:
     vs_cpu += [train_vs_cpu(dev, configs.smoke(arch), seed, 2, 128)
                for seed, arch in ((23, "recurrentgemma-9b"), (25, "rwkv6-3b"),
                                   (27, "deepseek-v2-236b"), (29, "deepseek-v3-671b"))]
+    # whisper-tiny whole at its decoder's window over 1500 frames,
+    # qwen2-vl-2b at 2 layers (bf16), and their smoke configs (fp32)
+    vs_cpu += [train_vs_cpu(dev, configs.get("whisper-tiny"), 31, 1, 448),
+               train_vs_cpu(dev, cut("qwen2-vl-2b", 2), 33, *TRAIN_VS_CPU)]
+    vs_cpu += [train_vs_cpu(dev, configs.smoke(arch), seed, 2, 128)
+               for seed, arch in ((35, "whisper-tiny"), (37, "qwen2-vl-2b"))]
     print(json.dumps({"train_gpu_vs_cpu": {"steps": vs_cpu}, "card": card}), flush=True)
     lap("train_gpu_vs_cpu")
     train_gpu_cpu_launches = {name: sum(c["launches"][name] for c in vs_cpu)
@@ -3804,7 +3963,7 @@ def main() -> None:
         if not repeat_equal:
             fail(f"{form}: a second call on the main path's inputs gave other bits")
         ms = timed_ms(lambda: pa.paged_attention(*args, **kw), 20, flush)
-        ms_spun, spin_ms, host_ms = spun_ms(
+        ms_spun, spin_ms, host_ms, attempts = spun_ms(
             form, lambda: pa.paged_attention(*args, **kw), 20, flush)
         plain_ms = timed_ms(lambda: plain(ref, args, kw), 5, flush)
         nbytes, flops = work(args, kw)
@@ -3828,7 +3987,7 @@ def main() -> None:
             # with a spin kernel ahead of the start event, so the host's
             # time before the launch stays out of the window
             "ms": ms, "ms_spun": ms_spun, "spin_ms": spin_ms,
-            "host_ms_max": host_ms, "plain_ms": plain_ms,
+            "host_ms_max": host_ms, "spun_attempts": attempts, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "of_bound": max(t_bytes, t_ops) / ms_spun,
@@ -3881,7 +4040,9 @@ def main() -> None:
                         (5, configs.smoke("recurrentgemma-9b"), 128),
                         (7, configs.smoke("rwkv6-3b"), 128),
                         (9, configs.smoke("deepseek-v2-236b"), 1040),
-                        (11, configs.smoke("deepseek-v3-671b"), 1040))}
+                        (11, configs.smoke("deepseek-v3-671b"), 1040),
+                        (39, configs.smoke("whisper-tiny"), 128),
+                        (41, configs.smoke("qwen2-vl-2b"), 128))}
     print(json.dumps({"gpu_vs_cpu_model": model_checks}), flush=True)
     lap("gpu_vs_cpu")
     gpu_cpu_launches = {name: sum(c["launches"][name] for c in model_checks.values())
@@ -3923,12 +4084,53 @@ def main() -> None:
     del q, k, v
 
     # the backward kernel at the trainer's attention shape
+    # whisper-tiny's encoder (causal over 1500 frames) and cross-attention
+    # (4 decoder queries over 1500 keys, unmasked), qwen2-vl-2b's prefill
+    # (12 query heads over 2 KV heads of 128): launches at each shape
+    # (the wrappers' counts at the shape: one an encoder layer, one a
+    # decoder layer, one a layer)
+    wcfg = configs.get(MODEL_WHISPER[0])
+    roles = flash_roles(wcfg)
+    for label, line, captured, call, want in (
+            ("whisper_encoder", whisper_line, whisper_in, 0, wcfg.n_enc_layers),
+            ("whisper_cross", whisper_line, whisper_in,
+             next(i for i, r in roles.items() if r == "cross"), wcfg.n_layers),
+            ("qwen2_vl", qwen2_vl_line, qwen2_vl_in, 0, qwen2_vl_line["layers"])):
+        (q, k, v), kw = captured["flash_attention"][call]
+        n = shape_calls(line["flash_calls_by_shape"], q.shape, k.shape, kw["causal"],
+                        kw["window"])
+        if n != want:
+            fail(f"flash_attention[bf16,{label}]: {n} launches at its shape in "
+                 f"{line['arch']}'s run, want {want}")
+        kernels.append(flash_row(
+            f"flash_attention[bf16,{label}]", "bf16", q, k, v, kw["causal"], kw["window"],
+            n, flush, fchecks,
+            {"on_main_path": True, "phase": line["arch"].replace("-", "_"),
+             "launches_all_shapes": line["launches"]["flash_attention"]}))
+        del q, k, v
+    del whisper_in, qwen2_vl_in
+
     kernels.append(flash_bwd_row(
         dev, flush, bchecks, train_line["launches"]["flash_attention_bwd"],
         {"on_main_path": True, "phase": "train_h2o_danube",
          "launches_train_recurrentgemma_9b":
              family_lines["train_recurrentgemma_9b"]["launches"]["flash_attention_bwd"],
          "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention_bwd"]}))
+    # whisper-tiny's training cross-attention: one backward a decoder layer
+    # and microbatch in each step of the uninterrupted run (the steps the
+    # line's `launches` count), as the wrapper counted them at the shape
+    b, s, t, h, kv, d, causal, window = FLASH_BWD_WHISPER
+    n = shape_calls(whisper_train["flash_calls_by_shape"]["flash_attention_bwd"],
+                    (b, s, h, d), (b, t, kv, d), causal, window)
+    want = wcfg.n_layers * TRAIN_WHISPER[3] * TRAIN_WHISPER[4]
+    if n != want:
+        fail(f"flash_attention_bwd[bf16,whisper_cross]: {n} launches at its shape in "
+             f"train_whisper_tiny's uninterrupted run, want {want}")
+    kernels.append(flash_bwd_row(
+        dev, flush, bchecks, n,
+        {"on_main_path": True, "phase": "train_whisper_tiny",
+         "launches_all_shapes": whisper_train["launches"]["flash_attention_bwd"]},
+        shape=FLASH_BWD_WHISPER, name="flash_attention_bwd[bf16,whisper_cross]"))
 
     # the scans' backward kernels at their training shapes (random bf16
     # inputs), launched by the recurrent families' train phases

@@ -165,9 +165,11 @@ def main() -> None:
                 err, _, ok = cs.router_compare(got, want[label])
             first.setdefault(label, got)
             ms = cs.timed_ms(fn, 20, flush)
-            ms_spun, spin_ms, host_ms = cs.spun_ms(f"{name} {label}", fn, 50, flush)
+            ms_spun, spin_ms, host_ms, attempts = cs.spun_ms(f"{name} {label}", fn, 50,
+                                                             flush)
             row["inputs"][label] = dict(
                 ms=ms, ms_spun=ms_spun, spin_ms=spin_ms, host_ms_max=host_ms,
+                spun_attempts=attempts,
                 over_floor=ms_spun / floor_ms, max_abs_err=err, ok=ok,
                 repeat_equal=cs.same_bits(got, again),
                 first_equal=cs.same_bits(got, first[label]))

@@ -256,6 +256,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import MODEL_MOE_V2, MODEL_MOE_V3
     from repro_torch import configs
+    from repro_torch.launch import serve
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
 
@@ -273,16 +274,18 @@ def main() -> None:
         return profile_train(args, cfg, dev)
     params = T.init_params(cfg, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(1))
+    # a prompt of tokens, or the frontend stubs' embeddings (qwen2-vl's in
+    # place of the tokens; whisper's encoder input beside them), as
+    # `run_model` draws them from seed 0
+    inputs = serve.draw_inputs(cfg, args.batch, args.prompt_len, 0, dev)
     max_len = args.prompt_len + 2 * args.decode_steps + 2
 
     labels = label_layers()
     state = {}
 
     def do_prefill():
-        state["logits"], state["cache"] = D.prefill(cfg, params, tokens,
-                                                    max_len=max_len)
+        state["logits"], state["cache"] = D.prefill(cfg, params, max_len=max_len,
+                                                    **inputs)
 
     def do_decode():
         for _ in range(args.decode_steps):

@@ -33,6 +33,10 @@ Ported so far:
   and deepseek-v3-671b (`models/moe.py`, MLA in `models/attention.py`,
   the latent cache), with the MoE top-k router kernel
   (`kernels/csrc/moe_router.cu`);
+- the same serve path for whisper-tiny (an encoder stack, then a decoder
+  with cross-attention over the encoder's output; a self and a cross
+  cache) and qwen2-vl-2b (M-RoPE, prefill from embeddings), both fed by
+  their frontend stubs' embeddings (`launch.serve.run_model` draws them);
 - the FTL's LPN -> PPN lookup (`kernels.ops.ftl_lookup`), with its kernel
   (`kernels/csrc/ftl_lookup.cu`);
 - the JBOF simulator (`jbof.sim.simulate` with `jbof.platforms`,
@@ -44,11 +48,14 @@ Ported so far:
   lm_loss` with remat; `training.compression` off the path). Prefill
   flash attention carries a gradient (`kernels.flash_attention.
   FlashAttention`, whose backward is `kernels/csrc/flash_attention_bwd.cu`),
-  so the dense family trains on the card; every other CUDA wrapper raises
+  and so do the RG-LRU and WKV scans and the MoE router (`kernels.ops`'
+  autograd Functions, each with a backward kernel): every architecture
+  trains on the card; a raw CUDA wrapper raises
   ``NotImplementedError("later slice: no backward kernel ...")`` under
-  grad, so the recurrent and MoE families train on the CPU path only.
+  grad.
 
-Configurations and architectures outside these raise
+Combinations of blocks that no config has (an encoder-decoder with MoE,
+MLA or recurrent blocks; MoE without MLA) raise
 ``NotImplementedError("later slice")``.
 """
 from __future__ import annotations

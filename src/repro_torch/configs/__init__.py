@@ -2,10 +2,10 @@
 published config (``CONFIG``) and a reduced same-family config
 (``smoke()``), copied from `repro.configs`.
 
-All ten architectures are named. The port runs eight: the dense family,
-rwkv6, the RG-LRU hybrid and the DeepSeek MoE/MLA pair. The two whose
-blocks it does not run yet (whisper's enc-dec, qwen2-vl's M-RoPE) raise
-``NotImplementedError("later slice")`` from `get` and `smoke`.
+All ten architectures are named and the port runs all ten: the dense
+family, rwkv6, the RG-LRU hybrid, the DeepSeek MoE/MLA pair, whisper's
+encoder-decoder (a stub frontend over precomputed frame embeddings) and
+qwen2-vl's M-RoPE stack (a stub frontend over patch embeddings).
 """
 from __future__ import annotations
 
@@ -23,11 +23,10 @@ _MODULES = {
     "qwen2-vl-2b": "qwen2_vl_2b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
-# the dense family, rwkv6, the RG-LRU hybrid and the DeepSeek MoE/MLA
-# pair, which this port runs
+# the architectures this port runs: every one the reference names
 PORTED = ("granite-8b", "h2o-danube-1.8b", "internlm2-20b", "qwen3-14b",
           "rwkv6-3b", "recurrentgemma-9b", "deepseek-v2-236b",
-          "deepseek-v3-671b")
+          "deepseek-v3-671b", "whisper-tiny", "qwen2-vl-2b")
 
 ARCH_NAMES = list(_MODULES)
 
@@ -35,9 +34,6 @@ ARCH_NAMES = list(_MODULES)
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCH_NAMES}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"later slice: {name} is not ported yet (ported: {list(PORTED)})")
     return import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -172,6 +172,21 @@ def commit_batch(log: LogPages, segments: torch.Tensor, keys: torch.Tensor,
     )
 
 
+def commit_batch_scan(log: LogPages, segments: torch.Tensor, keys: torch.Tensor,
+                      vals: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> LogPages:
+    """The per-entry oracle of `commit_batch`: the entries one `commit`
+    after another, in batch order (the batch on the last axis; a log with
+    leading axes takes one entry per log each time). `commit_batch` must
+    give the same log bit for bit."""
+    if mask is None:
+        mask = torch.ones(segments.shape, dtype=torch.bool, device=segments.device)
+    for i in range(segments.shape[-1]):
+        log = commit(log, segments[..., i], keys[..., i], vals[..., i],
+                     enable=mask[..., i])
+    return log
+
+
 def replay(log: LogPages, base_table: torch.Tensor) -> torch.Tensor:
     """Lender-failure recovery: apply the surviving redo entries over the
     borrower's last durable image ``base_table`` int32[table_size]. Entries

@@ -12,7 +12,9 @@ for the design. Plain version: `kernels.ref.attention`.
 `flash_attention` launches the kernel on PyTorch's current stream for CUDA
 tensors only and raises on anything it does not take; the dispatcher
 `kernels.ops.attention` sends CPU tensors to the plain version.
-``flash_attention.launches`` counts launches.
+``flash_attention.launches`` counts launches, and
+``flash_attention.launches_by_shape`` the same launches by (q's shape,
+k's shape, causal, window).
 
 Its gradient: `FlashAttention`, a ``torch.autograd.Function`` whose
 forward launches the kernel above unchanged (and saves q, k, v and its
@@ -20,7 +22,8 @@ output) and whose backward launches `flash_attention_bwd`, the wrapper of
 `csrc/flash_attention_bwd.cu` (no TPU kernel behind it: the reference's
 gradient is XLA's autodiff of its jnp oracle). Plain version:
 `kernels.ref.attention_bwd`. ``flash_attention_bwd.launches`` counts its
-calls, each two CUDA kernels (statistics and dq, then dk and dv).
+calls, each two CUDA kernels (statistics and dq, then dk and dv), and
+``flash_attention_bwd.launches_by_shape`` the same calls by shape.
 """
 from __future__ import annotations
 
@@ -90,6 +93,13 @@ def _check(q, k, v, causal, window):
                     f"{t.data_ptr():#x} (a view with a storage offset?)")
 
 
+def _count(wrapper, q, k, causal, window) -> None:
+    """One more launch of ``wrapper``, in all and at its shape."""
+    wrapper.launches += 1
+    key = (tuple(q.shape), tuple(k.shape), bool(causal), int(window))
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     scale: float | None = None) -> torch.Tensor:
@@ -115,11 +125,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, window {window}")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+    _count(flash_attention, q, k, causal, window)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_shape = {}
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,11 +168,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, window {window}")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, q, k, causal, window)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_shape = {}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -3,8 +3,11 @@ and the XBOF harvesting runtime layer.
 
 Port of `repro.launch.serve`. `run_model` drives the model zoo's serve
 path (`models.transformer.init_params`, `models.decode.prefill`, then
-`models.decode.decode_step` per token) for the dense family, the
-DeepSeek MoE/MLA pair, rwkv6 and the RG-LRU hybrid (recurrentgemma);
+`models.decode.decode_step` per token) for every architecture: the dense
+family, the DeepSeek MoE/MLA pair, rwkv6, the RG-LRU hybrid
+(recurrentgemma), qwen2-vl (prefill from the vision stub's patch
+embeddings) and whisper (the audio stub's frame embeddings into the
+encoder, a decoder prompt of tokens);
 `run_runtime_layer` runs N data-parallel engine replicas under skewed
 arrivals, redirecting overload through the unified `core.manager` round.
 Both run on CUDA unless given ``--device``.
@@ -15,6 +18,8 @@ Both run on CUDA unless given ``--device``.
       --device cpu --batch 2 --prompt-len 16 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --smoke --device cpu --batch 2 --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --batch 16 --prompt-len 4 --gen 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
       --device cpu --batch 2 --prompt-len 16 --gen 4 --replicas 4
 """
@@ -37,12 +42,37 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def draw_inputs(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """The serve path's inputs for ``cfg`` on ``device``, as the
+    reference's launcher draws them: a prompt of ``tokens`` [batch,
+    prompt_len] from ``seed + 1``; for a frontend model (qwen2-vl) normal
+    ``input_embeds`` [batch, prompt_len, D] from ``seed + 2`` in their
+    place; for an encoder-decoder (whisper) also normal ``enc_embeds``
+    [batch, enc_seq, D] from ``seed + 3``. Each from its own generator on
+    ``device``."""
+    dev = torch.device(device)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    inputs = {}
+    if cfg.frontend and not cfg.is_encdec:
+        inputs["input_embeds"] = torch.randn((batch, prompt_len, cfg.d_model),
+                                             device=dev, generator=gen(seed + 2))
+    else:
+        inputs["tokens"] = torch.randint(0, cfg.vocab, (batch, prompt_len), device=dev,
+                                         generator=gen(seed + 1))
+    if cfg.is_encdec:
+        inputs["enc_embeds"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                           device=dev, generator=gen(seed + 3))
+    return inputs
+
+
 def run_model(arch: str, batch: int, prompt_len: int, gen: int, *,
               smoke: bool = False, seed: int = 0, device=None,
               cfg=None) -> dict:
     """Prefill a random prompt of ``batch`` x ``prompt_len`` tokens, then
     decode ``gen`` tokens greedily, on ``device`` (CUDA when None), with
-    weights drawn by `init_params` from ``seed``. ``cfg`` (an
+    weights drawn by `init_params` from ``seed`` and inputs by
+    `draw_inputs` (a frontend model prefills from embeddings in place of
+    the tokens; an encoder-decoder also takes the encoder's). ``cfg`` (an
     `ArchConfig`), when given, replaces the named config: a harness runs a
     depth-cut config through it (``dataclasses.replace(configs.get(arch),
     n_layers=...)``) when the whole model does not fit one card. Prints the
@@ -57,13 +87,11 @@ def run_model(arch: str, batch: int, prompt_len: int, gen: int, *,
     params = T.init_params(
         cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
     n_params = sum(t.numel() for t in T.leaves(params))
-    tokens = torch.randint(
-        0, cfg.vocab, (batch, prompt_len), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    inputs = draw_inputs(cfg, batch, prompt_len, seed, dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = D.prefill(cfg, params, tokens, max_len=prompt_len + gen)
+    logits, cache = D.prefill(cfg, params, max_len=prompt_len + gen, **inputs)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     print(f"prefill {batch}x{prompt_len}: {prefill_s:.3f}s")
@@ -122,8 +150,7 @@ def run_runtime_layer(n_replicas: int, steps: int = 12, device=None) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=configs.ARCH_NAMES, default=None,
-                    help="run the model's prefill + greedy decode (the ported "
-                         f"archs: {', '.join(configs.PORTED)})")
+                    help="run the model's prefill + greedy decode")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,11 +1,17 @@
-"""Attention blocks: grouped-query attention with RoPE, qk-norm and an
-optional sliding window, and DeepSeek's Multi-head Latent Attention (MLA).
+"""Attention blocks: grouped-query attention with RoPE or M-RoPE,
+qk-norm, an optional sliding window and cross-attention, and DeepSeek's
+Multi-head Latent Attention (MLA).
 
-Port of `repro.models.attention`. `gqa_train` is the full-sequence causal
-attention used by `transformer.forward` and `decode.prefill`; its
-single-token decode lives in `decode._decode_gqa`. Its inner product goes
-through `repro_torch.kernels.ops.attention`, which launches the CUDA flash
-kernel for CUDA tensors and runs the plain version for CPU tensors.
+Port of `repro.models.attention`. `gqa_train` is the full-sequence
+attention used by `transformer.forward` and `decode.prefill`: causal
+self-attention, or cross-attention (``kv_source``: keys and values from
+an encoder's output, no RoPE, no mask). Its inner product goes through
+`repro_torch.kernels.ops.attention`, which launches the CUDA flash kernel
+for CUDA tensors and runs the plain version for CPU tensors. `gqa_decode`
+steps one token against a `KVCache` (a ring at a sliding window, else a
+linear cache); the model's own decode step is `decode._decode_gqa`, which
+writes into the stacked cache, as the reference's is (its `gqa_decode`
+has no caller there either).
 
 MLA (`mla_train`, `mla_decode`) attends in the compressed latent space
 against a cache of the latent ``c_kv`` and the shared RoPE key. Its
@@ -14,8 +20,7 @@ jnp (it never reaches a kernel): dense scores below `ref.CHUNKED_THRESHOLD`
 keys, an online softmax over chunks of `ref.CHUNK` keys at or above it
 when the key count is a multiple of the chunk. `mla_decode` is the
 reference's single-device path; its sequence-sharded form
-(`mla_decode_seq_sharded`) waits for the launch slice. M-RoPE and
-cross-attention come with later slices.
+(`mla_decode_seq_sharded`) waits for the launch slice.
 """
 from __future__ import annotations
 
@@ -25,8 +30,14 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import CHUNK, CHUNKED_THRESHOLD, NEG_INF
-from .common import apply_rope, rmsnorm
+from .common import apply_mrope, apply_rope, rmsnorm
 from .config import ArchConfig
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # [B, S_max, n_kv, Dh]
+    v: torch.Tensor        # [B, S_max, n_kv, Dh]
+    length: torch.Tensor   # [] int32 — tokens already cached
 
 
 def _positions(s: int, device=None) -> torch.Tensor:
@@ -34,29 +45,82 @@ def _positions(s: int, device=None) -> torch.Tensor:
 
 
 def _rope_q_k(cfg: ArchConfig, q, k, positions):
+    """RoPE, or with ``cfg.mrope_sections`` M-RoPE with one position for
+    all three streams (the reference's model path has text positions
+    only, where M-RoPE gives RoPE's values)."""
+    if cfg.mrope_sections:
+        pos3 = positions[..., None].expand(*positions.shape, 3)
+        q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta)
+        return q, k
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k
 
 
 def gqa_train(cfg: ArchConfig, p: dict, x: torch.Tensor, *, window: int = 0,
-              return_kv: bool = False):
-    """Causal self-attention with RoPE: x [B, S, D] -> y [B, S, D] (and
-    the layer's post-RoPE k, v [B, S, KV, Dh] with ``return_kv``)."""
+              use_rope: bool = True, kv_source: torch.Tensor | None = None,
+              causal: bool = True, return_kv: bool = False):
+    """x [B, S, D] -> y [B, S, D] (and the layer's k, v [B, T, KV, Dh],
+    after RoPE where it applies, with ``return_kv``). Self-attention by
+    default: RoPE when ``use_rope``, a causal mask when ``causal``, and the
+    ``window``. With ``kv_source`` [B, T, D] (an encoder's output) it is
+    cross-attention: K and V come from it, and neither RoPE nor a mask
+    applies."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_source is None else kv_source
+    t = src.shape[1]
     q = (x @ p["wq"]).reshape(b, s, h, dh)
-    k = (x @ p["wk"]).reshape(b, s, kv, dh)
-    v = (x @ p["wv"]).reshape(b, s, kv, dh)
+    k = (src @ p["wk"]).reshape(b, t, kv, dh)
+    v = (src @ p["wv"]).reshape(b, t, kv, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q, k = _rope_q_k(cfg, q, k, _positions(s, device=x.device))
-    out = kops.attention(q, k, v, causal=True, window=window)
+    if use_rope and kv_source is None:
+        q, k = _rope_q_k(cfg, q, k, _positions(s, device=x.device))
+    out = kops.attention(q, k, v, causal=causal and kv_source is None, window=window)
     y = out.reshape(b, s, h * dh) @ p["wo"]
     if return_kv:
         return y, (k, v)
     return y
+
+
+def gqa_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: KVCache, *,
+               window: int = 0, use_rope: bool = True):
+    """One token x [B, 1, D] against ``cache``: writes its K/V into the
+    cache's tensors in place and attends over the valid slots. With a
+    ``window`` smaller than the cache, the cache is a ring: the write goes
+    to slot ``length % window`` and slots below min(length + 1, window)
+    are valid; otherwise the write goes to slot ``length`` (clamped to the
+    last slot, as the reference's dynamic_update_slice clamps) and slots
+    up to it are valid. Returns (y [B, 1, D], KVCache of the same tensors,
+    length + 1). Reads nothing back to the host."""
+    b = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    length = cache.length
+    q = (x @ p["wq"]).reshape(b, 1, h, dh)
+    k_new = (x @ p["wk"]).reshape(b, 1, kv, dh)
+    v_new = (x @ p["wv"]).reshape(b, 1, kv, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k_new = rmsnorm(k_new, p["k_norm"], cfg.norm_eps)
+    if use_rope:
+        q, k_new = _rope_q_k(cfg, q, k_new, length.expand(b, 1))
+    s_max = cache.k.shape[1]
+    slots = torch.arange(s_max, device=x.device)
+    if window and window < s_max:
+        slot = torch.remainder(length, window)
+        valid = slots < torch.clamp(length + 1, max=window)
+    else:
+        slot = torch.clamp(length, max=s_max - 1)
+        valid = slots < length + 1
+    slot = slot.reshape(1).long()
+    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    out = kops.decode_attention(q, cache.k, cache.v, valid)
+    y = out.reshape(b, 1, h * dh) @ p["wo"]
+    return y, KVCache(cache.k, cache.v, length + 1)
 
 
 # --------------------------------------------------------------- MLA

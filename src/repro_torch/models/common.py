@@ -1,6 +1,7 @@
-"""Shared layers: norms, rotary embeddings, MLPs, embedding, init.
+"""Shared layers: norms, rotary embeddings (with qwen2-vl's M-RoPE),
+MLPs, embedding, init.
 
-Port of `repro.models.common` (M-RoPE waits for qwen2-vl). Norms and
+Port of `repro.models.common`. Norms and
 rotary embeddings compute in fp32 and cast back to the input's dtype, as
 the reference does; the products ``x @ w`` stay `torch.matmul`.
 """
@@ -43,6 +44,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, device=x.device)          # [Dh/2]
     angles = positions[..., None].float() * freqs           # [..., S, Dh/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...], theta: float) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: three position streams (t, h, w) rotate
+    disjoint sections of the frequency slots. x: [..., S, H, Dh];
+    positions: [..., S, 3] (text: t == h == w). Slot j takes the stream
+    of the section it falls in (slots past the sections take stream 0)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)          # [Dh/2]
+    sec = torch.zeros(dh // 2, dtype=torch.long, device=x.device)
+    start = 0
+    for i, n in enumerate(sections):
+        sec[start:start + n] = i
+        start += n
+    angles = positions.float()[..., sec] * freqs            # [..., S, Dh/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -168,26 +168,30 @@ class ArchConfig:
 
 
 def require_in_slice(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError("later slice")`` for an architecture the
-    port does not run yet: enc-dec, M-RoPE, a modality frontend, or MoE and
-    MLA apart (the reference's decode reads a MoE model's ``moe_layers``
-    only on its MLA branch and an MLA model's only there too, so neither
-    runs alone) or with recurrent blocks. The port runs the uniform
-    attention stack (GQA, RoPE, optional qk-norm and sliding window; or
-    MLA with a dense-FFN prefix and MoE layers, as DeepSeek), the RWKV6
-    stack and the RG-LRU hybrid (recurrent blocks and local attention in a
-    period pattern). As the two come together, the model code picks the
-    DeepSeek family by ``cfg.mla`` alone."""
+    """Raise ``NotImplementedError("later slice")`` for a combination of
+    blocks that no config has and the reference does not run coherently:
+    MoE and MLA apart (the reference's decode reads a MoE model's
+    ``moe_layers`` only on its MLA branch and an MLA model's only there
+    too, so neither runs alone) or with recurrent blocks, and an
+    encoder-decoder with MoE, MLA or recurrent blocks (the reference's
+    `init_params` takes its enc-dec branch first and ignores the rest).
+    The port runs the uniform attention stack (GQA, RoPE or M-RoPE,
+    optional qk-norm and sliding window; or MLA with a dense-FFN prefix and
+    MoE layers, as DeepSeek), the RWKV6 stack, the RG-LRU hybrid
+    (recurrent blocks and local attention in a period pattern) and the
+    encoder-decoder with cross-attention (whisper), from tokens or from a
+    frontend stub's embeddings. As the two come together, the model code
+    picks the DeepSeek family by ``cfg.mla`` alone."""
     moe, mla = cfg.moe is not None, cfg.mla is not None
     later = [name for name, on in (
         ("moe without mla", moe and not mla), ("mla without moe", mla and not moe),
         ("moe/mla with recurrent blocks", (moe or mla) and cfg.recurrent != ""),
         (f"recurrent={cfg.recurrent}",
          cfg.recurrent not in ("", "rglru", "rwkv6")),
-        ("enc-dec", cfg.is_encdec), ("m-rope", bool(cfg.mrope_sections)),
-        (f"frontend={cfg.frontend}", cfg.frontend != "")) if on]
+        ("enc-dec with moe/mla/recurrent blocks",
+         cfg.is_encdec and (moe or mla or cfg.recurrent != ""))) if on]
     if later:
         raise NotImplementedError(
             f"later slice: {cfg.name} needs {', '.join(later)}; the port "
-            "runs the dense and DeepSeek MoE/MLA attention stacks, RWKV6 and "
-            "the RG-LRU hybrid so far")
+            "runs the dense, M-RoPE and DeepSeek MoE/MLA attention stacks, "
+            "RWKV6, the RG-LRU hybrid and the attention encoder-decoder")

@@ -1,10 +1,11 @@
 """Serving path: cache construction, prefill, and single-token decode.
 
-Port of `repro.models.decode` for the dense family, DeepSeek's MoE/MLA
-family, rwkv6 and the RG-LRU hybrid. The cache is a dict with the
-reference's keys and shapes:
+Port of `repro.models.decode` for every family: the dense family and
+qwen2-vl, DeepSeek's MoE/MLA family, rwkv6, the RG-LRU hybrid and
+whisper's encoder-decoder. The cache is a dict with the reference's keys
+and shapes:
 
-- dense: ``k`` and ``v`` [L, B, S, KV, Dh];
+- dense (and qwen2-vl): ``k`` and ``v`` [L, B, S, KV, Dh];
 - MLA: the compressed latent ``c_kv`` [L, B, S, kv_lora] and the shared
   RoPE key ``k_rope`` [L, B, S, rope];
 - rwkv6: ``wkv`` [L, B, H, Dh, Dh] (the WKV state, in the params' dtype,
@@ -12,6 +13,10 @@ reference's keys and shapes:
   ``shift_c`` [L, B, D];
 - hybrid: ``attn_k`` and ``attn_v`` [n_attn, B, S, KV, Dh], ``rec_h``
   [n_rec, B, W] and ``rec_conv`` [n_rec, B, conv_width - 1, W];
+- enc-dec: the decoder's self-attention ``self_k`` and ``self_v`` [L, B,
+  S, KV, Dh] (no RoPE) and its cross-attention's ``cross_k`` and
+  ``cross_v`` [L, B, enc_seq, KV, Dh], the encoder output's keys and
+  values, written by the prefill and only read by decode;
 
 and ``length``, a 0-d int32 tensor. Sliding-window and local-attention
 caches are ring buffers sized to the window. Unlike the reference's pure
@@ -22,6 +27,10 @@ so no second copy of the cache is ever held. `decode_step` reads nothing
 back to the host: `length` stays on the device. A MoE layer's FFN takes
 the sorted-capacity dispatch in a prefill of more than
 `moe.SMALL_BATCH_TOKENS` tokens and the one-hot dispatch in decode.
+A frontend model (qwen2-vl) prefills from ``input_embeds`` and decodes
+tokens; an encoder-decoder (whisper) prefills the encoder from
+``enc_embeds`` and a decoder prompt of tokens, and each decode step adds
+the learned position ``dec_pos`` of its slot.
 """
 from __future__ import annotations
 
@@ -35,8 +44,8 @@ from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .common import mlp, norm, rmsnorm, unembed
 from .config import ArchConfig, require_in_slice
-from .transformer import (Params, _rec_block, deepseek_layers, embed_tokens, ffn,
-                          kind_layers, layer_params)
+from .transformer import (Params, _rec_block, deepseek_layers, dec_positions,
+                          embed_tokens, encode, ffn, kind_layers, layer_params)
 
 
 def _nf(cfg):
@@ -55,6 +64,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     kv, dh = cfg.n_kv_heads, cfg.head_dim
     zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=device)
     cache: dict = {"length": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.is_encdec:
+        for key in ("self_k", "self_v"):
+            cache[key] = zeros(cfg.n_layers, batch, max_len, kv, dh)
+        for key in ("cross_k", "cross_v"):
+            cache[key] = zeros(cfg.n_layers, batch, cfg.enc_seq, kv, dh)
+        return cache
     if cfg.mla is not None:
         m = cfg.mla
         cache["c_kv"] = zeros(cfg.n_layers, batch, max_len, m.kv_lora_rank)
@@ -88,7 +103,7 @@ def _ring_update(buf: torch.Tensor, new: torch.Tensor, length: torch.Tensor):
     return buf.index_copy_(1, slot, new.to(buf.dtype))
 
 
-def _decode_gqa(cfg, lp, x, k_buf, v_buf, length):
+def _decode_gqa(cfg, lp, x, k_buf, v_buf, length, use_rope=True):
     """One token's attention; writes its K/V into the layer's cache
     buffers [B, S, KV, Dh] in place. The window is the buffer's size."""
     b = x.shape[0]
@@ -99,8 +114,8 @@ def _decode_gqa(cfg, lp, x, k_buf, v_buf, length):
     if cfg.qk_norm:
         q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
         k_new = rmsnorm(k_new, lp["k_norm"], cfg.norm_eps)
-    pos = length.expand(b, 1)
-    q, k_new = attn._rope_q_k(cfg, q, k_new, pos)
+    if use_rope:
+        q, k_new = attn._rope_q_k(cfg, q, k_new, length.expand(b, 1))
     _ring_update(k_buf, k_new, length)
     _ring_update(v_buf, v_new, length)
     s = k_buf.shape[1]
@@ -109,10 +124,31 @@ def _decode_gqa(cfg, lp, x, k_buf, v_buf, length):
     return out.reshape(b, 1, h * dh) @ lp["wo"]
 
 
-def _decode_attn_layer(cfg, lp, x, kb, vb, length):
+def _decode_attn_layer(cfg, lp, x, kb, vb, length, cross=None, use_rope=True):
+    """One attention layer and its MLP for one token; with ``cross`` (the
+    layer's cross_k, cross_v [B, T, KV, Dh]), cross-attention over every
+    one of those keys between the two."""
     nf = _nf(cfg)
-    x = x + _decode_gqa(cfg, lp["attn"], nf(x, lp["ln1"]), kb, vb, length)
+    x = x + _decode_gqa(cfg, lp["attn"], nf(x, lp["ln1"]), kb, vb, length, use_rope)
+    if cross is not None:
+        ck, cv = cross
+        b = x.shape[0]
+        h, dh = cfg.n_heads, cfg.head_dim
+        q = (nf(x, lp["lnx"]) @ lp["xattn"]["wq"]).reshape(b, 1, h, dh)
+        valid = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
+        out = kops.decode_attention(q, ck, cv, valid)
+        x = x + out.reshape(b, 1, h * dh) @ lp["xattn"]["wo"]
     return x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+
+
+def _decode_encdec(cfg, params, cache, x, length):
+    x = x + dec_positions(params, length, 1).to(x.dtype)
+    for i in range(cfg.n_layers):
+        x = _decode_attn_layer(cfg, layer_params(params["dec_layers"], i), x,
+                               cache["self_k"][i], cache["self_v"][i], length,
+                               cross=(cache["cross_k"][i], cache["cross_v"][i]),
+                               use_rope=False)
+    return x
 
 
 def _decode_hybrid(cfg, params, cache, x, length):
@@ -156,7 +192,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Any, token: torch.Tensor
     require_in_slice(cfg)
     x = embed_tokens(cfg, params, token)[:, None, :]   # [B, 1, D]
     length = cache["length"]
-    if cfg.mla is not None:
+    if cfg.is_encdec:
+        x = _decode_encdec(cfg, params, cache, x, length)
+    elif cfg.mla is not None:
         x = _decode_mla(cfg, params, cache, x, length)
     elif cfg.recurrent == "rwkv6":
         x = _decode_rwkv(cfg, params, cache, x)
@@ -198,6 +236,29 @@ def _prefill_attn_layer(cfg, lp, x, k_buf, v_buf, window):
     return x
 
 
+def _prefill_encdec(cfg, params, cache, x, enc_embeds):
+    """The encoder, then per decoder layer: causal self-attention without
+    RoPE (its K/V to ``self_k``/``self_v``), cross-attention over the
+    encoder's output (its K/V to ``cross_k``/``cross_v``), the MLP."""
+    nf = _nf(cfg)
+    e = encode(cfg, params, enc_embeds)
+    x = x + dec_positions(params, 0, x.shape[1]).to(x.dtype)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["dec_layers"], i)
+        y, (k, v) = attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), use_rope=False,
+                                   return_kv=True)
+        x = x + y
+        _write_kv(cache["self_k"][i], k, 0)
+        _write_kv(cache["self_v"][i], v, 0)
+        y, (ck, cv) = attn.gqa_train(cfg, lp["xattn"], nf(x, lp["lnx"]), kv_source=e,
+                                     return_kv=True)
+        x = x + y
+        cache["cross_k"][i].copy_(ck)
+        cache["cross_v"][i].copy_(cv)
+        x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+    return x
+
+
 def _prefill_mla(cfg, params, cache, x):
     nf = _nf(cfg)
     s = x.shape[1]
@@ -236,24 +297,30 @@ def _prefill_rwkv(cfg, params, cache, x):
     return x
 
 
-def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-            max_len: int | None = None):
-    """Full-sequence prefill: tokens [B, S] -> (last-token logits [B, V],
-    filled cache of ``max_len`` slots (S when None), or of the window).
+def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None = None,
+            input_embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None, max_len: int | None = None):
+    """Full-sequence prefill: tokens [B, S] (or, when None, a frontend
+    stub's ``input_embeds`` [B, S, D]; an encoder-decoder also takes the
+    encoder's ``enc_embeds`` [B, enc_seq, D]) -> (last-token logits [B,
+    V], filled cache of ``max_len`` slots (S when None), or of the
+    window).
 
     The hybrid needs S >= conv_width - 1: the conv tail it leaves for
     decode is the last conv_width - 1 rows of the prompt's conv input. The
     reference stores a shorter tail for a shorter prompt, which its decode
     then misreads; the port refuses such a prompt with ``ValueError``."""
     require_in_slice(cfg)
-    b, s = tokens.shape
+    x = embed_tokens(cfg, params, tokens, input_embeds)
+    b, s = x.shape[:2]
     if cfg.recurrent == "rglru" and cfg.pattern_period > 1 and s < cfg.conv_width - 1:
         raise ValueError(
             f"{cfg.name}: a prompt of {s} tokens is shorter than the temporal "
             f"conv's tail of conv_width - 1 = {cfg.conv_width - 1}")
-    x = embed_tokens(cfg, params, tokens)
     cache = init_cache(cfg, b, max_len or s, device=x.device)
-    if cfg.mla is not None:
+    if cfg.is_encdec:
+        x = _prefill_encdec(cfg, params, cache, x, enc_embeds)
+    elif cfg.mla is not None:
         x = _prefill_mla(cfg, params, cache, x)
     elif cfg.recurrent == "rwkv6":
         x = _prefill_rwkv(cfg, params, cache, x)

@@ -1,25 +1,35 @@
 """Model assembly: parameter init, carrying the reference's weights
 across, and the full-sequence forward.
 
-Port of `repro.models.transformer` for the dense family, the DeepSeek
-MoE/MLA family (MLA attention in every layer, a stack of dense-FFN prefix
-layers ``dense_layers`` and a stack of MoE layers ``moe_layers``, and for
-DeepSeek-v3 the multi-token-prediction block ``mtp``, which serving never
-reads), rwkv6 (one stack of RWKV6 blocks) and the RG-LRU hybrid (a stack
-of local-attention layers and a stack of recurrent layers, dispatched by
-the period pattern). Params are a dict of tensors with the reference
-tree's keys, layouts and dtypes (the MoE router and its bias are fp32):
-the layer parameters are STACKED along a leading layer axis
+Port of `repro.models.transformer` for every family of the reference:
+the dense family and qwen2-vl (one stack ``layers``; M-RoPE for
+qwen2-vl), the DeepSeek MoE/MLA family (MLA attention in every layer, a
+stack of dense-FFN prefix layers ``dense_layers`` and a stack of MoE
+layers ``moe_layers``, and for DeepSeek-v3 the multi-token-prediction
+block ``mtp``, which serving never reads), rwkv6 (one stack of RWKV6
+blocks), the RG-LRU hybrid (a stack of local-attention layers and a stack
+of recurrent layers, dispatched by the period pattern) and whisper's
+encoder-decoder (``enc_layers``, ``dec_layers`` with cross-attention
+``xattn`` and its norm ``lnx``, ``enc_final_norm`` and the learned
+decoder positions ``dec_pos``). Params are a dict of tensors with the
+reference tree's keys, layouts and dtypes (the MoE router and its bias
+are fp32): the layer parameters are STACKED along a leading layer axis
 (``params["layers"]["attn"]["wq"]`` is [L, D, H * Dh], a MoE layer's
 ``experts`` [L, E, D, F]) and the forward walks the stacks in a Python
-loop where the reference scans them. Other families raise
-``NotImplementedError("later slice")``.
+loop where the reference scans them. A modality frontend is a stub: the
+caller hands in its embeddings (``input_embeds`` in place of tokens;
+``enc_embeds``, the encoder's input).
+
+The reference's encoder is causal and rotates its queries and keys
+(`_scan_attn_stack` with its defaults), and so is the port's; only the
+cross-attention is unmasked.
 
 Training: `lm_loss` (token cross-entropy, DeepSeek-v3's MTP term, the MoE
-aux loss) over `forward`, whose layers are checkpointed (recomputed in
-the backward pass, as the reference's `jax.checkpoint`) when ``cfg.remat``
-and grad mode is on; `abstract_params` gives the tree's shapes and dtypes
-from the meta device.
+aux loss) over `forward`, whose layers (the encoder's and the decoder's
+too) are checkpointed (recomputed in the backward pass, as the
+reference's `jax.checkpoint`) when ``cfg.remat`` and grad mode is on;
+`abstract_params` gives the tree's shapes and dtypes from the meta
+device.
 """
 from __future__ import annotations
 
@@ -119,9 +129,9 @@ def _mla_p(init: _Init, n=0):
     return p
 
 
-def _attn_p(init: _Init, n=0):
+def _attn_p(init: _Init, n=0, cross: bool = False):
     cfg = init.cfg
-    if cfg.mla is not None:
+    if cfg.mla is not None and not cross:
         return _mla_p(init, n)
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
@@ -212,8 +222,11 @@ def _rglru_p(init: _Init, n=0):
     }
 
 
-def _attn_layer_p(init: _Init, n=0, moe_layer: bool = False):
+def _attn_layer_p(init: _Init, n=0, moe_layer: bool = False, cross: bool = False):
     p = {"attn": _attn_p(init, n), "ln1": _norm_p(init, n), "ln2": _norm_p(init, n)}
+    if cross:
+        p["xattn"] = _attn_p(init, n, cross=True)
+        p["lnx"] = _norm_p(init, n)
     if moe_layer:
         p["moe"] = _moe_p(init, n)
     else:
@@ -235,7 +248,9 @@ def init_params(cfg: ArchConfig, *, device=None,
     ``torch.Generator`` on that device; seed 0 when None). rwkv6 has one
     stack ``layers``; the hybrid two, ``attn_layers`` and ``rec_layers``;
     DeepSeek ``dense_layers`` (its first ``first_k_dense``), ``moe_layers``
-    and, with ``mtp_depth``, ``mtp``. Expert stacks are drawn one (layer,
+    and, with ``mtp_depth``, ``mtp``; an encoder-decoder ``enc_layers``,
+    ``dec_layers`` (with cross-attention), ``enc_final_norm`` and
+    ``dec_pos`` [dec_pos_len, D]. Expert stacks are drawn one (layer,
     expert) matrix at a time."""
     require_in_slice(cfg)
     dev = resolve_device(device)
@@ -248,7 +263,12 @@ def init_params(cfg: ArchConfig, *, device=None,
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = init.dense((cfg.d_model, cfg.vocab))
-    if cfg.mla is not None:  # DeepSeek
+    if cfg.is_encdec:
+        p["enc_layers"] = _attn_layer_p(init, cfg.n_enc_layers)
+        p["dec_layers"] = _attn_layer_p(init, cfg.n_layers, cross=True)
+        p["enc_final_norm"] = _norm_p(init)
+        p["dec_pos"] = init.dense((cfg.dec_pos_len, cfg.d_model), in_axis=-1)
+    elif cfg.mla is not None:  # DeepSeek
         fk = cfg.moe.first_k_dense
         if fk:
             p["dense_layers"] = _attn_layer_p(init, fk)
@@ -310,11 +330,17 @@ def layer_params(stacked: dict, i: int) -> dict:
 
 
 # ========================================================== forward
-def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor):
-    """Token embeddings; RG-LRU models scale them by sqrt(d_model), rounded
-    to the activations' dtype first (the reference's ``jnp.asarray(d **
-    0.5, x.dtype)``)."""
-    x = embed(tokens, params["embed"])
+def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None,
+                 input_embeds: torch.Tensor | None = None):
+    """The model's input: the token embeddings, or when ``tokens`` is None
+    a frontend stub's ``input_embeds`` [B, S, D] cast to the parameters'
+    dtype; RG-LRU models scale either by sqrt(d_model), rounded to the
+    activations' dtype first (the reference's ``jnp.asarray(d ** 0.5,
+    x.dtype)``)."""
+    if tokens is not None:
+        x = embed(tokens, params["embed"])
+    else:
+        x = input_embeds.to(cfg.param_dtype)
     if cfg.recurrent != "rglru":
         return x
     return x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
@@ -347,14 +373,20 @@ def ffn(cfg: ArchConfig, lp: dict, x):
     return mlp(x, lp["mlp"], cfg.act), None
 
 
-def _attn_block(cfg: ArchConfig, lp: dict, x, *, window: int):
-    """One attention layer (GQA, or MLA) and its FFN: (x, aux loss or
-    None)."""
+def _attn_block(cfg: ArchConfig, lp: dict, x, *, window: int, use_rope: bool = True,
+                enc_out=None):
+    """One attention layer (GQA, or MLA), with ``enc_out`` [B, T, D] its
+    cross-attention over that encoder output, and its FFN: (x, aux loss
+    or None)."""
     nf = lambda y, pp: norm(y, pp, cfg.norm, cfg.norm_eps)
     if cfg.mla is not None:
         x = x + attn.mla_train(cfg, lp["attn"], nf(x, lp["ln1"]))
     else:
-        x = x + attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), window=window)
+        x = x + attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), window=window,
+                               use_rope=use_rope)
+    if enc_out is not None:
+        x = x + attn.gqa_train(cfg, lp["xattn"], nf(x, lp["lnx"]), use_rope=False,
+                               kv_source=enc_out)
     h, laux = ffn(cfg, lp, nf(x, lp["ln2"]))
     return x + h, laux
 
@@ -393,17 +425,52 @@ def _hybrid_forward(cfg: ArchConfig, params: Params, x):
     return x
 
 
-def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-            return_hidden: bool = False):
-    """Full-sequence forward: tokens [B, S] -> (logits [B, S, V], aux
-    loss[, the final-normed hidden state [B, S, D] with
-    ``return_hidden``]). The aux loss is the MoE layers' load-balance loss
-    summed (0 with DeepSeek-v3's aux-free bias, and in every other
-    family)."""
+def encode(cfg: ArchConfig, params: Params, enc_embeds: torch.Tensor):
+    """The encoder of an encoder-decoder: ``enc_embeds`` [B, T, D] (the
+    frontend stub's output) cast to the parameters' dtype, through the
+    ``enc_layers`` stack (causal self-attention with RoPE, as the
+    reference's), then ``enc_final_norm``."""
+    e = enc_embeds.to(cfg.param_dtype)
+    for i in range(cfg.n_enc_layers):
+        e, _ = _layer(cfg, _attn_block, layer_params(params["enc_layers"], i), e,
+                      window=0)
+    return norm(e, params["enc_final_norm"], cfg.norm, cfg.norm_eps)
+
+
+def dec_positions(params: Params, start, s: int):
+    """Rows ``start`` .. ``start`` + s - 1 of the learned decoder positions
+    ``dec_pos``, [1, s, D]; a 0-d tensor ``start`` (decode, s = 1) reads
+    its row on the device, clamped to the table as the reference's
+    dynamic_slice clamps."""
+    table = params["dec_pos"]
+    if torch.is_tensor(start):
+        row = torch.clamp(start, 0, table.shape[0] - s).reshape(1).long()
+        return table.index_select(0, row)[None]
+    return table[start:start + s][None]
+
+
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None = None,
+            input_embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None, return_hidden: bool = False):
+    """Full-sequence forward: tokens [B, S] (or, when None, a frontend
+    stub's ``input_embeds`` [B, S, D]; an encoder-decoder also takes the
+    encoder's ``enc_embeds`` [B, T, D]) -> (logits [B, S, V], aux loss[,
+    the final-normed hidden state [B, S, D] with ``return_hidden``]). The
+    aux loss is the MoE layers' load-balance loss summed (0 with
+    DeepSeek-v3's aux-free bias, and in every other family). An
+    encoder-decoder adds ``dec_pos`` to the decoder's input and runs its
+    decoder without RoPE, each layer attending over the encoder's
+    output."""
     require_in_slice(cfg)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, input_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.mla is not None:  # DeepSeek
+    if cfg.is_encdec:
+        e = encode(cfg, params, enc_embeds)
+        x = x + dec_positions(params, 0, x.shape[1]).to(x.dtype)
+        for i in range(cfg.n_layers):
+            x, _ = _layer(cfg, _attn_block, layer_params(params["dec_layers"], i), x,
+                          window=0, use_rope=False, enc_out=e)
+    elif cfg.mla is not None:  # DeepSeek
         for lp in deepseek_layers(cfg, params):
             x, laux = _layer(cfg, _attn_block, lp, x, window=0)
             if laux is not None:
@@ -432,19 +499,18 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
 
 
-def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None,
             targets: torch.Tensor, input_embeds=None, enc_embeds=None,
             mtp_weight: float = 0.3):
     """Mean next-token cross-entropy over targets [B, S] -> (loss + coef *
     aux, (loss, aux)); with DeepSeek-v3's ``mtp`` block, plus ``mtp_weight``
     times the cross-entropy of its prediction of token t + 2 from [h_t ;
     emb(t + 1)] (targets rolled by one, sharing embedding and head); coef is
-    the MoE's ``router_aux_coef`` (0 without MoE). The modality stubs'
-    ``input_embeds`` / ``enc_embeds`` wait for their slice."""
-    if input_embeds is not None or enc_embeds is not None:
-        raise NotImplementedError(
-            "later slice: input_embeds / enc_embeds (modality frontends)")
-    logits, aux, h = forward(cfg, params, tokens, return_hidden=True)
+    the MoE's ``router_aux_coef`` (0 without MoE). ``tokens`` may be None
+    with the frontend stubs' ``input_embeds`` in its place; an
+    encoder-decoder takes ``enc_embeds`` (`forward`)."""
+    logits, aux, h = forward(cfg, params, tokens, input_embeds=input_embeds,
+                             enc_embeds=enc_embeds, return_hidden=True)
     loss = torch.mean(_xent(logits, targets))
     if cfg.mtp_depth and "mtp" in params:
         mp = params["mtp"]

@@ -112,6 +112,11 @@ def _without_shard_axis(pool: PagedPool) -> PagedPool:
                          **{f: getattr(pool, f)[0] for f in _META})
 
 
+def pages_per_replica(pool: PagedPool) -> int:
+    """Physical pages each replica holds (the ``used`` table's width)."""
+    return pool.used.shape[-1]
+
+
 def free_pages(pool: PagedPool) -> torch.Tensor:
     """int32[..., R] — unallocated pages per replica (descriptor amount)."""
     return (~pool.used).sum(dim=-1).to(torch.int32)

@@ -1,7 +1,7 @@
 """The port's management plane (`repro_torch.core`) against `repro.core`
 on the same inputs: descriptors, the manager round (the consumer styles of
-tests/test_manager.py), the WAL multi-append (the cases of
-tests/test_wal_vectorized.py), load balance, harvest triggers, costs and
+tests/test_manager.py), the WAL multi-append and its per-entry oracle
+(the cases of tests/test_wal_vectorized.py), load balance, harvest triggers, costs and
 topology. Integer and bool leaves match bit for bit; float leaves are
 computed by the same elementwise float32 operations and match exactly."""
 import jax
@@ -188,6 +188,7 @@ def test_fill_by_rank_matches_reference():
 
 _commit = jax.jit(jwal.commit)
 _commit_batch = jax.jit(jwal.commit_batch)
+_commit_batch_scan = jax.jit(jwal.commit_batch_scan)
 
 
 def _wal_case(seed, nseg=4, epp=8, batch=24, prefill=0):
@@ -210,32 +211,65 @@ def _tlog(jlog):
     return twal.LogPages(*[_t(np.asarray(a)) for a in jlog])
 
 
-@pytest.mark.parametrize("case", [
-    "no_flush", "flush_mid_batch", "exact_page_multiple", "mask",
-    "preexisting_partial", "randomized"])
+WAL_CASES = ["no_flush", "flush_mid_batch", "exact_page_multiple", "mask",
+             "preexisting_partial", "randomized"]
+
+
+def _wal_cases(case):
+    """The (log, segments, keys, vals, mask) of one case of
+    tests/test_wal_vectorized.py, as the reference's log and numpy."""
+    if case == "randomized":
+        return [_wal_case(seed, prefill=seed % 7) for seed in range(40)]
+    log = jwal.make_log(*{"no_flush": (3, 64), "flush_mid_batch": (2, 4),
+                          "exact_page_multiple": (1, 4), "mask": (2, 8),
+                          "preexisting_partial": (2, 6)}[case])
+    segs = {"no_flush": [0, 1, 0, 2, 1, 0], "flush_mid_batch": [0] * 10,
+            "exact_page_multiple": [0] * 8, "mask": [0, 1, 0, 1],
+            "preexisting_partial": [0, 0, 0, 1]}[case]
+    segs = np.asarray(segs, np.int32)
+    keys = np.arange(len(segs), dtype=np.int32) + 10
+    mask = (np.array([True, False, True, False]) if case == "mask"
+            else np.ones(len(segs), bool))
+    if case == "preexisting_partial":
+        for i in range(4):
+            log = _commit(log, jnp.int32(0), jnp.int32(i), jnp.int32(i))
+    return [(log, segs, keys, keys * 10, mask)]
+
+
+@pytest.mark.parametrize("case", WAL_CASES)
 def test_commit_batch_matches_reference(case):
     """The cases of tests/test_wal_vectorized.py through both packages."""
-    if case == "randomized":
-        cases = [_wal_case(seed, prefill=seed % 7) for seed in range(40)]
-    else:
-        log = jwal.make_log(*{"no_flush": (3, 64), "flush_mid_batch": (2, 4),
-                              "exact_page_multiple": (1, 4), "mask": (2, 8),
-                              "preexisting_partial": (2, 6)}[case])
-        segs = {"no_flush": [0, 1, 0, 2, 1, 0], "flush_mid_batch": [0] * 10,
-                "exact_page_multiple": [0] * 8, "mask": [0, 1, 0, 1],
-                "preexisting_partial": [0, 0, 0, 1]}[case]
-        segs = np.asarray(segs, np.int32)
-        keys = np.arange(len(segs), dtype=np.int32) + 10
-        mask = (np.array([True, False, True, False]) if case == "mask"
-                else np.ones(len(segs), bool))
-        if case == "preexisting_partial":
-            for i in range(4):
-                log = _commit(log, jnp.int32(0), jnp.int32(i), jnp.int32(i))
-        cases = [(log, segs, keys, keys * 10, mask)]
-    for log, segs, keys, vals, mask in cases:
+    for log, segs, keys, vals, mask in _wal_cases(case):
         want = _commit_batch(log, *map(jnp.asarray, (segs, keys, vals, mask)))
         got = twal.commit_batch(_tlog(log), *map(_t, (segs, keys, vals, mask)))
         _assert_tree_equal(want, got)
+
+
+@pytest.mark.parametrize("case", WAL_CASES + ["per_shard"])
+def test_commit_batch_matches_scan_oracles(case):
+    """The port's `commit_batch` equals its own per-entry oracle
+    `commit_batch_scan` and the reference's, bit for bit, over masks and
+    pages that fill mid-batch; "per_shard" runs the port's pair on a log
+    with a leading shard axis (each shard its own entries)."""
+    if case == "per_shard":
+        rng = np.random.default_rng(5)
+        log = twal.make_log(4, 4, device="cpu")
+        log = twal.LogPages(*(torch.stack([x, x]) for x in log))
+        log = twal.commit_batch(log, _t(rng.integers(0, 4, (2, 5)).astype(np.int32)),
+                                _t(np.arange(10, dtype=np.int32).reshape(2, 5)),
+                                _t(np.arange(10, dtype=np.int32).reshape(2, 5)))
+        args = (rng.integers(0, 4, (2, 30)).astype(np.int32),
+                rng.integers(0, 1000, (2, 30)).astype(np.int32),
+                rng.integers(0, 1000, (2, 30)).astype(np.int32), rng.random((2, 30)) < 0.7)
+        got = twal.commit_batch(log, *map(_t, args))
+        _assert_tree_equal(twal.commit_batch_scan(log, *map(_t, args)), got)
+        assert int(got.flushes.sum()) > 0
+        return
+    for log, segs, keys, vals, mask in _wal_cases(case):
+        args = (segs, keys, vals, mask)
+        got = twal.commit_batch(_tlog(log), *map(_t, args))
+        _assert_tree_equal(twal.commit_batch_scan(_tlog(log), *map(_t, args)), got)
+        _assert_tree_equal(_commit_batch_scan(log, *map(jnp.asarray, args)), got)
 
 
 def test_replay_matches_reference():

@@ -204,13 +204,14 @@ def test_entry_points_default_to_cuda():
     dict(migrate_pages_per_step=1),
     dict(obs=E.obs_m.ObsConfig(enabled=True), migrate_pages_per_step=2),
     dict(n_shards=2, trace_driven=True, track_failures=True),
-    # what a later slice still refuses: the model zoo's whisper
+    # the model zoo's whisper, refused until the enc-dec slice: it serves
     None,
 ])
 def test_later_slice_configs_raise(later):
     if later is None:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tserve.run_model("whisper-tiny", 1, 4, 1, smoke=True, device="cpu")
+        out = tserve.run_model("whisper-tiny", 2, 4, 3, smoke=True, device="cpu")
+        assert tuple(out["tokens"].shape) == (2, 3)
+        assert bool(torch.isfinite(out["logits"]).all())
         return
     cfg = CFG._replace(**later)
     jstate = E.init(cfg, jax.random.key(0))

@@ -116,6 +116,14 @@ def test_gather_kv_and_page_nbytes_match_reference(quant):
                                            atol=0.02 if quant == "int8" else 1e-6)
 
 
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_pages_per_replica_matches_reference(quant):
+    jpool, tpool = _pools(quant)
+    assert tkvp.pages_per_replica(tpool) == jkvp.pages_per_replica(jpool) == P
+    # the hierarchical engine's pools carry a leading shard axis
+    assert tkvp.pages_per_replica(tkvp._with_shard_axis(tpool)) == P
+
+
 def test_append_writes_in_place_and_needs_pool_planes():
     """K/V planes are updated in place (their last page, the scratch page,
     takes the masked writes); planes without the scratch page are refused."""

@@ -4,7 +4,10 @@ CPU: for each dense smoke config, the same parameters (carried across by
 (logits and cache) and six `decode_step`s of both packages. Also: the
 h2o-danube ring buffer decoded past its window, a head_dim-128 config
 whose JAX prefill runs the Pallas flash kernel in interpret mode, the
-launcher's `run_model`, and the configs the port does not run yet.
+launcher's `run_model`, the combinations of blocks the port refuses, and
+the trees of the archs and options it once refused (whisper's enc-dec,
+qwen2-vl's M-RoPE and frontend; their serve paths:
+tests/test_torch_encdec_vlm.py).
 
 fp32 is held at 1e-4 * (1 + |want|): the same fp32 math on both sides,
 with only the order of summation differing."""
@@ -30,10 +33,10 @@ jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["qwen3-14b", "granite-8b", "internlm2-20b", "h2o-danube-1.8b"]
 # rwkv6 and recurrentgemma: tests/test_torch_recurrent_models.py; the
-# DeepSeek pair: tests/test_torch_moe_models.py
-LATER = [a for a in jconfigs.ARCH_NAMES
-         if a not in DENSE + ["rwkv6-3b", "recurrentgemma-9b",
-                              "deepseek-v2-236b", "deepseek-v3-671b"]]
+# DeepSeek pair: tests/test_torch_moe_models.py; whisper and qwen2-vl:
+# tests/test_torch_encdec_vlm.py. The last two were refused as a later
+# slice once; `test_later_slice_archs_raise` keeps their cases.
+LATER = ["whisper-tiny", "qwen2-vl-2b"]
 TOL = 1e-4
 # the narrow head_dim-128 config on which the JAX prefill reaches the
 # Pallas flash kernel (prompt >= 128 and head_dim % 128 == 0)
@@ -182,26 +185,47 @@ def test_entry_points_default_to_cuda():
         tserve.run_model("qwen3-14b", 1, 4, 1, smoke=True)
 
 
+def _leaf_shapes(tree):
+    """(key path, shape, dtype) of each leaf, in the reference's order."""
+    return [(jax.tree_util.keystr(path), tuple(a.shape), str(a.dtype).replace("torch.", ""))
+            for path, a in jax.tree_util.tree_leaves_with_path(tree)]
+
+
 @pytest.mark.parametrize("arch", LATER)
 def test_later_slice_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tconfigs.get(arch)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tconfigs.smoke(arch)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tserve.run_model(arch, 1, 4, 1, smoke=True, device="cpu")
+    """The archs a later slice brought (refused until it came): `get` and
+    `smoke` load, and `init_params` on the meta device and on the CPU
+    matches ``jax.eval_shape`` of the reference's, leaf for leaf."""
+    for jc, tc in ((jconfigs.get(arch), tconfigs.get(arch)),
+                   (jconfigs.smoke(arch), tconfigs.smoke(arch))):
+        assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+        assert _leaf_shapes(TT.abstract_params(tc)) == _leaf_shapes(JT.abstract_params(jc))
+    jc, tc = jconfigs.smoke(arch), tconfigs.smoke(arch)
+    drawn = TT.init_params(tc, device="cpu", generator=torch.Generator().manual_seed(2))
+    assert _leaf_shapes(drawn) == _leaf_shapes(JT.abstract_params(jc))
 
 
 @pytest.mark.parametrize("change", [
     dict(moe=MoEConfig()), dict(mla=MLAConfig()),
-    # the ported recurrent families still refuse what a later slice brings
+    # the combinations of blocks no config has still refuse
     dict(recurrent="rwkv6", moe=MoEConfig()),
     dict(recurrent="rglru", pattern_period=3, n_enc_layers=2),
+    # refused until their slice came: they build as the reference does
     dict(n_enc_layers=2), dict(mrope_sections=(2, 3, 3)), dict(frontend="vision"),
 ])
 def test_later_slice_configs_raise(change):
+    """A combination of blocks that no config has raises "later slice";
+    enc-dec, M-RoPE and a frontend stub, once refused the same way, now
+    build with the reference's leaf shapes (params and cache)."""
     cfg = dataclasses.replace(tconfigs.smoke("qwen3-14b"), **change)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TT.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TD.init_cache(cfg, 1, 8)
+    if "moe" in change or "mla" in change or "recurrent" in change:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            TT.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="later slice"):
+            TD.init_cache(cfg, 1, 8)
+        return
+    jcfg = dataclasses.replace(jconfigs.smoke("qwen3-14b"), **change)
+    drawn = TT.init_params(cfg, device="cpu")
+    assert _leaf_shapes(drawn) == _leaf_shapes(JT.abstract_params(jcfg))
+    assert _leaf_shapes(TD.init_cache(cfg, 1, 8)) == _leaf_shapes(
+        jax.eval_shape(lambda: JD.init_cache(jcfg, 1, 8)))

@@ -1,6 +1,7 @@
 """The port's trainer against the JAX reference on the CPU: `lm_loss` and
-every gradient leaf against ``jax.value_and_grad`` for the eight ported
-smoke configs (DeepSeek-v3's MTP term and v2's aux loss included); three
+every gradient leaf against ``jax.value_and_grad`` for the ten ported
+smoke configs (DeepSeek-v3's MTP term and v2's aux loss included;
+whisper's and qwen2-vl's frontend stubs' embeddings from the batch); three
 `train_step`s with ``n_micro`` 1 and 2 against the reference's compiled
 step, every leaf of the state after each; remat on against remat off;
 and the restart trajectory.
@@ -84,8 +85,10 @@ def _grads_close(got, want, tol=1e-4):
 
 
 _jloss_grad = jax.jit(
-    lambda cfg, p, tok, tgt: jax.value_and_grad(
-        lambda q: JT.lm_loss(cfg, q, tok, tgt), has_aux=True)(p),
+    lambda cfg, p, b: jax.value_and_grad(
+        lambda q: JT.lm_loss(cfg, q, b.get("tokens"), b["targets"],
+                             input_embeds=b.get("input_embeds"),
+                             enc_embeds=b.get("enc_embeds")), has_aux=True)(p),
     static_argnums=0)
 
 
@@ -94,14 +97,16 @@ def test_lm_loss_and_every_gradient_match_reference(arch):
     jcfg, tcfg = _pair(arch)
     jparams, tparams = _params(tcfg, 1)
     batch = jpipe.batch_for_step(jcfg, 3, B, S, seed=1)
-    (jtotal, (jloss, jaux)), jgrads = _jloss_grad(jcfg, jparams, batch["tokens"],
-                                                  batch["targets"])
+    (jtotal, (jloss, jaux)), jgrads = _jloss_grad(
+        jcfg, jparams, {k: v for k, v in batch.items() if v is not None})
 
     flat, treedef = tr.flatten(tparams)
     leaves = [p.requires_grad_() for p in flat]
     tb = tpipe.batch_for_step(tcfg, 3, B, S, seed=1, device="cpu")
-    total, (loss, aux) = TT.lm_loss(tcfg, tr.unflatten(treedef, leaves), tb["tokens"],
-                                    tb["targets"])
+    assert ("tokens" in tb) == (batch.get("tokens") is not None)
+    total, (loss, aux) = TT.lm_loss(tcfg, tr.unflatten(treedef, leaves), tb.get("tokens"),
+                                    tb["targets"], input_embeds=tb.get("input_embeds"),
+                                    enc_embeds=tb.get("enc_embeds"))
     grads = torch.autograd.grad(total, leaves, allow_unused=True, materialize_grads=True)
     for got, want in ((total, jtotal), (loss, jloss), (aux, jaux)):
         np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5, atol=1e-7)
@@ -163,7 +168,8 @@ def _state_close(got, want, got_old, want_old):
 
 @pytest.mark.parametrize("arch,n_micro", [("granite-8b", 1), ("granite-8b", 2),
                                           ("h2o-danube-1.8b", 2),
-                                          ("deepseek-v2-236b", 1)])
+                                          ("deepseek-v2-236b", 1),
+                                          ("whisper-tiny", 2), ("qwen2-vl-2b", 1)])
 def test_train_steps_match_reference(arch, n_micro):
     jcfg, tcfg = _pair(arch)
     jstate = _jstate(tcfg)

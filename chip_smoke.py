@@ -21,10 +21,12 @@ nvcc per source, all at once), then:
    80 and 16, a ragged non-causal length, queries offset against a longer
    key sequence, rows with no valid key, and the edges of the bf16
    kernel's tiles (S and T off the tile sizes, S = 1, head dims 32 to 256,
-   windows with S < T); the flash backward kernel (fp32, bf16) against
-   its plain gradient (`ref.attention_bwd`) on FLASH_BWD_SHAPES (head dims
-   8 to 256, GQA groups 1, 4 and 8, its three masks, S < T, T off its key
-   tiles, rows with no valid key), each call repeated bit for bit; and the
+   windows with S < T), with the softmax statistics it saves for the
+   backward against `ref.attention_stats` (STATS_TOL); the flash backward
+   kernel (fp32, bf16) against its plain gradient (`ref.attention_bwd`) on
+   FLASH_BWD_SHAPES (head dims 8 to 256, GQA groups 1, 4 and 8, its three
+   masks, S < T, T off its key tiles, rows with no valid key), given the
+   plain statistics, each call repeated bit for bit; and the
    RG-LRU and RWKV6 scan
    kernels (fp32, bf16) against theirs on the sweeps of
    tests/test_kernels.py, a ragged length, and an initial state (h0; s0
@@ -168,11 +170,14 @@ nvcc per source, all at once), then:
    rate, the time of a `torch.add` that moves the same bytes (`stream_ms`);
    the flash backward's row (`flash_attention_bwd[bf16]`, not a TPU
    kernel: it stands for the reference's autodiff) at h2o-danube's
-   training attention (FLASH_BWD_TRAIN), checked per element against the
-   plain gradient in fp32 with its fp32 form, spun, beside its plain gradient,
-   the backward of `scaled_dot_product_attention` with the band as a mask
-   and its bound (10 * D flops a pair and head at the bf16 peak), and the
-   same at whisper-tiny's training cross-attention (FLASH_BWD_WHISPER);
+   training attention (FLASH_BWD_TRAIN), on the forward kernel's output
+   and statistics, checked per element against the plain gradient in fp32
+   with its fp32 form, spun, beside its plain gradient, the backward of
+   `scaled_dot_product_attention` with the band as a mask and its bound
+   (10 * D flops a pair and head at the bf16 peak; the design's 14 * D,
+   16 * D at head dim 256, beside it), and the same at whisper-tiny's training cross-attention
+   (FLASH_BWD_WHISPER), qwen2-vl-2b's (FLASH_BWD_QWEN2_VL) and
+   recurrentgemma-9b's (FLASH_BWD_RECURRENTGEMMA);
    the flash rows at whisper's encoder and cross shapes and qwen2-vl's
    prefill, on their phases' inputs, with their launches at that shape; the
    scans' backward rows (`rglru_bwd[bf16]`, `rwkv6_wkv_bwd[bf16]`) on
@@ -230,8 +235,9 @@ nvcc per source, all at once), then:
 The `build` line also carries nvcc's registers and spills of each flash,
 WKV, RG-LRU, paged-attention, router, FTL and SHARDS window instantiation
 and of each backward kernel, the count of HGMMA (wgmma)
-instructions in the flash library's SASS and of HMMA (mma.sync)
-instructions in the WKV library's (cuobjdump); a count of 0 fails the run.
+instructions in the SASS of the flash library and of the flash
+backward's, and of HMMA (mma.sync) in the WKV library's (cuobjdump); a
+count of 0 fails the run.
 
 Prints the card's name and power limit, a JSON line per phase (`build`,
 `paged_checks`, `flash_checks`, `flash_bwd_checks`, `scan_checks`,
@@ -721,14 +727,50 @@ FLASH_BWD_SHAPES = [
 # c2 from the errors measured on an H100 (this sweep and FLASH_BWD_TRAIN):
 # plain 0.162 bf16 (0.092 on the sweep), 2.8e-4 fp32; given o 5.7e-5 bf16,
 # 3.5e-4 fp32 (fp32 errors sit near 4e-6 of the largest values)
+#
+# Since the backward runs bf16 on the tensor cores (every head dim), it
+# rounds P and dS to bf16 before the three products, as the forward rounds
+# P; the given-o want then does the same (`bwd_given_o(operands="bf16")`,
+# the kernel's `flash_attention.bwd_operands`), so that BWD_O_TOL still
+# holds the sums' order and the output's rounding alone; the error against
+# the fp32-operand want is printed beside it, without a gate. The kernel
+# rounds its own fp32 P and dS, which differ from the want's in their last
+# bits (other sums' order, a MUFU exp2, the saved statistics): where the
+# want's fp32 value lies that close to a bf16 rounding midpoint, the
+# kernel may round to the other neighbour, one bf16 ulp of the term away.
+# On an H100 such flips alone came to 0.007-0.02 of rms (and noise of 1e-6
+# in P does the same on the CPU), so the want carries, per element,
+# the sum of those terms' ulps times their partners' magnitudes
+# (`bwd_given_o`'s allowance; 0 where no rounding is in doubt), and the
+# gate is |err| <= c1 |want| + c2 rms(want) + allowance with (c1, c2) =
+# BWD_O_TOL unchanged. The doubt radius is the worst case of the two fp32
+# computations' difference: a D-term sum taken in two orders differs by
+# at most 2 D 2^-24 of its terms' magnitudes (q.k in P's exponent; dP and
+# delta in dS), and ROUND_DELTA relative more in P covers the rest (the
+# exponent's products, the exp2's 2 ulps, the statistics, measured within
+# 4e-6 under STATS_TOL); dS takes P's relative radius times |dS| plus P
+# times its sums' radius. An allowance is at most 2^-7 of the sum of its
+# element's terms' magnitudes, so a wrong term still shows.
 BWD_TOL = {"fp32": (1e-6, 1e-3), "bf16": (2 ** -8, 0.25)}
 BWD_O_TOL = {"fp32": (1e-6, 1e-3), "bf16": (2 ** -8, 2e-4)}
+ROUND_DELTA = 2 ** -16
+# the forward's softmax statistics against `ref.attention_stats` (fp32 of
+# the widened inputs): m within STATS_TOL * (1 + |m|), l within STATS_TOL
+# * l (the scores' sums in another order, the bf16 kernel's base-2
+# exponent and its MUFU exp2); a row with no valid key keeps m = NEG_INF
+# exactly
+STATS_TOL = 1e-4
 # h2o-danube-1.8b's training attention: one microbatch of 8192 tokens, 32
 # query heads and 8 KV heads of 80, its sliding window of 4096
 FLASH_BWD_TRAIN = (1, 8192, 8192, 32, 8, 80, True, 4096)
 # whisper-tiny's training cross-attention: a microbatch of 8 clips, 448
 # decoder queries over 1500 encoder keys, 6 heads of 64, unmasked
 FLASH_BWD_WHISPER = (8, 448, 1500, 6, 6, 64, False, 0)
+# qwen2-vl-2b's (a microbatch of 4096 tokens, 12 query heads over 2 KV
+# heads of 128, causal) and recurrentgemma-9b's (4096 tokens, 16 query
+# heads over one KV head of 256, its local window of 2048)
+FLASH_BWD_QWEN2_VL = (1, 4096, 4096, 12, 2, 128, True, 0)
+FLASH_BWD_RECURRENTGEMMA = (1, 4096, 4096, 16, 1, 256, True, 2048)
 # the backward kernels of the scans and the router against their plain
 # gradients (`ref.rglru_bwd`, `ref.rwkv6_wkv_bwd`, `ref.topk_router_bwd`:
 # autograd of the plain forward, in the inputs' dtype as the trainer runs
@@ -1082,60 +1124,111 @@ def flash_inputs(shape, dtype, seed, dev):
             for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
 
 
+def stats_check(got, q, k, causal, window) -> dict:
+    """The forward's statistics ``got`` ([2, B, H, S]) against
+    `ref.attention_stats` under STATS_TOL: the largest error of m over
+    STATS_TOL * (1 + |m|) and of l over STATS_TOL * l (ok when both <= 1),
+    rows with no valid key at exactly NEG_INF."""
+    from repro_torch.kernels import ref
+    want = ref.attention_stats(q, k, causal=causal, window=window)
+    none = want[0] == ref.NEG_INF
+    m_over = float(((got[0] - want[0]).abs() / (STATS_TOL * (1 + want[0].abs())))
+                   .masked_fill(none, 0).max())
+    l_over = float(((got[1] - want[1]).abs() / (STATS_TOL * want[1])).max())
+    none_exact = bool((got[0][none] == ref.NEG_INF).all())
+    return dict(m_over_tol=m_over, l_over_tol=l_over, no_key_rows=int(none.sum()),
+                no_key_m_exact=none_exact,
+                ok=bool(torch.isfinite(got).all()) and m_over <= 1 and l_over <= 1
+                and none_exact)
+
+
 def flash_checks(dev) -> list[dict]:
     """The flash kernel against its plain version on random inputs, per
-    element within tol * (1 + |want|)."""
+    element within tol * (1 + |want|); the same call writes the softmax
+    statistics (`stats_check`), and a call without them gives the same
+    output bit for bit."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     checks = []
     for form, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for shape in FLASH_SHAPES:
             q, k, v = flash_inputs(shape, dtype, len(checks), dev)
+            b, s, _, h = shape[:4]
             causal, window = shape[6], shape[7]
-            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            stats = torch.empty((2, b, h, s), dtype=torch.float32, device=dev)
+            got = fa.flash_attention(q, k, v, causal=causal, window=window, stats=stats)
+            plain_out = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             err, rel, ok = max_err(got, ref.attention(q, k, v, causal=causal,
                                                       window=window), TOL[form])
+            st = stats_check(stats, q, k, causal, window)
+            same = same_bits((got,), (plain_out,))
             checks.append(dict(form=form, shape=list(shape[:6]), causal=causal,
                                window=window, max_abs_err=err, max_rel_err=rel,
-                               tol=TOL[form], ok=ok))
+                               tol=TOL[form], stats=st, same_without_stats=same,
+                               ok=ok and st["ok"] and same))
     return checks
 
 
 def flash_bwd_inputs(shape, dtype, seed, dev):
-    """q, k, v, the plain forward's output o and a cotangent dout."""
+    """q, k, v, the plain forward's output o and statistics, and a
+    cotangent dout."""
     from repro_torch.kernels import ref
     b, s, t, h, kv, d, causal, window = shape
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v, dout = [torch.randn(sh, generator=g).to(dtype).to(dev)
                      for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
     o = ref.attention(q, k, v, causal=causal, window=window).contiguous()
-    return q, k, v, o, dout
+    stats = ref.attention_stats(q, k, causal=causal, window=window)
+    return q, k, v, o, stats, dout
 
 
-def bwd_compare(got, want, tol):
+def bwd_compare(got, want, tol, allow=None):
     """(dq, dk, dv) against ``want`` (fp32) under ``tol`` = (c1, c2): (max
     abs error, max abs error / max |want|, the largest (|err| - c1 *
-    |want|) / rms(want), which must stay <= c2, ok), over the three
-    gradients; every output finite."""
+    |want| - allow) / rms(want), which must stay <= c2, ok), over the three
+    gradients; every output finite. ``allow``: per element, the want's
+    rounding allowance (`bwd_given_o`), or none."""
     c1, c2 = tol
     errs, rels, over, ok = [], [], [], True
-    for g_, w_ in zip(got, want):
+    for i, (g_, w_) in enumerate(zip(got, want)):
         err = (g_.float() - w_).abs()
+        if allow is not None:
+            err = err - allow[i]
         rms = float(w_.square().mean().sqrt())
-        errs.append(float(err.max()))
+        errs.append(float((g_.float() - w_).abs().max()))
         rels.append(errs[-1] / max(float(w_.abs().max()), 1e-30))
         over.append(float((err - c1 * w_.abs()).max()) / max(rms, 1e-30))
         ok &= bool(torch.isfinite(g_).all()) and over[-1] <= c2
     return max(errs), max(rels), max(over), ok
 
 
-def bwd_given_o(q, k, v, o, dout, causal, window):
-    """(dq, dk, dv) in fp32 by the backward's formulas on the inputs
-    widened, with delta = rowsum(dO * o) from the ``o`` given: P from the
-    masked scaled scores (a row with no valid key spreads 1 / T), dv = P^T
-    dO, dS = P * (dO V^T - delta) on unmasked pairs and 0 on masked ones,
-    dq = scale dS K, dk = scale dS^T Q. One KV head at a time."""
+def bf16_flip(x, radius):
+    """Per element of fp32 ``x``: one bf16 ulp of x where x lies within
+    ``radius`` of a bf16 rounding midpoint (a value that close may round to
+    either neighbour), else 0."""
+    bits = x.contiguous().view(torch.int32)
+    ulp32 = torch.ldexp(torch.ones_like(x), ((bits >> 23) & 0xFF).clamp(min=1) - 150)
+    dist = ((bits & 0xFFFF) - 0x8000).abs() * ulp32
+    return torch.where(dist <= radius, 65536 * ulp32, 0.0)
+
+
+def bwd_given_o(q, k, v, o, dout, causal, window, operands="fp32"):
+    """((dq, dk, dv), allowance) in fp32 by the backward's formulas on the
+    inputs widened, with delta = rowsum(dO * o) from the ``o`` given: P
+    from the masked scaled scores (a row with no valid key spreads 1 / T),
+    dv = P^T dO, dS = P * (dO V^T - delta) on unmasked pairs and 0 on
+    masked ones, dq = scale dS K, dk = scale dS^T Q. One KV head at a time.
+    With ``operands="fp32"`` the allowance is None. With ``"bf16"`` P and
+    dS (dS from the unrounded P) are rounded to bf16 before the three
+    products, as the tensor-core kernel rounds them
+    (`flash_attention.bwd_operands`), and the allowance (dq, dk, dv) is
+    each element's sum of |the other neighbour - the rounded term| times
+    its partner's magnitude over the terms whose rounding a difference of
+    the kernel's fp32 P or dS within the doubt radius could flip
+    (`bf16_flip`; the note above BWD_TOL)."""
+    if operands not in ("fp32", "bf16"):
+        raise ValueError(f"operands must be 'fp32' or 'bf16'; got {operands!r}")
     from repro_torch.kernels import ref
     q, k, v, o, dout = (x.float() for x in (q, k, v, o, dout))
     b, s, h, d = q.shape
@@ -1149,34 +1242,80 @@ def bwd_given_o(q, k, v, o, dout, causal, window):
     if window:
         mask &= cols[None, :] > pos[:, None] - window
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    allow = None
+    if operands == "bf16":
+        allow = tuple(torch.empty_like(x) for x in (q, k, v))
     for j in range(kv):
         heads = slice(j * g, (j + 1) * g)
         qj, oj, doj = (x[:, :, heads].transpose(1, 2) for x in (q, o, dout))  # [b, g, s, d]
         kj, vj = k[:, None, :, j], v[:, None, :, j]                         # [b, 1, t, d]
         p = torch.softmax(torch.where(mask, qj @ kj.transpose(-1, -2) * scale,
                                       ref.NEG_INF), dim=-1)
-        ds = torch.where(mask, p * (doj @ vj.transpose(-1, -2)
-                                    - (doj * oj).sum(-1, keepdim=True)), 0.0)
+        delta = (doj * oj).sum(-1, keepdim=True)
+        ds = torch.where(mask, p * (doj @ vj.transpose(-1, -2) - delta), 0.0)
+        if operands == "bf16":
+            # the doubt radii (the note above BWD_TOL), then the flips' ulps
+            two_orders = 2 * d * 2 ** -24
+            rel = two_orders * scale * (qj.abs() @ kj.abs().transpose(-1, -2)) + ROUND_DELTA
+            w_p = bf16_flip(p, rel * p)
+            sums = doj.abs() @ vj.abs().transpose(-1, -2) + (doj * oj).abs().sum(-1, keepdim=True)
+            r_ds = torch.where(mask, rel * ds.abs() + p * two_orders * sums, 0.0)
+            del sums, rel
+            w_ds = bf16_flip(ds, r_ds)
+            del r_ds
+            allow[0][:, :, heads] = (w_ds @ kj.abs() * scale).transpose(1, 2)
+            allow[1][:, :, j] = (w_ds.transpose(-1, -2) @ qj.abs() * scale).sum(1)
+            allow[2][:, :, j] = (w_p.transpose(-1, -2) @ doj.abs()).sum(1)
+            del w_ds, w_p
+            p, ds = p.bfloat16().float(), ds.bfloat16().float()
         dq[:, :, heads] = (ds @ kj * scale).transpose(1, 2)
         dk[:, :, j] = (ds.transpose(-1, -2) @ qj * scale).sum(1)
         dv[:, :, j] = (p.transpose(-1, -2) @ doj).sum(1)
         del p, ds
-    return dq, dk, dv
+    return (dq, dk, dv), allow
 
 
 def bwd_check(got, q, k, v, o, dout, causal, window, form) -> dict:
     """The backward's outputs ``got`` against the plain gradient in fp32
-    (BWD_TOL) and against `bwd_given_o` (BWD_O_TOL)."""
+    (BWD_TOL) and against `bwd_given_o` with the kernel's operands
+    (`flash_attention.bwd_operands`; BWD_O_TOL); where those are bf16, also
+    against the fp32-operand want (`given_o_fp32_operands`, printed without
+    a gate). `bwd_ok` reads the gates."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    operands = fa.bwd_operands(q.dtype)
+    wants = [("plain", lambda: (ref.attention_bwd(
+                  q.float(), k.float(), v.float(), None, None, dout.float(), causal=causal,
+                  window=window), None), BWD_TOL[form]),
+             ("given_o", lambda: bwd_given_o(q, k, v, o, dout, causal, window, operands),
+              BWD_O_TOL[form])]
+    if operands == "bf16":
+        wants.append(("given_o_fp32_operands",
+                      lambda: bwd_given_o(q, k, v, o, dout, causal, window), BWD_O_TOL[form]))
     out = {}
-    for key, want, tol in (
-            ("plain", ref.attention_bwd(q.float(), k.float(), v.float(), None, dout.float(),
-                                        causal=causal, window=window), BWD_TOL[form]),
-            ("given_o", bwd_given_o(q, k, v, o, dout, causal, window), BWD_O_TOL[form])):
-        err, rel, over, ok = bwd_compare(got, want, tol)
-        del want
-        out[key] = dict(max_abs_err=err, max_rel_err=rel, err_over_rms=over, tol=tol, ok=ok)
+    for key, want_fn, tol in wants:
+        want, allow = want_fn()
+        err, rel, over, ok = bwd_compare(got, want, tol, allow)
+        extra = {}
+        if key == "given_o":
+            extra["operands"] = operands
+        if allow is not None:
+            # the allowance beside the gate: its largest share of rms
+            extra["allowance_over_rms"] = max(
+                float(a.max()) / max(float(w_.square().mean().sqrt()), 1e-30)
+                for a, w_ in zip(allow, want))
+            # and the same comparison without it
+            extra["err_over_rms_without_allowance"] = bwd_compare(got, want, tol)[2]
+        del want, allow
+        out[key] = dict(max_abs_err=err, max_rel_err=rel, err_over_rms=over, tol=tol,
+                        **extra, **({"ok": ok} if key != "given_o_fp32_operands"
+                                    else {"within_tol": ok, "gated": False}))
     return out
+
+
+def bwd_ok(gates) -> bool:
+    """Both gates of `bwd_check` hold."""
+    return gates["plain"]["ok"] and gates["given_o"]["ok"]
 
 
 def flash_bwd_checks(dev) -> list[dict]:
@@ -1186,41 +1325,47 @@ def flash_bwd_checks(dev) -> list[dict]:
     checks = []
     for form, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for shape in FLASH_BWD_SHAPES:
-            q, k, v, o, dout = flash_bwd_inputs(shape, dtype, len(checks), dev)
+            q, k, v, o, stats, dout = flash_bwd_inputs(shape, dtype, len(checks), dev)
             causal, window = shape[6], shape[7]
-            got = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
-            again = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+            got = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
+            again = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal,
+                                           window=window)
             torch.cuda.synchronize()
             gates = bwd_check(got, q, k, v, o, dout, causal, window, form)
             same = same_bits(tuple(got), tuple(again))
             checks.append(dict(form=form, shape=list(shape[:6]), causal=causal,
                                window=window, **gates, repeat_equal=same,
-                               ok=gates["plain"]["ok"] and gates["given_o"]["ok"] and same))
+                               ok=bwd_ok(gates) and same))
     return checks
 
 
-def flash_bwd_work(q, k, causal, window):
-    """Bytes the backward must move (q, k, v, o and dout read once; dq, dk
-    and dv written once) and operations it must do for THESE shapes: 10 *
-    D per unmasked (query, key) pair and query head (q.k, dO.v, P^T dO,
-    dS^T q, dS k); a row with no valid key (causal, S > T) only adds its
-    uniform weights' dO into dv, 2 * D per key and head."""
+def flash_bwd_work(q, k, causal, window, per_pair=10):
+    """Bytes the backward must move (q, k, v, o and dout read once, the
+    statistics' 8 bytes a row; dq, dk and dv written once) and operations
+    it must do for THESE shapes: 10 * D per unmasked (query, key) pair and
+    query head (q.k, dO.v, P^T dO, dS^T q, dS k); a row with no valid key
+    (causal, S > T) only adds its uniform weights' dO into dv, 2 * D per
+    key and head. ``per_pair=14`` counts what the kernels' design does
+    instead (q.k and dO.v twice: once for dq, once for dk and dv; 16 where
+    dk and dv are two walks, at head dim 256)."""
     b, s, h, d = q.shape
     t = k.shape[1]
     _, fwd_flops = flash_work(q, k, causal, window)
     pos = torch.arange(s) + (t - s)
     no_key_rows = int((pos < 0).sum()) if causal else 0
     pair_flops = fwd_flops - no_key_rows * b * h * t * d     # 4 * D per pair
-    flops = pair_flops // 4 * 10 + 2 * no_key_rows * b * h * t * d
-    nbytes = (5 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = pair_flops // 4 * per_pair + 2 * no_key_rows * b * h * t * d
+    nbytes = (5 * q.numel() + 4 * k.numel()) * q.element_size() + 8 * b * h * s
     return nbytes, flops
 
 
 def flash_bwd_row(dev, flush, checks, launches, extra, shape=FLASH_BWD_TRAIN,
                   name="flash_attention_bwd[bf16]") -> dict:
     """The `kernels` entry of the backward kernel at a training attention
-    shape (h2o-danube-1.8b's, FLASH_BWD_TRAIN, or whisper-tiny's
-    cross-attention, FLASH_BWD_WHISPER; bf16): checked per element
+    shape (h2o-danube-1.8b's, FLASH_BWD_TRAIN, whisper-tiny's
+    cross-attention, FLASH_BWD_WHISPER, qwen2-vl-2b's or
+    recurrentgemma-9b's; bf16), on the forward kernel's output and
+    statistics (checked, `stats_check`): checked per element
     (`bwd_check`), as is its fp32 form at the same shape, and timed spun
     (`spun_ms`) beside the plain gradient and the library yardstick, the
     backward of one `scaled_dot_product_attention` with the band as a
@@ -1233,27 +1378,31 @@ def flash_bwd_row(dev, flush, checks, launches, extra, shape=FLASH_BWD_TRAIN,
     g = torch.Generator(device="cpu").manual_seed(25)
     q, k, v, dout = [torch.randn(sh, generator=g).to(torch.bfloat16).to(dev)
                      for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
-    o = fa.flash_attention(q, k, v, causal=causal, window=window)
-    got = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
-    again = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=dev)
+    o = fa.flash_attention(q, k, v, causal=causal, window=window, stats=stats)
+    stats_gate = stats_check(stats, q, k, causal, window)
+    got = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
     torch.cuda.synchronize()
     gates = bwd_check(got, q, k, v, o, dout, causal, window, "bf16")
     repeat_equal = same_bits(tuple(got), tuple(again))
     del again
     # the fp32 form at the same shape, on the same inputs widened
     q32, k32, v32, dout32 = (x.float() for x in (q, k, v, dout))
-    o32 = fa.flash_attention(q32, k32, v32, causal=causal, window=window)
-    got32 = fa.flash_attention_bwd(q32, k32, v32, o32, dout32, causal=causal, window=window)
+    stats32 = torch.empty_like(stats)
+    o32 = fa.flash_attention(q32, k32, v32, causal=causal, window=window, stats=stats32)
+    got32 = fa.flash_attention_bwd(q32, k32, v32, o32, stats32, dout32, causal=causal,
+                                   window=window)
     gates32 = bwd_check(got32, q32, k32, v32, o32, dout32, causal, window, "fp32")
-    del got32, q32, k32, v32, o32, dout32
-    if not (all(g_["ok"] for g_ in (*gates.values(), *gates32.values())) and repeat_equal):
+    del got32, q32, k32, v32, o32, dout32, stats32
+    if not (bwd_ok(gates) and bwd_ok(gates32) and repeat_equal and stats_gate["ok"]):
         fail(f"{name} at the training shape {shape}: bf16 {gates}, fp32 {gates32}, "
-             f"repeat_equal {repeat_equal}")
+             f"repeat_equal {repeat_equal}, stats {stats_gate}")
     ms, spin_ms, host_ms, attempts = spun_ms(
         "flash_attention_bwd",
-        lambda: fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window),
+        lambda: fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window),
         5, flush)
-    plain_ms = timed_ms(lambda: ref.attention_bwd(q, k, v, o, dout, causal=causal,
+    plain_ms = timed_ms(lambda: ref.attention_bwd(q, k, v, o, stats, dout, causal=causal,
                                                   window=window), 2, flush)
     # the library yardstick: SDPA's backward over the same inputs in its
     # [B, H, S, D] layout, the band as an explicit boolean mask
@@ -1275,6 +1424,10 @@ def flash_bwd_row(dev, flush, checks, launches, extra, shape=FLASH_BWD_TRAIN,
                     f"{'band' if mask is not None else 'None'}, enable_gqa=True)")
     del out, leaves, mask
     nbytes, flops = flash_bwd_work(q, k, causal, window)
+    # the design's count: 14 * D a pair, 16 * D where dk and dv are two walks
+    _, design_flops = flash_bwd_work(q, k, causal, window, per_pair=14 if d <= 128 else 16)
+    n_split = fa.bwd_split(q.dtype, b, t, kv, torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
     t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / BF16_FLOPS
     return {
         "name": name, "route": "cuda",
@@ -1282,16 +1435,20 @@ def flash_bwd_row(dev, flush, checks, launches, extra, shape=FLASH_BWD_TRAIN,
         # no TPU kernel: it stands for XLA's autodiff of the reference's
         # jnp attention oracle, the reference's training gradient
         "replaces": "src/repro/kernels/ref.py:25 (autodiff of attention; no pallas_call)",
-        "launches": launches, "kernels_per_launch": 2,
+        "launches": launches,
+        "kernels_per_launch": fa.bwd_kernels_per_call(q.dtype, d, n_split), "n_split": n_split,
         "shape": {"q": list(q.shape), "k": list(k.shape), "causal": causal,
                   "window": window, "dtype": "bfloat16"},
         "max_abs_err": gates["plain"]["max_abs_err"],
         "max_rel_err": gates["plain"]["max_rel_err"],
         "err_over_rms": gates["plain"]["err_over_rms"], "tol": BWD_TOL["bf16"],
         "given_o": gates["given_o"],
+        "given_o_fp32_operands": gates.get("given_o_fp32_operands"),
+        "forward_stats": stats_gate,
         "gate": "|err| <= tol[0] * |want| + tol[1] * rms(want) per element and "
                 "gradient, want the plain gradient in fp32 of the inputs widened; "
-                "given_o: the same against `bwd_given_o` under BWD_O_TOL",
+                "given_o: the same against `bwd_given_o` with the kernel's operands "
+                "under BWD_O_TOL",
         "fp32_at_this_shape": gates32,
         "repeat_equal": repeat_equal,
         "checks": checks,
@@ -1301,6 +1458,7 @@ def flash_bwd_row(dev, flush, checks, launches, extra, shape=FLASH_BWD_TRAIN,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops, "peak_flops": BF16_FLOPS,
         "tflops": flops / ms / 1e9, "of_bound": max(t_bytes, t_ops) / ms,
+        "design_flops": design_flops, "design_tflops": design_flops / ms / 1e9,
         "library_ms": library_ms,
         "library_call": library_call,
         "library_max_abs_err": lib_err,
@@ -1835,6 +1993,7 @@ def train_phase(dev, spec=TRAIN) -> dict:
     import shutil
     from repro_torch import configs
     from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as L
     from repro_torch.models import transformer as T
     from repro_torch.training import train_step as TS
@@ -1925,8 +2084,20 @@ def train_phase(dev, spec=TRAIN) -> dict:
         init_and_ckpt_save_s=save_s, ckpt_restore_s=restore_s, ckpt_gb=ckpt_gb,
         launches=launches, launches_per_step=per_step[0], expected_per_step=expect,
         flash_calls_by_shape=flash_shapes,
-        backward_cuda_kernels_per_step=2 * expect["flash_attention_bwd"],
+        backward_cuda_kernels_per_step=bwd_cuda_kernels(
+            flash_shapes["flash_attention_bwd"], getattr(torch, cfg.dtype), dev) / steps,
         split=split, host_syncs="none (sync debug mode 'error' around each step)")
+
+
+def bwd_cuda_kernels(rows, dtype, dev) -> int:
+    """The CUDA kernels of the flash backward calls in `by_shape`'s
+    ``rows``: each call `flash_attention.bwd_kernels_per_call` at its
+    shape and split."""
+    from repro_torch.kernels import flash_attention as fa
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sum(r["calls"] * fa.bwd_kernels_per_call(
+        dtype, r["q"][3], fa.bwd_split(dtype, r["k"][0], r["k"][1], r["k"][2], sms))
+        for r in rows)
 
 
 def adamw_direction(m, v, step):
@@ -3689,9 +3860,12 @@ def main() -> None:
     ptxas = [ln.strip() for log in _build.LOG.values() for ln in log.splitlines()
              if "entry function" in ln or "registers" in ln or "spill" in ln]
     hgmma = sass_count(_build, "flash_attention", "HGMMA")
+    bwd_hgmma = sass_count(_build, "flash_attention_bwd", "HGMMA")
     hmma = sass_count(_build, "rwkv6_scan", "HMMA")
-    serialized = sum("wgmma.mma_async instructions are serialized" in ln
-                     for ln in _build.LOG.get("flash_attention", "").splitlines())
+    serialized, bwd_serialized = (
+        sum("wgmma.mma_async instructions are serialized" in ln
+            for ln in _build.LOG.get(src, "").splitlines())
+        for src in ("flash_attention", "flash_attention_bwd"))
     print(json.dumps({"build": {"seconds": round(time.perf_counter() - t0, 3),
                                 "sources": list(_build.SOURCES), "ptxas": ptxas,
                                 "flash_ptxas": ptxas_rows(_build.LOG.get("flash_attention", ""),
@@ -3712,7 +3886,9 @@ def main() -> None:
                                                            "shards_window_kernel"),
                                 "flash_bwd_ptxas": ptxas_rows(
                                     _build.LOG.get("flash_attention_bwd", ""),
-                                    "dq_kernel|dkdv_kernel"),
+                                    "dq_hopper|dkdv_hopper|prep_kernel|sum_kernel|dq_kernel|dkdv_kernel"),
+                                "flash_bwd_hgmma": bwd_hgmma,
+                                "flash_bwd_wgmma_serialized_reports": bwd_serialized,
                                 "rglru_bwd_ptxas": ptxas_rows(
                                     _build.LOG.get("rglru_scan_bwd", ""), "rglru_bwd_kernel"),
                                 "wkv_bwd_ptxas": ptxas_rows(
@@ -3725,6 +3901,9 @@ def main() -> None:
     if hgmma == 0:
         fail("the flash library holds no HGMMA instruction: its bf16 kernel is "
              "not on the tensor cores")
+    if bwd_hgmma == 0:
+        fail("the flash backward's library holds no HGMMA instruction: its bf16 "
+             "kernels are not on the tensor cores")
     if hmma == 0:
         fail("the WKV library holds no HMMA instruction: its bf16 kernel is "
              "not on the tensor cores")
@@ -3757,7 +3936,12 @@ def main() -> None:
     print(json.dumps({"flash_checks": {
         "n": len(fchecks), "ok": all(c["ok"] for c in fchecks),
         "max_abs_err": {f: max(c["max_abs_err"] for c in fchecks if c["form"] == f)
-                        for f in ("fp32", "bf16")}}}), flush=True)
+                        for f in ("fp32", "bf16")},
+        "stats": {f: {key: max(c["stats"][key] for c in fchecks if c["form"] == f)
+                      for key in ("m_over_tol", "l_over_tol", "no_key_rows")}
+                  for f in ("fp32", "bf16")},
+        "stats_tol": STATS_TOL,
+        "same_without_stats": all(c["same_without_stats"] for c in fchecks)}}), flush=True)
     bad = [c for c in fchecks if not c["ok"]]
     if bad:
         fail(f"flash kernel disagrees with its plain version: {bad}")
@@ -3765,9 +3949,12 @@ def main() -> None:
     print(json.dumps({"flash_bwd_checks": {
         "n": len(bchecks), "ok": all(c["ok"] for c in bchecks),
         "repeat_equal": all(c["repeat_equal"] for c in bchecks),
-        **{key: {f: {m: max(c[key][m] for c in bchecks if c["form"] == f)
-                     for m in ("max_abs_err", "err_over_rms")} for f in BWD_TOL}
-           for key in ("plain", "given_o")}}}), flush=True)
+        **{key: {f: {m: max(c[key][m] for c in bchecks if c["form"] == f and key in c)
+                     for m in ("max_abs_err", "err_over_rms")}
+                 for f in BWD_TOL if any(key in c for c in bchecks if c["form"] == f)}
+           for key in ("plain", "given_o", "given_o_fp32_operands")},
+        "given_o_operands": {f: sorted({c["given_o"]["operands"] for c in bchecks
+                                        if c["form"] == f}) for f in BWD_TOL}}}), flush=True)
     bad = [c for c in bchecks if not c["ok"]]
     if bad:
         fail(f"flash backward kernel disagrees with its plain version: {bad}")
@@ -4131,6 +4318,15 @@ def main() -> None:
         {"on_main_path": True, "phase": "train_whisper_tiny",
          "launches_all_shapes": whisper_train["launches"]["flash_attention_bwd"]},
         shape=FLASH_BWD_WHISPER, name="flash_attention_bwd[bf16,whisper_cross]"))
+    # qwen2-vl-2b's and recurrentgemma-9b's training attention: every
+    # backward call of their phases is at this shape
+    for label, shape, phase in (("qwen2_vl", FLASH_BWD_QWEN2_VL, "train_qwen2_vl_2b"),
+                                ("recurrentgemma", FLASH_BWD_RECURRENTGEMMA,
+                                 "train_recurrentgemma_9b")):
+        kernels.append(flash_bwd_row(
+            dev, flush, bchecks, family_lines[phase]["launches"]["flash_attention_bwd"],
+            {"on_main_path": True, "phase": phase}, shape=shape,
+            name=f"flash_attention_bwd[bf16,{label}]"))
 
     # the scans' backward kernels at their training shapes (random bf16
     # inputs), launched by the recurrent families' train phases

@@ -3,9 +3,9 @@
 Each `csrc/<name>.cu` compiles with nvcc into a shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build
 takes seconds). Libraries land in `build/` beside this file, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. `build()` starts one nvcc per source, all at
-once; `load()` builds on first use.
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
+an edited source rebuilds and an unchanged one is reused. `build()`
+starts one nvcc per source, all at once; `load()` builds on first use.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (`csrc/*.cuh`) count as part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

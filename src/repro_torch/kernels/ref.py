@@ -73,15 +73,43 @@ def _band(rows: torch.Tensor, cols: torch.Tensor, causal: bool, window: int):
     return mask
 
 
-def attention_bwd(q, k, v, o, dout, causal=True, window=0, scale=None):
+def attention_stats(q, k, causal=True, window=0, scale=None):
+    """The softmax statistics the flash forward saves for its backward:
+    float32 [2, B, H, S], per query row m = the max of its masked scaled
+    scores x (x = q.k * scale in fp32 of the widened inputs, NEG_INF where
+    masked) and l = sum over the T keys of exp(x - m), in natural units.
+    A row with no valid key (causal, S > T) has m = NEG_INF and l = T: m
+    and l stay apart, since NEG_INF + log(T) rounds to NEG_INF in fp32.
+    The plain version of `flash_attention(..., stats=)`."""
+    check_mask_args(causal, window)
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.float().reshape(b, s, kv, h // kv, dh)
+    qpos = torch.arange(s, device=q.device) + (t - s)
+    m = torch.empty((b, kv, h // kv, s), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    for start in range(0, s, CHUNK):          # [.., CHUNK, T] scores at a time
+        rows = slice(start, start + CHUNK)
+        sc = torch.einsum("bskgd,btkd->bkgst", qg[:, rows], k.float()) * scale
+        if causal:
+            band = _band(qpos[rows], torch.arange(t, device=q.device), causal, window)
+            sc = torch.where(band, sc, NEG_INF)
+        m[..., rows] = sc.amax(dim=-1)
+        l[..., rows] = torch.exp(sc - m[..., rows, None]).sum(dim=-1)
+    return torch.stack([m, l]).reshape(2, b, h, s)
+
+
+def attention_bwd(q, k, v, o, stats, dout, causal=True, window=0, scale=None):
     """The gradients (dq, dk, dv) of `attention`(q, k, v) under the
     cotangent ``dout``: torch.autograd.grad through the plain forward,
-    which it recomputes (``o``, the forward's output, is taken for the
-    backward kernel's signature and not read). The plain version of
+    which it recomputes (``o``, the forward's output, and ``stats``, its
+    softmax statistics, are taken for the backward kernel's signature and
+    not read). The plain version of
     `kernels.flash_attention.flash_attention_bwd`; the tests and
     `chip_smoke.py` hold the kernel against it, the main path never runs
     it."""
-    del o
+    del o, stats
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = attention(*leaves, causal=causal, window=window, scale=scale)

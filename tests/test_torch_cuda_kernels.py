@@ -16,10 +16,11 @@ with stale page ids, pages of 1 and 32 slots, group 1 and 8, head_dim 64,
 and pools off 16 bytes, each call repeated and equal bit for bit. Flash attention: the sweep of tests/test_kernels.py under its
 three masks, head_dim 80 and 16, ragged lengths and rows with no valid
 key, and the edges of the bf16 kernel's tiles (S and T off the tile
-sizes, S = 1, head dims 32 to 256, windows with S < T). Flash backward:
+sizes, S = 1, head dims 32 to 256, windows with S < T), with the softmax
+statistics it saves against `ref.attention_stats`. Flash backward:
 head dims 8 to 256, GQA groups 1, 4 and 8, its three masks, S < T, T off
 its key tiles and rows with no valid key, against the plain gradient and
-repeated bit for bit; `ops.attention`'s autograd Function launching it,
+repeated bit for bit, and refusing bad statistics; `ops.attention`'s autograd Function launching it,
 serving's launches unchanged, and every other wrapper refusing grad. Scans: the
 sweeps of tests/test_kernels.py, ragged lengths, initial states (h0, s0)
 and the final WKV state, at the widths of
@@ -352,11 +353,13 @@ BWD_SHAPES = {
     "d8-g2-causal": (1, 33, 33, 2, 1, 8, True, 0),
 }
 def _bwd_inputs(shape, dtype, seed, dev):
+    """q, k, v, the plain forward's output and statistics, a cotangent."""
     b, s, t, h, kv, d, causal, window = shape
     g = torch.Generator().manual_seed(seed)
     q, k, v, dout = [torch.randn(sh, generator=g).to(getattr(torch, dtype)).to(dev)
                      for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d), (b, s, h, d))]
-    return q, k, v, ref.attention(q, k, v, causal=causal, window=window).contiguous(), dout
+    return (q, k, v, ref.attention(q, k, v, causal=causal, window=window).contiguous(),
+            ref.attention_stats(q, k, causal=causal, window=window), dout)
 
 
 def _bwd_close(got, q, k, v, o, dout, causal, window, dtype):
@@ -371,7 +374,7 @@ def _bwd_close(got, q, k, v, o, dout, causal, window, dtype):
         assert g_.dtype == x.dtype and g_.shape == x.shape, name
     gates = chip_smoke.bwd_check(got, q, k, v, o, dout, causal, window,
                                  "fp32" if dtype == "float32" else "bf16")
-    assert all(g_["ok"] for g_ in gates.values()), gates
+    assert chip_smoke.bwd_ok(gates), gates
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -381,10 +384,10 @@ def test_flash_bwd_kernel_matches_plain(dev, name, dtype):
     repeated call equal bit for bit (no atomics)."""
     shape = BWD_SHAPES[name]
     causal, window = shape[6], shape[7]
-    q, k, v, o, dout = _bwd_inputs(shape, dtype, seed=len(name), dev=dev)
+    q, k, v, o, stats, dout = _bwd_inputs(shape, dtype, seed=len(name), dev=dev)
     before = fa.flash_attention_bwd.launches
-    got = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
-    again = fa.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention_bwd.launches == before + 2
     for a, b_ in zip(got, again):
@@ -392,12 +395,37 @@ def test_flash_bwd_kernel_matches_plain(dev, name, dtype):
     _bwd_close(got, q, k, v, o, dout, causal, window, dtype)
 
 
+@pytest.mark.parametrize("name", ["d64-g1-causal", "d80-g4-window", "d16-no-key-rows",
+                                  "d256-g8-window-s<t", "d256-g1-full-s<t"])
+def test_flash_bwd_split_and_whole_walks_agree(dev, name, monkeypatch):
+    """bf16 dk / dv walks cut into runs (`bwd_split`, the default at these
+    small shapes) and whole (one run, as at h2o-danube's training shape):
+    dq equal bit for bit, dk and dv both within the gates, each repeated
+    bit for bit."""
+    shape = BWD_SHAPES[name]
+    causal, window = shape[6], shape[7]
+    q, k, v, o, stats, dout = _bwd_inputs(shape, "bfloat16", seed=len(name) + 2, dev=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fa.bwd_split(q.dtype, k.shape[0], k.shape[1], k.shape[2], sms) > 1
+    cut = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
+    monkeypatch.setattr(fa, "_SPLIT_BLOCKS_PER_SM", 0)
+    assert fa.bwd_split(q.dtype, k.shape[0], k.shape[1], k.shape[2], sms) == 1
+    whole = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, stats, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(cut[0], whole[0])
+    for a, b_ in zip(whole, again):
+        assert torch.equal(a, b_)
+    for got in (cut, whole):
+        _bwd_close(got, q, k, v, o, dout, causal, window, "bfloat16")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_function_backward_launches_the_kernel(dev, dtype):
     """`ops.attention` on inputs that need a gradient: one forward and one
     backward launch, gradients equal to the plain version's."""
     shape = BWD_SHAPES["d80-g4-window"]
-    q, k, v, _, dout = _bwd_inputs(shape, dtype, seed=3, dev=dev)
+    q, k, v, _, _, dout = _bwd_inputs(shape, dtype, seed=3, dev=dev)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
     out = ops.attention(*leaves, causal=True, window=96)
@@ -412,7 +440,7 @@ def test_attention_function_backward_launches_the_kernel(dev, dtype):
 def test_attention_without_grad_launches_the_forward_only(dev):
     """What serving launches is unchanged: nothing needs a gradient, one
     forward launch and no backward, under grad mode or not."""
-    q, k, v, _, _ = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "bfloat16", 4, dev)
+    q, k, v, _, _, _ = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "bfloat16", 4, dev)
     fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
     ops.attention(q, k, v)
     with torch.no_grad():
@@ -437,7 +465,7 @@ def test_every_other_wrapper_refuses_grad(dev):
     scores = torch.rand((8, 16), device=dev, requires_grad=True)
     idx = torch.zeros((8, 2), dtype=torch.int32, device=dev)
     idx[:, 1] = 1
-    q, k, v, o, dout = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "float32", 5, dev)
+    q, k, v, o, st, dout = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "float32", 5, dev)
     calls = {
         "rglru": lambda: rg.rglru(x, a),
         "rglru_bwd": lambda: rg.rglru_bwd(x, a, None, a),
@@ -448,7 +476,7 @@ def test_every_other_wrapper_refuses_grad(dev):
                                                        scores[:, :2].detach().contiguous()),
         "flash_attention": lambda: fa.flash_attention(q.requires_grad_(), k, v),
         "flash_attention_bwd": lambda: fa.flash_attention_bwd(q.requires_grad_(), k, v,
-                                                              o, dout),
+                                                              o, st, dout),
     }
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match="later slice: no backward kernel"):
@@ -467,19 +495,58 @@ def test_every_other_wrapper_refuses_grad(dev):
 
 
 def test_flash_bwd_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    q, k, v, o, dout = _bwd_inputs(BWD_SHAPES["d16-no-key-rows"], "float32", 7, dev)
+    q, k, v, o, st, dout = _bwd_inputs(BWD_SHAPES["d16-no-key-rows"], "float32", 7, dev)
     with pytest.raises(ValueError):
-        fa.flash_attention_bwd(q, k, v, o.bfloat16(), dout)        # dtype
+        fa.flash_attention_bwd(q, k, v, o.bfloat16(), st, dout)    # dtype
     with pytest.raises(ValueError):
-        fa.flash_attention_bwd(q, k, v, o, dout[:, :-1])           # shape
+        fa.flash_attention_bwd(q, k, v, o, st, dout[:, :-1])       # shape
     with pytest.raises(ValueError):
-        fa.flash_attention_bwd(q, k, v, o, dout.transpose(1, 2).contiguous()
+        fa.flash_attention_bwd(q, k, v, o, st, dout.transpose(1, 2).contiguous()
                                .transpose(1, 2))                    # layout
     with pytest.raises(ValueError):
-        fa.flash_attention_bwd(q, k, v, o, dout, causal=False, window=8)
+        fa.flash_attention_bwd(q, k, v, o, st, dout, causal=False, window=8)
     qd, kd, vd, od, dd = (torch.zeros((1, 4, 2, 12), device=dev) for _ in range(5))
+    sd = torch.ones((2, 1, 2, 4), device=dev)
     with pytest.raises(ValueError, match="limits"):                  # D not a multiple of 8
-        fa.flash_attention_bwd(qd, kd, vd, od, dd)
+        fa.flash_attention_bwd(qd, kd, vd, od, sd, dd)
+    # the statistics: required, float32 [2, B, H, S], contiguous, on q's device
+    for bad in (None, st.double(), st[:, :, :, :-1], st.cpu(), st[:1],
+                st.transpose(2, 3).contiguous().transpose(2, 3)):
+        with pytest.raises(ValueError, match="stats"):
+            fa.flash_attention_bwd(q, k, v, o, bad, dout)
+    qb, kb, vb, ob, sb, db = _bwd_inputs(BWD_SHAPES["d64-g1-causal"], "bfloat16", 8, dev)
+    shifted = torch.empty(db.numel() + 1, dtype=db.dtype, device=dev)
+    shifted[1:] = db.flatten()
+    with pytest.raises(ValueError, match="16 bytes"):               # TMA alignment
+        fa.flash_attention_bwd(qb, kb, vb, ob, sb, shifted[1:].view(db.shape))
+    with pytest.raises(ValueError, match="stats"):                  # the forward's too
+        fa.flash_attention(qb, kb, vb, stats=sb[:, :, :1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["d80-window", "d16-causal", "s256-t64-no-valid-key-rows",
+                                  "s256-t64-window", "s1-t300-window", "ragged-200-full",
+                                  "many-items-d256-window"])
+def test_flash_forward_stats_match_plain(dev, name, dtype):
+    """The forward's softmax statistics (m, l per row, natural units)
+    against `ref.attention_stats` under chip_smoke's STATS_TOL, rows with
+    no valid key at NEG_INF exactly; the output equal bit for bit to a
+    call that stores none."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    shape = FLASH_SHAPES[name]
+    b, s, _, h = shape[:4]
+    causal, window = shape[6], shape[7]
+    q, k, v = _flash_inputs(shape, dtype, seed=len(name) + 1, dev=dev)
+    stats = torch.full((2, b, h, s), float("nan"), device=dev)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, stats=stats)
+    plain = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    gate = chip_smoke.stats_check(stats, q, k, causal, window)
+    assert gate["ok"], gate
+    assert gate["no_key_rows"] == (max(0, s - shape[2]) * b * h if causal else 0)
 
 
 # ---------------------------------------------------------------- scans

@@ -331,6 +331,7 @@ def test_attention_bwd_matches_jax_vjp(shape):
     want = vjp(jnp.asarray(dout))
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     got = tref.attention_bwd(tq, tk, tv, torch.from_numpy(np.array(out)),
+                             tref.attention_stats(tq, tk, causal=causal, window=window),
                              torch.from_numpy(dout), causal=causal, window=window)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)

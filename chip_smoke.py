@@ -790,10 +790,16 @@ ROUTER_BWD_TOL = (1e-6, 1e-5)
 # the sweeps: the forward checks' shapes; the RG-LRU's also with a = 1 on
 # a quarter of the elements and x = 0 on half of those ("one-x0": da =
 # -inf, and NaN where x = 0); the WKV's ("zero-one": w = 0 and w = 1
-# exactly) with a final-state cotangent wherever s0 is given
+# exactly) with a final-state cotangent wherever s0 is given, and r, k,
+# v, w and dout as views 3 elements into their storage (the last entry's
+# 7th field: off 16 bytes in both forms, so the kernels take plain loads
+# in place of cp.async)
 RGLRU_BWD_CHECKS = RGLRU_CHECKS + [(2, 70, 130, True, "one-x0"),
                                    (1, 33, 64, False, "one-x0")]
-RWKV6_BWD_CHECKS = RWKV6_CHECKS
+RWKV6_BWD_CHECKS = RWKV6_CHECKS + [(2, 70, 2, 64, True, "main", 3)]
+# CUDA kernels a backward call launches (`bwd_row` counts them under
+# torch.profiler): the RG-LRU's one; the WKV's chains, groups and du's sum
+SCAN_BWD_KERNELS = {"rglru": 1, "rwkv6_wkv": 3}
 # (t, e, k, pattern, bias): the router's sweep and DeepSeek's widths, rows
 # with exact ties, k = E, rows whose picked scores sum below 1e-9 ("tiny":
 # the clamp's branch) and rows of -0.0 and +0.0
@@ -1105,6 +1111,39 @@ def walk(names, rounds):
     for rnd in range(rounds):
         for name in list(names) + list(names)[::-1]:
             yield rnd, name
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key cut to the kernel's name and template arguments."""
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", key.replace("(anonymous namespace)::", ""))
+    return m.group(1) if m else key[:80]
+
+
+def profile_kernels(fn) -> tuple[int, dict]:
+    """One call of ``fn`` (called once before, outside the profile) under
+    `torch.profiler` with CUDA activity: (the kernels it launched, counted
+    at its calls to the CUDA APIs' launch functions, cudaLaunch* and
+    cuLaunch*; {kernel name (`kernel_name`): {"ms": its device ms,
+    "launches": its count}} from the device's activity records, each
+    kernel, copy or fill that ran on the card). The device records can
+    miss kernels: with torch 2.11 a profile of the WKV backward held all
+    three of its kernels in one process, only du's sum in another and
+    none in this script's run. So the launches are counted at the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launched, rows = 0, {}
+    for e in prof.key_averages():
+        if re.match(r"cudaLaunch|cuLaunch", e.key):
+            launched += e.count
+        elif e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+            row = rows.setdefault(kernel_name(e.key), {"ms": 0.0, "launches": 0})
+            row["ms"] += e.device_time_total / 1e3
+            row["launches"] += e.count
+    return launched, rows
 
 
 def sass_count(build, source: str, opcode: str) -> int:
@@ -1811,8 +1850,8 @@ def gpu_vs_cpu_model(dev, cfg, seed, prompt=128) -> dict:
 
 def train_kernels() -> dict:
     """The launch counters the trainer's path reads: each kernel's forward
-    and backward wrapper (a flash or WKV backward call is two CUDA
-    kernels)."""
+    and backward wrapper (a flash backward call is several CUDA kernels,
+    a WKV backward call three: the chains, the groups, du's sum)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_router as mr
     from repro_torch.kernels import rglru_scan as rg
@@ -2429,7 +2468,8 @@ def grad_gate(got, want, tol) -> dict:
 def scan_bwd_inputs(name, shape, dtype, seed, dev):
     """A scan's forward inputs (`scan_inputs`) and cotangents: rglru (x, a,
     h0, dout); rwkv6_wkv (r, k, v, w, u, s0, dout, ds_final), the final
-    state's cotangent given where s0 is."""
+    state's cotangent given where s0 is, with r, k, v, w and dout views
+    shape[6] elements into their storage where ``shape`` has a 7th field."""
     args, kw = scan_inputs(name, shape, dtype, seed, dev)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     if name == "rglru":
@@ -2439,7 +2479,19 @@ def scan_bwd_inputs(name, shape, dtype, seed, dev):
     dout = (torch.randn(v.shape, generator=g) * 0.5).to(dtype).to(dev)
     ds_final = (None if s0 is None
                 else (torch.randn(s0.shape, generator=g) * 0.5).to(dtype).to(dev))
-    return (*args, s0, dout, ds_final)
+    r, k, v, w, u = args
+    offset = shape[6] if len(shape) > 6 else 0
+    if offset:
+        r, k, v, w, dout = (storage_view(x, offset) for x in (r, k, v, w, dout))
+    return r, k, v, w, u, s0, dout, ds_final
+
+
+def storage_view(x, offset):
+    """A contiguous view holding ``x``'s values ``offset`` elements into
+    its storage."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    buf[offset:] = x.flatten()
+    return buf[offset:].view(x.shape)
 
 
 def scan_bwd_fns(name):
@@ -2483,7 +2535,8 @@ def scan_bwd_checks(dev) -> list[dict]:
                              tuple(x for x in again if x is not None))
             ok = gate.pop("ok") and same
             checks.append(dict(kernel=f"{name}_bwd", form=form, shape=list(shape), **gate,
-                               repeat_equal=same, ok=ok))
+                               repeat_equal=same, off_16_bytes=args[0].data_ptr() % 16 != 0,
+                               ok=ok))
             del args, got, again
     return checks
 
@@ -2512,15 +2565,27 @@ def router_bwd_checks(dev) -> list[dict]:
     return checks
 
 
+def scan_bwd_work(name, x) -> tuple[int, int]:
+    """Bytes a scan's backward call must move and fp32 operations it must
+    do, its first input ``x`` given: RG-LRU (x, a and dout read, dx and da
+    written: 10 B an element in bf16; some 20 operations an element); WKV
+    (r, k, v, w and dout read, dr, dk, dv, dw written: 18 B an element in
+    bf16, and u read, du written; 10 K V operations a (b, t, h))."""
+    es = x.element_size()
+    if name == "rglru":
+        return 5 * x.numel() * es, 20 * x.numel()
+    b, t, h, dk = x.shape
+    return 9 * x.numel() * es + 2 * h * dk * 4, 10 * dk * dk * b * t * h
+
+
 def bwd_row(name, form, shape, source, launches, flush, checks, floor_ms, extra) -> dict:
     """The `kernels` entry of a scan's backward kernel (name "rglru" or
     "rwkv6_wkv") on random inputs at its training shape: checked against
     the plain gradient (`scan_bwd_check`), timed spun (`spun_ms`) beside
-    `floor_ms`, one run of the plain gradient and the bound: RG-LRU bytes
-    (x, a and dout read, dx and da written: 10 B an element in bf16; some
-    20 fp32 operations an element), WKV the larger of its bytes (r, k, v,
-    w and dout read, dr, dk, dv, dw written: 18 B an element in bf16) and
-    10 K V fp32 operations a (b, t, h)."""
+    `floor_ms`, one run of the plain gradient, the bound (the larger of
+    `scan_bwd_work`'s bytes and fp32 operations) and the CUDA kernels of
+    one call under torch.profiler (`profile_kernels`), which must number
+    SCAN_BWD_KERNELS."""
     kernel, plain_fn = scan_bwd_fns(name)
     dtype = torch.bfloat16 if form == "bf16" else torch.float32
     kind = "one-x0" if name == "rglru" else "main"
@@ -2534,14 +2599,11 @@ def bwd_row(name, form, shape, source, launches, flush, checks, floor_ms, extra)
     ms, spin_ms, host_ms, attempts = spun_ms(f"{name}_bwd", lambda: kernel(*args), 5,
                                              flush)
     plain_ms = timed_ms(lambda: plain_fn(*args), 1, flush)
-    x = args[0]
-    es = x.element_size()
-    if name == "rglru":
-        nbytes, flops = 5 * x.numel() * es, 20 * x.numel()
-    else:
-        b, t, h, dk = x.shape
-        nbytes = 9 * x.numel() * es + 2 * h * dk * 4   # and u read, du written
-        flops = 10 * dk * dk * b * t * h
+    per_call = profile_kernels(lambda: kernel(*args))[0]
+    if per_call != SCAN_BWD_KERNELS[name]:
+        fail(f"{name}_bwd[{form}]: one call launched {per_call} kernels, "
+             f"want {SCAN_BWD_KERNELS[name]}")
+    nbytes, flops = scan_bwd_work(name, args[0])
     t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * flops / FP32_FLOPS
     return {
         "name": f"{name}_bwd[{form}]", "route": "cuda",
@@ -2552,7 +2614,8 @@ def bwd_row(name, form, shape, source, launches, flush, checks, floor_ms, extra)
                      if name == "rglru" else
                      "src/repro/kernels/ref.py:228 (autodiff of rwkv6_wkv; no pallas_call)"),
         "launches": launches,
-        "kernels_per_launch": 1 if name == "rglru" else 2,
+        # counted under torch.profiler (`profile_kernels`)
+        "kernels_per_launch": per_call,
         "shape": {"args": [list(a.shape) for a in args if a is not None],
                   "dtype": str(dtype).replace("torch.", "")},
         **{key: gate[key] for key in ("max_abs_err", "err_over_rms", "tol")},
@@ -3893,7 +3956,7 @@ def main() -> None:
                                     _build.LOG.get("rglru_scan_bwd", ""), "rglru_bwd_kernel"),
                                 "wkv_bwd_ptxas": ptxas_rows(
                                     _build.LOG.get("rwkv6_scan_bwd", ""),
-                                    "wkv_bwd_kernel|wkv_bwd_sum_kernel"),
+                                    "wkv_bwd_chains|wkv_bwd_groups|wkv_bwd_du_kernel"),
                                 "router_bwd_ptxas": ptxas_rows(
                                     _build.LOG.get("moe_router_bwd", ""), "router_bwd_kernel"),
                                 "wkv_hmma": hmma}}),

@@ -42,8 +42,9 @@ bound (10 * D flops a pair and head at the bf16 peak,
 `chip_smoke.flash_bwd_work`), `of_bound`, TFLOP/s at 10 * D and at the
 design's count (14 * D a pair, 16 * D at D = 256; the parent's 16 * D),
 and `library_ms`. With ``--profile``, a `profile` line per shape and
-build: one call under `torch.profiler`, each CUDA kernel's device time
-(the checkout's delta pass, dq, dk / dv and sum kernels). Needs a CUDA
+build: one call's CUDA kernels under `torch.profiler`
+(`chip_smoke.profile_kernels`: the launches, each kernel's device ms; the
+checkout's delta pass, dq, dk / dv and sum kernels). Needs a CUDA
 device and nvcc.
 """
 from __future__ import annotations
@@ -167,19 +168,12 @@ def main() -> None:
                                       "spin_ms": spin_ms, "host_ms_max": host_ms,
                                       "spun_attempts": attempts}}), flush=True)
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
         for label in args.shapes:
-            q, k, v, o, stats, dout, causal, window = inputs[label]
             for name, call in calls.items():
-                call(q, k, v, o, stats, dout, causal, window)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    call(q, k, v, o, stats, dout, causal, window)
-                    torch.cuda.synchronize()
-                rows = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-                        if e.device_time_total > 0}
+                launched, rows = cs.profile_kernels(lambda: call(*inputs[label]))
                 print(json.dumps({"profile": {"shape": label, "build": name,
-                                              "device_ms": rows}}), flush=True)
+                                              "launched": launched, "kernels": rows}}),
+                      flush=True)
     import torch.nn.functional as F
     for label in args.shapes:
         q, k, v, o, stats, dout, causal, window = inputs[label]

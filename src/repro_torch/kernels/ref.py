@@ -335,7 +335,15 @@ def rwkv6_wkv_bwd(r, k, v, w, u, s0, dout, ds_final=None):
         if ds_final is not None:
             outs.append(s_fin)
             cots.append(ds_final.to(s_fin.dtype))
-        grads = torch.autograd.grad(outs, leaves, cots)
+        grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    # only w may reach nothing that has a cotangent, and only when T = 1
+    # with neither s0 nor ds_final (S_0 = 0): its gradient is then zeros
+    unused = [i for i, g in enumerate(grads) if g is None]
+    if unused and (unused != [3] or r.shape[1] != 1 or s0 is not None
+                   or ds_final is not None):
+        raise RuntimeError(f"rwkv6_wkv_bwd: leaves {unused} of (r, k, v, w, u, s0) "
+                           "reach no output")
+    grads = tuple(torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves))
     return grads if s0 is not None else (*grads, None)
 
 

@@ -25,11 +25,14 @@ Its gradient: `RWKV6WKV`, a ``torch.autograd.Function`` whose forward
 launches the kernel above unchanged (and saves its inputs) and whose
 backward launches `rwkv6_wkv_bwd`, the wrapper of `csrc/rwkv6_scan_bwd.cu`
 (no TPU kernel behind it: the reference's gradient is XLA's autodiff of
-its jnp oracle): a reverse walk over chunks of 8 steps whose states it
-recomputes from checkpoints, in fp32 on the CUDA cores for both dtypes,
-the sums across its column slices in a fixed order. Plain version:
-`kernels.ref.rwkv6_wkv_bwd`. ``rwkv6_wkv_bwd.launches`` counts its calls,
-each two CUDA kernels (the walk, then the slices' sums).
+its jnp oracle), in fp32 on the CUDA cores for both dtypes: one kernel
+walks the two state chains (S forward, dS back) and keeps each at the
+edges of every group of 64 rows (32 at K = 128); a second takes every
+(batch, head, group) in parallel, recomputes the group's states from
+those snapshots and writes dr, dk, dv and dw; a third sums du's
+partials in a fixed order. Nothing atomic: a repeated call gives the
+same bits. Plain version: `kernels.ref.rwkv6_wkv_bwd`.
+``rwkv6_wkv_bwd.launches`` counts its calls, each three CUDA kernels.
 """
 from __future__ import annotations
 

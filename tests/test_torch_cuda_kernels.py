@@ -29,7 +29,9 @@ its chunks of 32 steps and 64 channels, more blocks than SMs, a = 0 and a
 = 1 exactly and views at an odd storage offset, each equal to the plain
 version bit for bit; for the chunked bf16 WKV kernel also T
 across its 16-row chunks, K = 128 from s0, more blocks than SMs, decays
-with w = 0 and w = 1 exactly and down to e^-30, and a view off 16 bytes. Router: the sweep of tests/test_kernels.py
+with w = 0 and w = 1 exactly and down to e^-30, and a view off 16 bytes;
+for the WKV backward also T around its groups of rows and views off 16
+bytes. Router: the sweep of tests/test_kernels.py
 with and without bias, DeepSeek-v2's and -v3's shapes in prefill and
 decode, rows with exact ties, and the edges of its redesign (E = 31, 32,
 33, 160, 256, 1024 with k = 1 and 16; T = 1, 4, 1000, 4096; rows of -0.0
@@ -867,7 +869,9 @@ RGLRU_BWD_SHAPES = {
     "a-one-x0-h0": (2, 70, 130, True, "one-x0"), "a-one-x0": (1, 33, 64, False, "one-x0"),
     "offset1-w130-h0": (2, 70, 130, True, "sigmoid", 1),
 }
-# (b, t, h, k, s0[, decay]), a final-state cotangent wherever s0 is given
+# (b, t, h, k, s0[, decay]), a final-state cotangent wherever s0 is given;
+# then T around the kernel's groups (G = 64 rows, 32 at K = 128) and its
+# sub-chunks of 8: G - 1, G, G + 1 and 2 G + 3
 RWKV6_BWD_SHAPES = {
     "sweep0": (1, 256, 2, 64, False), "sweep1": (2, 128, 4, 128, False),
     "k16-s0": (3, 70, 4, 16, True), "k32-ragged-200-s0": (2, 200, 3, 32, True),
@@ -876,6 +880,11 @@ RWKV6_BWD_SHAPES = {
     "w-zero-one-s0": (2, 200, 3, 64, True, "zero-one"),
     "w-near0-k128-s0": (1, 130, 2, 128, True, "near0"),
     "w-main": (2, 300, 4, 64, False, "main"),
+    "t63": (1, 63, 2, 64, False), "t64-s0": (2, 64, 3, 64, True),
+    "t65-s0": (1, 65, 2, 64, True), "t131-zero-one-s0": (2, 131, 2, 64, True, "zero-one"),
+    "k16-t64": (3, 64, 4, 16, False), "k32-t65-s0": (2, 65, 3, 32, True),
+    "k128-t31-s0": (1, 31, 2, 128, True), "k128-t32": (2, 32, 1, 128, False),
+    "k128-t33-s0": (1, 33, 2, 128, True), "k128-t67-zero-one": (1, 67, 2, 128, False, "zero-one"),
 }
 # (t, e, k, pattern, bias): the sweep, DeepSeek's prefill widths, ties,
 # k = E, picks summing below 1e-9 ("tiny"), rows of -0.0 and +0.0, the
@@ -926,6 +935,21 @@ def test_rglru_bwd_kernel_matches_plain(dev, name, dtype):
 @pytest.mark.parametrize("name", list(RWKV6_BWD_SHAPES))
 def test_rwkv6_bwd_kernel_matches_plain(dev, name, dtype):
     _scan_bwd(dev, "rwkv6_wkv", RWKV6_BWD_SHAPES[name], dtype, len(name))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_bwd_kernel_views_off_16_bytes(dev, dtype):
+    """r, k, v, w and dout as contiguous views 3 elements into their
+    storage: the kernels copy element by element in place of cp.async."""
+    cs = _chip_smoke()
+    args = cs.scan_bwd_inputs("rwkv6_wkv", (2, 70, 2, 64, True, "sigmoid", 3),
+                              getattr(torch, dtype), 5, dev)
+    assert all(args[i].data_ptr() % 16 != 0 and args[i].is_contiguous() for i in (0, 1, 2, 3, 6))
+    got, again = wkv.rwkv6_wkv_bwd(*args), wkv.rwkv6_wkv_bwd(*args)
+    torch.cuda.synchronize()
+    assert cs.same_bits(got, again)
+    gate = cs.scan_bwd_check("rwkv6_wkv", "fp32" if dtype == "float32" else "bf16", args, got)
+    assert gate["ok"], gate
 
 
 @pytest.mark.parametrize("name", list(ROUTER_BWD_SHAPES))

@@ -790,16 +790,19 @@ ROUTER_BWD_TOL = (1e-6, 1e-5)
 # the sweeps: the forward checks' shapes; the RG-LRU's also with a = 1 on
 # a quarter of the elements and x = 0 on half of those ("one-x0": da =
 # -inf, and NaN where x = 0); the WKV's ("zero-one": w = 0 and w = 1
-# exactly) with a final-state cotangent wherever s0 is given, and r, k,
-# v, w and dout as views 3 elements into their storage (the last entry's
-# 7th field: off 16 bytes in both forms, so the kernels take plain loads
-# in place of cp.async)
+# exactly) with a final-state cotangent wherever s0 is given; each last
+# entry with its inputs and dout as views 3 elements into their storage
+# (the 7th field: off 16 bytes in both forms, so the WKV kernels take
+# plain loads in place of cp.async, and the RG-LRU chains copy 2 bf16 or
+# 4 fp32 bytes at a time)
 RGLRU_BWD_CHECKS = RGLRU_CHECKS + [(2, 70, 130, True, "one-x0"),
-                                   (1, 33, 64, False, "one-x0")]
+                                   (1, 33, 64, False, "one-x0"),
+                                   (2, 70, 130, True, "one-x0", 0, 3)]
 RWKV6_BWD_CHECKS = RWKV6_CHECKS + [(2, 70, 2, 64, True, "main", 3)]
 # CUDA kernels a backward call launches (`bwd_row` counts them under
-# torch.profiler): the RG-LRU's one; the WKV's chains, groups and du's sum
-SCAN_BWD_KERNELS = {"rglru": 1, "rwkv6_wkv": 3}
+# torch.profiler): the RG-LRU's chains and groups; the WKV's chains,
+# groups and du's sum
+SCAN_BWD_KERNELS = {"rglru": 2, "rwkv6_wkv": 3}
 # (t, e, k, pattern, bias): the router's sweep and DeepSeek's widths, rows
 # with exact ties, k = E, rows whose picked scores sum below 1e-9 ("tiny":
 # the clamp's branch) and rows of -0.0 and +0.0
@@ -1111,6 +1114,38 @@ def walk(names, rounds):
     for rnd in range(rounds):
         for name in list(names) + list(names)[::-1]:
             yield rnd, name
+
+
+def bench_train_walk(libs, source, phase, rounds, dev) -> None:
+    """A bench's `train_split` of a TRAIN_FAMILIES phase with each build of
+    ``libs`` ({name: library of ``csrc/<source>.cu``}, handed to its
+    wrapper with `_build.use`): the phase's model at its depth, weights
+    from seed 0, one warm-up step each, then per round the builds walked
+    forward and back (`walk`), each split from the same state and batch.
+    Prints a `train` line each and last a `train_summary` line, per build
+    the mean of each stage."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as L
+    arch, n_layers, batch, seq, n_micro, _ = TRAIN_FAMILIES[phase]
+    cfg = dataclasses.replace(configs.get(arch), name=f"{arch}-{n_layers}-layers",
+                              n_layers=n_layers)
+    state = L.init(cfg, seed=0, device=dev)
+    data = pipeline.batch_for_step(cfg, 0, batch, seq, 0, device=dev)
+    for lib in libs.values():
+        _build.use(source, lib)
+        train_split(cfg, state, data, n_micro)
+    splits = {}
+    for rnd, name in walk(list(libs), rounds):
+        _build.use(source, libs[name])
+        split = train_split(cfg, state, data, n_micro)
+        splits.setdefault(name, []).append(split)
+        print(json.dumps({"train": {"round": rnd, "build": name, **split}}), flush=True)
+    print(json.dumps({"train_summary": {
+        name: {key: sum(s[key] for s in runs) / len(runs)
+               for key in ("step_ms", "forward_ms", "backward_ms", "optimizer_ms")}
+        for name, runs in splits.items()}}), flush=True)
 
 
 def kernel_name(key: str) -> str:
@@ -2468,19 +2503,23 @@ def grad_gate(got, want, tol) -> dict:
 def scan_bwd_inputs(name, shape, dtype, seed, dev):
     """A scan's forward inputs (`scan_inputs`) and cotangents: rglru (x, a,
     h0, dout); rwkv6_wkv (r, k, v, w, u, s0, dout, ds_final), the final
-    state's cotangent given where s0 is, with r, k, v, w and dout views
-    shape[6] elements into their storage where ``shape`` has a 7th field."""
+    state's cotangent given where s0 is. Where ``shape`` has a 7th field,
+    the inputs of [B, T, ...] and dout (rglru: x, a, dout; rwkv6_wkv: r, k,
+    v, w, dout) are views that many elements into their storage."""
     args, kw = scan_inputs(name, shape, dtype, seed, dev)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    offset = shape[6] if len(shape) > 6 else 0
     if name == "rglru":
-        x = args[0]
-        return (*args, kw.get("h0"), torch.randn(x.shape, generator=g).to(dtype).to(dev))
+        x, a = args
+        dout = torch.randn(x.shape, generator=g).to(dtype).to(dev)
+        if offset:
+            x, a, dout = (storage_view(t, offset) for t in (x, a, dout))
+        return x, a, kw.get("h0"), dout
     v, s0 = args[2], kw.get("s0")
     dout = (torch.randn(v.shape, generator=g) * 0.5).to(dtype).to(dev)
     ds_final = (None if s0 is None
                 else (torch.randn(s0.shape, generator=g) * 0.5).to(dtype).to(dev))
     r, k, v, w, u = args
-    offset = shape[6] if len(shape) > 6 else 0
     if offset:
         r, k, v, w, dout = (storage_view(x, offset) for x in (r, k, v, w, dout))
     return r, k, v, w, u, s0, dout, ds_final
@@ -3953,7 +3992,8 @@ def main() -> None:
                                 "flash_bwd_hgmma": bwd_hgmma,
                                 "flash_bwd_wgmma_serialized_reports": bwd_serialized,
                                 "rglru_bwd_ptxas": ptxas_rows(
-                                    _build.LOG.get("rglru_scan_bwd", ""), "rglru_bwd_kernel"),
+                                    _build.LOG.get("rglru_scan_bwd", ""),
+                                    "rglru_bwd_chains|rglru_bwd_groups"),
                                 "wkv_bwd_ptxas": ptxas_rows(
                                     _build.LOG.get("rwkv6_scan_bwd", ""),
                                     "wkv_bwd_chains|wkv_bwd_groups|wkv_bwd_du_kernel"),
@@ -4401,6 +4441,21 @@ def main() -> None:
             flush, sbchecks, floor_ms,
             {"on_main_path": True, "phase": phase,
              "launches_train_gpu_vs_cpu": train_gpu_cpu_launches[f"{name}_bwd"]}))
+    # the RG-LRU backward in fp32 at the same shape (a form no trainer of
+    # the smoke runs: its time on record), and the forward kernel at the
+    # training microbatch's shape (random bf16 inputs; the serving rows of
+    # step 6 are at the prefill's [4, 2048, 4096]), launched 8 times a step
+    # by train_recurrentgemma_9b (2 RG-LRU layers x 2 microbatches, forward
+    # and remat)
+    kernels.append(bwd_row(
+        "rglru", "fp32", RGLRU_BWD_TRAIN, "rglru_scan_bwd", 0, flush, sbchecks, floor_ms,
+        {"on_main_path": False, "phase": "train_recurrentgemma_9b's shape in fp32"}))
+    args, kw = scan_inputs("rglru", (*RGLRU_BWD_TRAIN, False), torch.bfloat16, 26, dev)
+    kernels.append({**scan_row(
+        "rglru", "bf16", args, kw,
+        family_lines["train_recurrentgemma_9b"]["launches"]["rglru"], flush, schecks,
+        {"on_main_path": True, "phase": "train_recurrentgemma_9b"}), "name": "rglru[bf16,train]"})
+    del args, kw
 
     # ---- 6. the scan kernels on the inputs the recurrent models gave their
     # first layer (bf16), and the same inputs in fp32 (a form the main path

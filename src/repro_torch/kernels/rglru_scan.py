@@ -21,9 +21,11 @@ Its gradient: `RGLRU`, a ``torch.autograd.Function`` whose forward
 launches the kernel above unchanged (and saves x, a and h0) and whose
 backward launches `rglru_bwd`, the wrapper of `csrc/rglru_scan_bwd.cu`
 (no TPU kernel behind it: the reference's gradient is XLA's autodiff of
-its jnp oracle). It recomputes the fp32 states from chunk checkpoints and
-gives the plain gradient (`kernels.ref.rglru_bwd`) value for value.
-``rglru_bwd.launches`` counts its launches.
+its jnp oracle). A call launches two kernels: the state and cotangent
+chains walked alone, snapshotted every 8 rows, then every (batch, group,
+channel) in parallel from those snapshots; it gives the plain gradient
+(`kernels.ref.rglru_bwd`) value for value. ``rglru_bwd.launches`` counts
+its calls.
 """
 from __future__ import annotations
 

@@ -860,10 +860,14 @@ def test_router_wrapper_refuses_what_the_kernel_does_not_take(dev):
 # where the plain gradient has NaN; the WKV per element under WKV_BWD_TOL;
 # `grad_gate` under ROUTER_BWD_TOL for the router), each call repeated bit
 # for bit. (b, t, w, h0[, a[, offset]]): the forward's sweep and edges,
-# with a = 1 and x = 0 ("one-x0": infinite and NaN gradients)
+# with a = 1 and x = 0 ("one-x0": infinite and NaN gradients); T around
+# the backward's groups of 8 rows and chunks of 64, W off its channel
+# tiles of 32 and 128
 RGLRU_BWD_SHAPES = {
     "sweep0": (2, 256, 64, False), "ragged-200-h0": (2, 200, 96, True),
     "t1-h0": (3, 1, 40, True), "t17-h0": (1, 17, 64, True), "t33": (3, 33, 64, False),
+    "t7-w33-h0": (1, 7, 33, True), "t8-w40": (2, 8, 40, False),
+    "t63-w5-h0": (2, 63, 5, True), "t65-w40": (1, 65, 40, False),
     "blocks-over-sms-h0": (1, 66, 9000, True),
     "a-zero-one-h0": (2, 100, 96, True, "zero-one"),
     "a-one-x0-h0": (2, 70, 130, True, "one-x0"), "a-one-x0": (1, 33, 64, False, "one-x0"),
@@ -950,6 +954,22 @@ def test_rwkv6_bwd_kernel_views_off_16_bytes(dev, dtype):
     assert cs.same_bits(got, again)
     gate = cs.scan_bwd_check("rwkv6_wkv", "fp32" if dtype == "float32" else "bf16", args, got)
     assert gate["ok"], gate
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_bwd_kernel_views_off_16_bytes(dev, dtype):
+    """x, a and dout as contiguous views 3 elements into their storage:
+    the chains copy 2 bf16 or 4 fp32 bytes at a time in place of 8 or 16,
+    and the gradient is still the plain one value for value."""
+    cs = _chip_smoke()
+    args = cs.scan_bwd_inputs("rglru", (2, 70, 130, True, "one-x0", 0, 3),
+                              getattr(torch, dtype), 5, dev)
+    assert all(args[i].data_ptr() % 16 != 0 and args[i].is_contiguous() for i in (0, 1, 3))
+    got, again = rg.rglru_bwd(*args), rg.rglru_bwd(*args)
+    torch.cuda.synchronize()
+    assert cs.same_bits(got, again)
+    gate = cs.scan_bwd_check("rglru", "fp32" if dtype == "float32" else "bf16", args, got)
+    assert gate["ok"] and gate["nonfinite"] > 0, gate
 
 
 @pytest.mark.parametrize("name", list(ROUTER_BWD_SHAPES))

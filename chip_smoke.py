@@ -87,6 +87,28 @@ nvcc per source, all at once), then:
    loaded replicas), the event log must hold rows and some of the
    exchange (level >= 1); and no step may synchronize with the host
    (`torch.cuda`'s sync debug mode raises on one);
+2r. drives the multi-rank paths, each rank a spawned process of one gloo
+   group on the one card (NCCL refuses two ranks on one GPU; gloo stages
+   CUDA tensors through the host, so the ranks' times check values and
+   are no figure for NCCL or several cards): `sharded2_fp32` on 2 ranks
+   and `trace_enclosure4_int8_metered_obs` on 4 through
+   `engine.make_sharded_step` (`engine_ranks_phase`), each rank's stats
+   equal to every other rank's bit for bit and to one process's every
+   step (floats within 1e-4 relative, RANK_STATS_RTOL), the joined final
+   state the one process's (`same_state`), the harvesting counts the
+   reference's, and each rank launching paged attention (and the SHARDS
+   window) once a step, which collectives gloo takes for CUDA tensors
+   probed and printed; then `mla_seq_sharded_v2` (`mla_ranks_phase`):
+   deepseek-v2 at full width, 2 layers (1 dense + 1 MoE), batch 4,
+   prompt 1024, 32 greedy tokens in one process, then on 2 and on 4
+   ranks with the 2048-position latent cache split by sequence, fed the
+   same tokens: layer 0's attention output, and the logits of every row
+   whose MoE layer picked the one process's experts, within MLA_TOL of the
+   one process's each step; a row whose router moved must be a near-tie
+   of its scores, as must a token flip; the router launched once per MoE
+   layer in the prefill and each step on every rank. Each prints its ms
+   per step (or token) beside the one process's, its seconds and the
+   backend;
 2a. drives the JBOF simulator (`jbof.sim`) in three phases, each window
    loop (`sim.run_prepared`) under the sync debug mode: `sim_jbof12`,
    fig. 9's JBOF (12 SSDs: 6 busy with 64 KB sequential reads at QD 64,
@@ -242,7 +264,7 @@ count of 0 fails the run.
 Prints the card's name and power limit, a JSON line per phase (`build`,
 `paged_checks`, `flash_checks`, `flash_bwd_checks`, `scan_checks`,
 `router_checks`, `scan_bwd_checks`, `router_bwd_checks`, `ftl`, `engine`,
-`sim_jbof12`, `sim_trace8_obs`, `sim_fleet4096`, `model`, `model_window`,
+`engine_ranks`, `mla_seq_sharded_v2`, `sim_jbof12`, `sim_trace8_obs`, `sim_fleet4096`, `model`, `model_window`,
 `model_hybrid`, `model_rwkv`, `model_moe_v2`, `model_moe_v3`,
 `model_whisper_tiny`, `model_qwen2_vl_2b`, `train_h2o_danube`,
 `train_whisper_tiny`, `train_recurrentgemma_9b`, `train_rwkv6_3b`,
@@ -3110,10 +3132,7 @@ def engine_phase(E, pa, phase, dev) -> tuple[dict, dict]:
     from repro_torch.kernels import ref
     from repro_torch.kernels import shards_window as sw
 
-    extra, expect = PHASES[phase]
-    if "obs" in extra:
-        extra = {**extra, "obs": E.obs_m.ObsConfig(**extra["obs"])}
-    cfg = E.EngineConfig(**FULL_WIDTH, **extra)
+    cfg, expect = engine_cfg(E, phase)
     arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
     # warm-up on a throwaway state (cuBLAS handles, the kernel library)
     warm = E.init(cfg, device=dev)
@@ -3504,6 +3523,465 @@ def gpu_vs_cpu_engine(E, dev, cfg, arrivals, steps, check_state=False,
         for key in totals:
             totals[key] += float(cst[key])
     return totals
+
+
+# ------------------------------------------------------ the multi-rank paths
+# The engine's sharded step (`engine.make_sharded_step`) and the sequence-
+# sharded MLA decode (`attention.mla_decode_seq_sharded`) run as ranks of
+# one process group, spawned processes on the one card. NCCL refuses two
+# ranks on one GPU, so the group is gloo's, which stages CUDA tensors
+# through the host: the ranks' times check their values, they are no
+# figure for NCCL or for several cards. The port's collectives are
+# all-reduces only, which both backends take for CUDA tensors.
+RANK_BACKEND = "gloo"
+RANK_TIMEOUT_S = 600
+# phase -> (the single-process phase it repeats on ranks, ranks)
+RANK_PHASES = {"sharded2_fp32_ranks": ("sharded2_fp32", 2),
+               "trace_enclosure4_int8_metered_obs_ranks":
+                   ("trace_enclosure4_int8_metered_obs", 4)}
+# deepseek-v2 at full width cut to its first 2 layers (1 dense + 1 MoE):
+# (arch, layers, batch, prompt, generated tokens, latent-cache positions,
+# rank counts). The prompt fills positions 0-1023; the decode writes
+# 1024-1055: rank 1's span over 2 ranks, rank 2's over 4 (rank 3's stays
+# empty)
+MLA_RANKS = ("deepseek-v2-236b", 2, 4, 1024, 32, 2048, (2, 4))
+# the sequence-sharded decode against the one-process decode, per step and
+# row (bf16 products and caches: a few roundings of 2^-8 through the
+# combine, the up-projection and the head; the combine itself is fp32):
+# layer 0's attention output, whose inputs are the same in both runs, and
+# the logits of a row whose MoE layer picked the same experts, each within
+# MLA_TOL of its largest value. A row whose router picked another expert
+# (a near-tie moved by the attention's last bits: the scores' relative gap
+# at the k-th pick within MLA_TOL) is reported with its logits' error
+MLA_TOL = 2 ** -5
+# the engine's stats and state across ranks against one process on the
+# card, as `gpu_vs_cpu_engine` holds the GPU to the CPU: floats within 1e-4
+# relative (the K/V products run at another row count, which may pick
+# another cuBLAS kernel), the int8 read-back error within 2e-2
+RANK_STATS_RTOL = {"quant_err_norm": 2e-2}
+
+
+def engine_cfg(E, phase):
+    """`PHASES[phase]`'s configuration at FULL_WIDTH and its counts."""
+    extra, expect = PHASES[phase]
+    if "obs" in extra:
+        extra = {**extra, "obs": E.obs_m.ObsConfig(**extra["obs"])}
+    return E.EngineConfig(**FULL_WIDTH, **extra), expect
+
+
+def run_ranks(worker, world: int, payload) -> list:
+    """``worker(rank, world, payload)`` in ``world`` spawned processes on
+    the one card, each a rank of one RANK_BACKEND group (a FileStore in a
+    temporary directory). Returns their results in rank order; a rank that
+    fails fails the run, and every rank still running is killed."""
+    import queue as queue_mod
+    import tempfile
+    import torch.multiprocessing as tmp_mp
+    ctx = tmp_mp.get_context("spawn")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        results, inbox = ctx.Queue(), ctx.Queue()
+        procs = [ctx.Process(target=rank_main, daemon=True,
+                             args=(worker, r, world, str(Path(tmp) / "store"),
+                                   inbox, results))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for _ in procs:
+            inbox.put(payload)
+        try:
+            for _ in procs:
+                try:
+                    rank, ok, res = results.get(timeout=RANK_TIMEOUT_S)
+                except queue_mod.Empty:
+                    fail(f"{worker.__name__}: a rank of {world} gave no result "
+                         f"in {RANK_TIMEOUT_S} s")
+                if not ok:
+                    fail(f"{worker.__name__}: rank {rank} of {world} failed:\n{res}")
+                out[rank] = res
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    return [out[r] for r in range(world)]
+
+
+def rank_main(worker, rank, world, store, inbox, results) -> None:
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.set_num_threads(1)   # the ranks share the host's cores
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(RANK_BACKEND, store=dist.FileStore(store, world),
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        try:
+            res = worker(rank, world, inbox.get(timeout=RANK_TIMEOUT_S))
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, res))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def probe_collectives(dev) -> dict:
+    """Which collectives the group's backend takes for CUDA tensors."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    x = lambda dtype=torch.float32: torch.ones(4 * world, dtype=dtype, device=dev)
+    tries = {
+        "all_reduce_sum_float32": lambda: dist.all_reduce(x()),
+        "all_reduce_max_float32": lambda: dist.all_reduce(x(), op=dist.ReduceOp.MAX),
+        "all_reduce_sum_float64": lambda: dist.all_reduce(x(torch.float64)),
+        "all_reduce_sum_int32": lambda: dist.all_reduce(x(torch.int32)),
+        "broadcast": lambda: dist.broadcast(x(), 0),
+        "all_gather": lambda: dist.all_gather([x() for _ in range(world)], x()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world * world, device=dev), x()),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), x()),
+    }
+    out = {}
+    for name, call in tries.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "accepted"
+        except (RuntimeError, ValueError) as err:
+            out[name] = f"refused: {str(err).splitlines()[0][:160]}"
+        dist.barrier()
+    return out
+
+
+def to_numpy_tree(E, tree):
+    return E._tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def engine_rank_worker(rank, world, phase) -> dict:
+    """One rank of a RANK_PHASES phase: `PHASES[base]` at FULL_WIDTH
+    through `make_sharded_step` for STEPS steps from the seeds of
+    `engine_phase` (after a warm-up on a throwaway block), its block
+    split from the full state (`split_state`). The counts of the kernels
+    are zeroed just before the run and read just after."""
+    import torch.distributed as dist
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import shards_window as sw
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import engine as E
+    dev = torch.device("cuda", 0)
+    cfg, _ = engine_cfg(E, RANK_PHASES[phase][0])
+    step = E.make_sharded_step(cfg, make_serving_mesh(world))
+    arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
+    probe = probe_collectives(dev) if phase == next(iter(RANK_PHASES)) else None
+    warm = E.split_state(cfg, E.init(cfg, device=dev), rank)
+    for _ in range(2):
+        warm, _ = step(warm, arrivals)
+    del warm
+    state = E.split_state(cfg, E.init(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)), rank)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    stats = []
+    torch.cuda.synchronize()
+    dist.barrier()
+    pa.paged_attention.launches = 0
+    sw.shards_window.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, st = step(state, arrivals, generator=gen)
+        stats.append(st)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(stats=[{k: v.cpu().numpy() for k, v in st.items()} for st in stats],
+                block=to_numpy_tree(E, state), backend=dist.get_backend(),
+                launches=dict(paged_attention=pa.paged_attention.launches,
+                              shards_window=sw.shards_window.launches),
+                ms_per_step=1e3 * seconds / STEPS, probe=probe)
+
+
+def engine_ranks_phase(E, phase, dev) -> dict:
+    """A RANK_PHASES phase: the single-process `step` at FULL_WIDTH for
+    STEPS steps (`engine_phase`'s seeds, every step's stats kept), then
+    the same steps on the phase's ranks (`engine_rank_worker`). Fails
+    unless every rank's stats equal each other's bit for bit and the
+    single process's each step (integer stats equal, floats within 1e-4
+    relative, RANK_STATS_RTOL), the joined final state is the single
+    process's (`same_state`), the harvesting counts are the reference's
+    (PHASES), and every rank launched paged attention (and with
+    trace_driven the SHARDS window) once a step."""
+    base, world = RANK_PHASES[phase]
+    cfg, expect = engine_cfg(E, base)
+    arrivals = torch.tensor(ARRIVALS, dtype=torch.int32, device=dev)
+    warm = E.init(cfg, device=dev)
+    for _ in range(2):
+        warm, _ = E.step(cfg, warm, arrivals)
+    del warm
+    state = E.init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    single = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, st = E.step(cfg, state, arrivals, generator=gen)
+        single.append(st)
+    torch.cuda.synchronize()
+    single_ms = 1e3 * (time.perf_counter() - t0) / STEPS
+    single = [{k: v.cpu() for k, v in st.items()} for st in single]
+    single_state = E._tree_map(lambda t: t.cpu(), state)
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(engine_rank_worker, world, phase)
+    seconds = time.perf_counter() - t0
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        for i, (got, want) in enumerate(zip(res["stats"], single)):
+            if sorted(got) != sorted(want):
+                fail(f"{phase}: rank {r} step {i} stats keys {sorted(got)}")
+            for key, w in want.items():
+                g = torch.from_numpy(got[key])
+                if not torch.equal(g, torch.from_numpy(ranks[0]["stats"][i][key])):
+                    fail(f"{phase}: step {i} {key} differs between rank {r} and rank 0")
+                if w.is_floating_point():
+                    rtol = RANK_STATS_RTOL.get(key, 1e-4)
+                    if not torch.allclose(g, w, rtol=rtol, atol=1e-6):
+                        fail(f"{phase}: rank {r} step {i} {key} {g} != one process {w}")
+                    worst = max(worst, float(((g - w).abs() / w.abs().clamp(min=1e-6)).max()))
+                elif not torch.equal(g, w):
+                    fail(f"{phase}: rank {r} step {i} {key} {g} != one process {w}")
+    stats = ranks[0]["stats"]
+    got = (int(sum(s["redirected"] for s in stats)), int(stats[-1]["offsite_pages"]),
+           int(stats[-1]["log_commits"]), int(sum(s["cross_redirected"] for s in stats)))
+    if got != expect:
+        fail(f"{phase}: harvesting counts {got} != reference {expect}")
+    joined = E.join_states(cfg, [E._tree_map(torch.from_numpy, r["block"]) for r in ranks])
+    same_state(joined, single_state, f"{phase} final state (ranks against one process)")
+    launches = {name: [r["launches"][name] for r in ranks]
+                for name in ("paged_attention", "shards_window")}
+    want_window = STEPS if cfg.trace_driven else 0
+    if launches["paged_attention"] != [STEPS] * world or \
+            launches["shards_window"] != [want_window] * world:
+        fail(f"{phase}: launches on the ranks {launches}, want {STEPS} paged "
+             f"and {want_window} SHARDS windows a rank")
+    line = dict(base_phase=base, ranks=world, backend=ranks[0]["backend"],
+                backend_note="gloo stages CUDA tensors through the host: a check of "
+                             "values, no figure for NCCL or several cards",
+                redirected=got[0], offsite_pages=got[1], log_commits=got[2],
+                cross_redirected=got[3], expected=list(expect),
+                stats_equal_across_ranks=True, stats_max_rel_err_float=worst,
+                state_equal=True,
+                launches={name: sum(v) for name, v in launches.items()},
+                launches_per_rank=launches,
+                ms_per_step_ranks=max(r["ms_per_step"] for r in ranks),
+                ms_per_step_each_rank=[r["ms_per_step"] for r in ranks],
+                ms_per_step_one_process=single_ms, seconds=seconds)
+    if ranks[0]["probe"] is not None:
+        line["collectives_cuda"] = ranks[0]["probe"]
+    return line
+
+
+def mla_cfg():
+    from repro_torch import configs
+    arch, layers = MLA_RANKS[:2]
+    return dataclasses.replace(configs.get(arch), n_layers=layers)
+
+
+def mla_decode_traced(cfg, params, cache, first, fed=None):
+    """MLA_RANKS' decode steps from the token ``first`` [B]: greedy, or
+    fed the tokens ``fed`` [gen, B] (each step's input). Captures, per
+    step, the logits, layer 0's attention output and the MoE layer's
+    router scores and picks. Returns (the input tokens [gen, B], those
+    four stacked, ms per token)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode as D
+    gen = MLA_RANKS[4]
+    mla, router = A.mla_decode, ops.topk_router
+    seen = {}
+
+    def mla_traced(*args, **kw):
+        y, c = mla(*args, **kw)
+        seen.setdefault("attn0", y)
+        return y, c
+
+    def router_traced(scores, k, bias=None):
+        w, idx = router(scores, k, bias=bias)
+        seen["router"] = (scores, idx)
+        return w, idx
+
+    tok, steps = first, []
+    A.mla_decode, ops.topk_router = mla_traced, router_traced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for i in range(gen):
+            tok = tok if fed is None else fed[i]
+            seen.clear()
+            logits, cache = D.decode_step(cfg, params, cache, tok)
+            steps.append((tok, logits, seen["attn0"], *seen["router"]))
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+    finally:
+        A.mla_decode, ops.topk_router = mla, router
+    ms = 1e3 * (time.perf_counter() - t0) / gen
+    out = [torch.stack(x).cpu() for x in zip(*steps)]
+    return out[0], out[1].float(), out[2].float(), out[3], out[4], ms, cache
+
+
+def mla_compare(got, want) -> dict:
+    """A rank's decode (`mla_decode_traced`'s logits, attention, scores,
+    picks) against the one process's, per step and row, under MLA_TOL."""
+    logits, attn, scores, idx = got
+    w_logits, w_attn, w_scores, w_idx = want
+    k = idx.shape[-1]
+    rel = lambda a, b: ((a - b).abs().flatten(2).amax(-1)
+                        / b.abs().flatten(2).amax(-1).clamp(min=1e-30))
+    attn_err = rel(attn.reshape(*attn.shape[:2], -1), w_attn.reshape(*attn.shape[:2], -1))
+    logit_err = rel(logits[..., None, :], w_logits[..., None, :])      # [gen, B]
+    same = (idx.sort(-1).values == w_idx.sort(-1).values).all(-1)      # [gen, B]
+    top = w_scores.topk(k + 1, dim=-1).values
+    gap = (top[..., k - 1] - top[..., k]) / top[..., k - 1]            # one process's
+    moved = [dict(step=int(i), row=int(b), logits_rel_err=float(logit_err[i, b]),
+                  score_gap_rel=float(gap[i, b]),
+                  experts=sorted(map(int, idx[i, b])), one_process=sorted(map(int, w_idx[i, b])))
+             for i, b in zip(*torch.nonzero(~same, as_tuple=True))]
+    flips = [dict(step=int(i), row=int(b), token=int(w_logits[i, b].argmax()),
+                  rank_token=int(logits[i, b].argmax()), router_same=bool(same[i, b]),
+                  gap_rel=float((w_logits[i, b].max() - w_logits[i, b, logits[i, b].argmax()])
+                                / w_logits[i, b].abs().max()))
+             for i, b in zip(*torch.nonzero(logits.argmax(-1) != w_logits.argmax(-1),
+                                            as_tuple=True))]
+    bad = []
+    if float(attn_err.max()) > MLA_TOL:
+        bad.append(f"layer 0's attention off by {float(attn_err.max())} of its largest")
+    if same.any() and float(logit_err[same].max()) > MLA_TOL:
+        bad.append(f"logits of rows with the same experts off by "
+                   f"{float(logit_err[same].max())} of their largest")
+    bad += [f"router moved off a non-tie: {m}" for m in moved if m["score_gap_rel"] > MLA_TOL]
+    bad += [f"token flip off a near-tie: {f}" for f in flips
+            if f["router_same"] and f["gap_rel"] > MLA_TOL]
+    return dict(attn_rel_err=float(attn_err.max()),
+                attn_rel_err_each_step=attn_err.amax(-1).tolist(),
+                logits_rel_err_same_experts=float(logit_err[same].max()) if same.any() else None,
+                logits_rel_err=float(logit_err.max()),
+                rows_router_moved=moved, token_flips=flips, failures=bad)
+
+
+def mla_rank_worker(rank, world, payload) -> dict:
+    """One rank of `mla_seq_sharded_v2`: the model from `run_model`'s seed,
+    the prefill (every rank runs it whole), this rank's span of the latent
+    cache, then the decode under a (1, world) ("data", "model") serve mesh
+    fed the one-process run's tokens (`mla_decode_traced`), held against
+    that run's (`mla_compare`). The router's count is zeroed just before
+    the prefill and read after the decode."""
+    import torch.distributed as dist
+    from repro_torch.kernels import moe_router as mr
+    from repro_torch.launch import runtime, serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    tokens, want = payload
+    _, _, batch, prompt, gen, cache_len, _ = MLA_RANKS
+    dev = torch.device("cuda", 0)
+    cfg = mla_cfg()
+    params = T.init_params(cfg, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    inputs = serve.draw_inputs(cfg, batch, prompt, 0, dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    torch.cuda.synchronize()
+    dist.barrier()
+    mr.topk_router.launches = 0
+    logits, cache = D.prefill(cfg, params, max_len=cache_len, **inputs)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    span = cache_len // world
+    local = {k: v[:, :, rank * span:(rank + 1) * span].clone()
+             if k in ("c_kv", "k_rope") else v for k, v in cache.items()}
+    del cache, logits
+    torch.cuda.empty_cache()
+    fed = torch.from_numpy(tokens).to(dev)
+    runtime.set_serve_mesh(mesh)
+    try:
+        _, *got, ms, local = mla_decode_traced(cfg, params, local, first, fed)
+    finally:
+        runtime.set_serve_mesh(None)
+    return dict(**mla_compare(got, [torch.from_numpy(w) for w in want]),
+                first_token_equal=bool((first.cpu().numpy() == tokens[0]).all()),
+                cache_span=[rank * span, (rank + 1) * span],
+                length=int(local["length"]), launches=mr.topk_router.launches,
+                ms_per_token=ms, backend=dist.get_backend(),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def mla_ranks_phase(dev) -> dict:
+    """`mla_seq_sharded_v2`: deepseek-v2 (MLA_RANKS) prefilled and decoded
+    greedily in this process (`mla_decode_traced`), then on 2 and on 4
+    ranks with the latent cache split by sequence, fed the same tokens
+    (`mla_rank_worker`). Fails unless every rank passes `mla_compare`'s
+    gates (MLA_TOL), each rank's first token and cache length are the one
+    process's, and every rank launched the router once per MoE layer in
+    the prefill and in each decode step. The phase's line is printed
+    before a failure."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    arch, layers, batch, prompt, gen, cache_len, worlds = MLA_RANKS
+    cfg = mla_cfg()
+    params = T.init_params(cfg, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    inputs = serve.draw_inputs(cfg, batch, prompt, 0, dev)
+    logits, cache = D.prefill(cfg, params, max_len=cache_len, **inputs)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    tokens, *want, one_ms, _ = mla_decode_traced(cfg, params, cache, first)
+    payload = (tokens.numpy(), [w.numpy() for w in want])
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    line = dict(arch=arch, layers=layers, kinds=cfg.layer_kinds(), batch=batch,
+                prompt=prompt, gen=gen, cache_positions=cache_len,
+                d_model=cfg.d_model, heads=cfg.n_heads, dtype=cfg.dtype, tol=MLA_TOL,
+                backend_note="gloo stages CUDA tensors through the host: a check of "
+                             "values, no figure for NCCL or several cards",
+                ms_per_token_one_process=one_ms, ranks={})
+    bad = []
+    for world in worlds:
+        t0 = time.perf_counter()
+        res = run_ranks(mla_rank_worker, world, payload)
+        seconds = time.perf_counter() - t0
+        for r, out in enumerate(res):
+            bad += [f"rank {r} of {world}: {b}" for b in out["failures"]]
+            if not out["first_token_equal"] or out["length"] != prompt + gen:
+                bad.append(f"rank {r} of {world}: prefill token or cache length "
+                           f"{out['length']} off the one-process run")
+            if out["launches"] != n_moe * (1 + gen):
+                bad.append(f"rank {r} of {world} launched the router {out['launches']} "
+                           f"times, want {n_moe * (1 + gen)}")
+        line["ranks"][str(world)] = dict(
+            backend=res[0]["backend"], seconds=seconds,
+            ms_per_token=max(o["ms_per_token"] for o in res),
+            ms_per_token_each_rank=[o["ms_per_token"] for o in res],
+            **{key: max(o[key] for o in res)
+               for key in ("attn_rel_err", "logits_rel_err")},
+            logits_rel_err_same_experts=max(
+                (o["logits_rel_err_same_experts"] for o in res
+                 if o["logits_rel_err_same_experts"] is not None), default=None),
+            attn_rel_err_each_step=res[0]["attn_rel_err_each_step"],
+            rows_router_moved=[dict(m, rank=r) for r, o in enumerate(res)
+                               for m in o["rows_router_moved"]],
+            token_flips=[dict(f, rank=r) for r, o in enumerate(res) for f in o["token_flips"]],
+            cache_spans=[o["cache_span"] for o in res],
+            launches_topk_router=sum(o["launches"] for o in res),
+            peak_gb_each_rank=[o["peak_gb"] for o in res])
+    line["launches_topk_router"] = sum(v["launches_topk_router"]
+                                       for v in line["ranks"].values())
+    if bad:
+        print(json.dumps({"mla_seq_sharded_v2": line}), flush=True)
+        fail("mla_seq_sharded_v2: " + "; ".join(bad))
+    return line
 
 
 # ------------------------------------------------------ the JBOF simulator
@@ -4123,10 +4601,26 @@ def main() -> None:
                  for phase, line in engine_out.items() if line["shards_window_launches"]}
     print(json.dumps({"engine": engine_out}), flush=True)
     lap("engine")
+    card = card_line()
+
+    # ---- 2r. the multi-rank paths (ranks of one gloo group on the one
+    # card): the engine's sharded step on 2 and on 4 ranks against one
+    # process, then deepseek-v2's sequence-sharded MLA decode
+    ranks_out = {phase: engine_ranks_phase(E, phase, dev) for phase in RANK_PHASES}
+    for phase, line in ranks_out.items():
+        form = "int8" if engine_cfg(E, RANK_PHASES[phase][0])[0].kv_quant == "int8" else "fp32"
+        by_form[form][phase] = line["launches"]["paged_attention"]
+        launches[form] += line["launches"]["paged_attention"]
+        if line["launches"]["shards_window"]:
+            by_window[phase] = line["launches"]["shards_window"]
+    print(json.dumps({"engine_ranks": ranks_out, "card": card}), flush=True)
+    lap("engine_ranks")
+    mla_line = mla_ranks_phase(dev)
+    print(json.dumps({"mla_seq_sharded_v2": mla_line, "card": card}), flush=True)
+    lap("mla_seq_sharded_v2")
 
     # ---- 2'. the failure plane: the failover phases at full width, then
     # fig. 23's own scenario, each driven once through `drive_events`
-    card = card_line()
     failover = {phase: failover_phase(E, pa, phase, dev) for phase in FAILOVER}
     failover["failover_fig23"] = failover_fig23_phase(E, pa, dev)
     for phase, line in failover.items():
@@ -4483,11 +4977,17 @@ def main() -> None:
     for form, line, captured, n_moe in (("v2", moe_v2_line, moe_v2_in, n_v2),
                                         ("v3", moe_v3_line, moe_v3_in, n_v3)):
         (scores, k), kw = captured["topk_router"][0]
+        # v2's row also counts the ranks of `mla_seq_sharded_v2` (the same
+        # expert count and k, its decode rows)
+        ranks_launches = mla_line["launches_topk_router"] if form == "v2" else 0
         kernels.append(router_row(
             f"topk_router[{form}]", scores, k, kw.get("bias"),
-            captured["topk_router"][n_moe], line["launches"]["topk_router"],
+            captured["topk_router"][n_moe], line["launches"]["topk_router"] + ranks_launches,
             flush, rchecks, floor_ms,
             {"on_main_path": True, "phase": f"model_moe_{form}",
+             "launches_by_phase": {f"model_moe_{form}": line["launches"]["topk_router"],
+                                   **({"mla_seq_sharded_v2": ranks_launches}
+                                      if ranks_launches else {})},
              "scores": "sigmoid + aux-free bias" if kw.get("bias") is not None
              else "softmax",
              "launches_gpu_vs_cpu_model": gpu_cpu_launches["topk_router"]}))

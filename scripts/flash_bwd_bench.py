@@ -30,7 +30,8 @@ window 4096), ``whisper`` whisper-tiny's cross-attention (8, 448 over
 of 256, causal, window 2048). Per shape: the forward kernel's output and
 statistics (`chip_smoke.stats_check`); the checkout's backward through
 `chip_smoke.bwd_check` (its gates, and a repeated call equal bit for
-bit), the parent's and each variant's the same; then per round the
+bit), the parent's and each variant's the same (statistics or a build
+that fail their gate stop the bench before any timing); then per round the
 builds walked forward and back (`chip_smoke.walk`: parent, change,
 change, parent for two), each timed spun
 (`chip_smoke.spun_ms`, 5 launches after an L2 flush); once per shape the
@@ -146,15 +147,19 @@ def main() -> None:
         o = fa.flash_attention(q, k, v, causal=causal, window=window, stats=stats)
         stats_gate = cs.stats_check(stats, q, k, causal, window)
         print(json.dumps({"stats": {"shape": label, **stats_gate}}), flush=True)
+        if not stats_gate["ok"]:
+            sys.exit(f"flash_bwd_bench: the forward's statistics fail their gate on {label}")
         for name, call in calls.items():
             got = call(q, k, v, o, stats, dout, causal, window)
             again = call(q, k, v, o, stats, dout, causal, window)
             torch.cuda.synchronize()
             gates = cs.bwd_check(got, q, k, v, o, dout, causal, window, "bf16")
+            same = cs.same_bits(tuple(got), tuple(again))
             print(json.dumps({"check": {"shape": label, "build": name, **gates,
-                                        "repeat_equal": cs.same_bits(tuple(got),
-                                                                     tuple(again))}}),
+                                        "repeat_equal": same}}),
                   flush=True)
+            if not (cs.bwd_ok(gates) and same):
+                sys.exit(f"flash_bwd_bench: build {name} fails its gate on {label}")
             del got, again
         inputs[label] = (q, k, v, o, stats, dout, causal, window)
     for rnd, name in cs.walk(list(calls), args.rounds):

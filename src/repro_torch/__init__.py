@@ -21,6 +21,13 @@ Ported so far:
   reclaim predictor `telemetry.reclaim`, `kv_pool.drain_offsite`,
   `engine.fail_replica`), and the scenarios (`serving.scenarios`: the link
   account, and `drive_events` under a `core.events` schedule);
+- the engine's step across processes (`serving.engine.make_sharded_step`,
+  one shard a rank of a `torch.distributed` serving mesh, the exchange's
+  summaries and the stats gathered by all-reduces; `split_state`,
+  `join_states`, `state_partition_specs`), the meshes and the serve
+  mesh's context (`launch.mesh`, `launch.runtime`) and the sharding rules
+  (`launch.sharding`: param, batch, cache and engine-state specs, their
+  DTensor placements); weights stay replicated on the serve path;
 - the dense model zoo's serve path (`models.transformer.init_params`,
   `models.decode.prefill` and `decode_step`, driven by
   `launch.serve.run_model`) for qwen3-14b, granite-8b, internlm2-20b and
@@ -32,7 +39,9 @@ Ported so far:
 - the same serve path for the DeepSeek MoE/MLA family, deepseek-v2-236b
   and deepseek-v3-671b (`models/moe.py`, MLA in `models/attention.py`,
   the latent cache), with the MoE top-k router kernel
-  (`kernels/csrc/moe_router.cu`);
+  (`kernels/csrc/moe_router.cu`); its decode also sequence-sharded under
+  a serve mesh with a "model" axis (`attention.mla_decode_seq_sharded`:
+  each rank a span of the latent cache, a flash combine by all-reduces);
 - the same serve path for whisper-tiny (an encoder stack, then a decoder
   with cross-attention over the encoder's output; a self and a cross
   cache) and qwen2-vl-2b (M-RoPE, prefill from embeddings), both fed by

@@ -18,9 +18,14 @@ against a cache of the latent ``c_kv`` and the shared RoPE key. Its
 attention is plain PyTorch on every device, as the reference's is plain
 jnp (it never reaches a kernel): dense scores below `ref.CHUNKED_THRESHOLD`
 keys, an online softmax over chunks of `ref.CHUNK` keys at or above it
-when the key count is a multiple of the chunk. `mla_decode` is the
-reference's single-device path; its sequence-sharded form
-(`mla_decode_seq_sharded`) waits for the launch slice.
+when the key count is a multiple of the chunk. `mla_decode` attends over
+the whole latent cache; under a serve mesh with a "model" axis
+(`launch.runtime.set_serve_mesh`) it runs `mla_decode_seq_sharded`, where
+each model rank holds a contiguous span of the cache's positions and the
+ranks combine their softmax statistics with all-reduces. The reference's
+`_axprod` (the size of the mesh's batch axes, which picks the batch's
+block) is `launch.mesh.axis_size`, which `launch.sharding.cache_specs`
+reads: each rank is handed its block.
 """
 from __future__ import annotations
 
@@ -236,7 +241,13 @@ def mla_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: MLACache):
     k_rope at slot ``length`` of the cache's tensors in place (clamped to
     the last slot, as the reference's dynamic_update_slice clamps) and
     attends over the slots up to it. Returns (y [B, 1, D], MLACache of the
-    same tensors, length + 1). Reads nothing back to the host."""
+    same tensors, length + 1). Reads nothing back to the host. Under a
+    serve mesh with a "model" axis it is `mla_decode_seq_sharded`."""
+    from repro_torch.launch import runtime
+    from repro_torch.launch.mesh import mesh_axes
+    mesh = runtime.get_serve_mesh()
+    if mesh is not None and "model" in mesh_axes(mesh):
+        return mla_decode_seq_sharded(cfg, p, x, cache, mesh)
     b = x.shape[0]
     length = cache.length
     q_nope, q_rope, c_new, kr_new = _mla_qkv(cfg, p, x, length.expand(b, 1))
@@ -247,3 +258,62 @@ def mla_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: MLACache):
     valid = torch.arange(t, device=x.device) < length + 1
     y = _mla_attend(cfg, p, q_nope, q_rope, cache.c_kv, cache.k_rope, valid=valid)
     return y, MLACache(cache.c_kv, cache.k_rope, length + 1)
+
+
+def mla_decode_seq_sharded(cfg: ArchConfig, p: dict, x: torch.Tensor,
+                           cache: MLACache, mesh):
+    """Sequence-sharded MLA decode on one rank of ``mesh`` (a DeviceMesh
+    with a "model" axis). The rank holds its contiguous span of the latent
+    cache's positions (`launch.sharding.cache_specs`: rank i of the model
+    axis owns positions [i * S_loc, (i + 1) * S_loc) of ``cache.c_kv`` and
+    ``k_rope`` [B, S_loc, ...]) and its block of the batch in ``x`` [B, 1,
+    D]; ``cache.length`` is the global length. It writes the new token
+    only where its position falls in its span, attends over its span, and
+    combines with the others by the flash combine over the model axis's
+    process group: an all-reduce MAX of the row maxima m, then all-reduce
+    SUMs of l * corr and ctx * corr, corr = exp(m - max m). The combine
+    runs in float32 whatever the cache's dtype (the reference sums the
+    context in the cache's dtype), so gloo and NCCL both take it. Returns
+    (y [B, 1, D], MLACache of the same span tensors, length + 1)."""
+    import torch.distributed as dist
+
+    m = cfg.mla
+    h = cfg.n_heads
+    b = x.shape[0]
+    length = cache.length
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(cfg, p, x, length.expand(b, 1))
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = wkv_b[..., :m.qk_nope_head_dim]
+    w_uv = wkv_b[..., m.qk_nope_head_dim:]
+    q_c = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)     # [B, 1, H, R]
+    scale = _mla_scale(cfg, q_c.dtype)
+
+    group = mesh.get_group("model")
+    c_kv, k_rope = cache.c_kv, cache.k_rope
+    s_loc = c_kv.shape[1]
+    start = mesh.get_local_rank("model") * s_loc
+    rel = length - start
+    in_range = (rel >= 0) & (rel < s_loc)
+    slot = torch.clamp(rel, 0, s_loc - 1).reshape(1).long()
+    for buf, new in ((c_kv, c_new), (k_rope, kr_new)):
+        buf.index_copy_(1, slot, torch.where(in_range, new.to(buf.dtype),
+                                             buf.index_select(1, slot)))
+
+    valid = start + torch.arange(s_loc, device=x.device) <= length
+    sc = _mla_scores(q_c, q_rope, c_kv, k_rope, scale).float()   # [B, H, 1, S_loc]
+    sc.masked_fill_(~valid, NEG_INF)
+    m_l = sc.amax(-1)                                             # [B, H, 1]
+    pp = torch.exp(sc - m_l[..., None])
+    ctx_l = torch.einsum("bhst,btl->bhsl", pp.to(c_kv.dtype), c_kv)
+    m_g = m_l.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m_l - m_g)
+    l_g = pp.sum(-1) * corr
+    ctx = ctx_l.float() * corr[..., None]
+    dist.all_reduce(l_g, group=group)
+    dist.all_reduce(ctx, group=group)
+    ctx = (ctx / l_g.clamp(min=1e-30)[..., None]).to(c_kv.dtype)
+    ctx = ctx.transpose(1, 2)                                     # [B, 1, H, R]
+    out = torch.einsum("bshl,lhv->bshv", ctx, w_uv)
+    y = out.reshape(b, 1, h * m.v_head_dim) @ p["wo"]
+    return y, MLACache(c_kv, k_rope, length + 1)

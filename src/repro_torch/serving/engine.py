@@ -54,6 +54,19 @@ and its claim sweep walks ``nl`` node positions, not ``n_replicas``. Ids
 the step stores are local to a shard, as the reference's are; ``home_of``
 is global.
 
+Across processes (the reference's `shard_map` on a mesh):
+`make_sharded_step` gives each rank of a serving mesh's ``"shards"`` axis
+(`launch.mesh.make_serving_mesh`) one shard's block of the state
+(`split_state`; `join_states` merges the blocks, `state_partition_specs`
+describes the split). A rank runs the same `_shard_step` with a shard axis
+of 1; its exchange gathers every shard's spare/want summaries from the
+other ranks, settles the whole exchange as one process does and keeps its
+own rows; its stats gather every shard's rows, so every rank returns
+`step`'s stats. Its global ids (``home_of``, the obs plane's lender and
+borrower ids) start at its coordinate on the axis times ``nl``. The one
+collective is an all-reduce, which gloo and NCCL both take for CUDA
+tensors.
+
 The step reads no value back to the host (no `.item()`, `int(t)` or
 `bool(t)`), so it can later be captured in a CUDA graph. It updates the
 pool's K/V planes in place: rebind the returned state and do not reuse the
@@ -65,8 +78,8 @@ replica takes no arrivals, looks saturated to every trigger, publishes
 nothing and offers no pages); `fail_replica` is the host-side surgery
 between steps that kills a replica (§4.5 recovery: requeue, WAL
 truncation, revocation). It refuses ``n_shards > 1``, where the
-reference's recovery mixes global and shard-local ids (ROADMAP queue 3).
-The multi-GPU sharded step is not ported.
+reference's recovery mixes global and shard-local ids (ROADMAP queue 3),
+and so on the ranks of `make_sharded_step`.
 Where the reference divides by a constant, the port multiplies by the
 float32 reciprocal (`manager.recip32`), as XLA compiles the reference, so
 every floor and threshold on such a quotient lands identically.
@@ -710,8 +723,9 @@ class _Exchange(NamedTuple):
     import_home: torch.Tensor       # [S] home id of each source shard
     cross_redirected: torch.Tensor  # requests exchanged (float32 scalar)
     cross_borrowed: torch.Tensor    # LINK_BW bytes borrowed (float32 scalar)
-    # the grant matrices per level [L, host, source] and their unit prices,
-    # for the obs plane's grant rows (LINK_BW: None unmetered)
+    # the grant matrices per level [L, host, source] (the rows of the
+    # shards this process holds) and their unit prices, for the obs
+    # plane's grant rows (LINK_BW: None unmetered)
     grants: torch.Tensor
     cmd_x: tuple
     link_grants: torch.Tensor | None
@@ -719,14 +733,19 @@ class _Exchange(NamedTuple):
 
 
 def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
-              sent, budget_bytes, redirect_bytes, link_amt,
-              page_b: float) -> _Exchange:
+              sent, budget_bytes, redirect_bytes, link_amt, page_b: float,
+              ranks: "_Ranks | None" = None) -> _Exchange:
     """The exchange across shards (DESIGN.md §9, §11): only the post-local
     leftovers cross, as ONE (spare, want) pair per shard per rtype, settled
     nearest level first through `topology.hierarchical_exchange`, each
-    level's grants priced at its tier. Every shard's summary is in hand
-    (the reference all-gathers them), so the settlement runs once."""
+    level's grants priced at its tier. In one process every shard's
+    summary is in hand; on a rank (``ranks``) they are gathered from every
+    rank first, as the reference all-gathers them. Either way each process
+    settles the whole exchange and keeps the rows of the shards it holds,
+    so the exchange's totals need no further collective."""
     ns, n = state.queue.shape
+    n_all = cfg.n_shards
+    rows = slice(0, ns) if ranks is None else slice(ranks.sid, ranks.sid + ns)
     dev = state.queue.device
     metered = cfg.link_pages_per_step > 0
     shard_topo = shard_topology(cfg)
@@ -751,19 +770,19 @@ def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
     inbound = sent.sum(dim=-2)
     host_ok = (util <= WATERMARK) & (free > DRAM_MIN_PAGES)
     host_cap = torch.where(host_ok, torch.clamp(free_shadow - inbound, min=0), 0)
-    grants, _ = topo.hierarchical_exchange(
-        host_cap.sum(dim=-1).to(torch.float32),
-        overflow.sum(dim=-1).to(torch.float32), shard_topo)
+    summary = _across(ranks, torch.stack(
+        [host_cap.sum(dim=-1), overflow.sum(dim=-1)], dim=-1).to(torch.float32))
+    grants, _ = topo.hierarchical_exchange(summary[:, 0], summary[:, 1], shard_topo)
     g_int = torch.floor(grants).to(torch.int32)        # [level, host, source]
-    n_exp_l = g_int.sum(dim=1).T                       # [source, level]
+    n_exp_l = g_int.sum(dim=1).T[rows]                 # [source, level]
     exports = mgr.fill_by_rank(overflow, n_exp_l.sum(dim=-1, keepdim=True))
     kept = kept - exports
     if metered:
         redirect_bytes = redirect_bytes + _level_split_bytes(
             exports, n_exp_l, cmd_x)
-    import_src = g_int.sum(dim=0)                      # [host, source]
+    import_src = g_int.sum(dim=0)[rows]                # [host, source]
     imports = mgr.fill_by_rank(host_cap, import_src.sum(dim=-1, keepdim=True))
-    import_home = torch.arange(ns, dtype=torch.int32, device=dev) * n
+    import_home = torch.arange(n_all, dtype=torch.int32, device=dev) * n
     extra_link = torch.zeros_like(budget_bytes)
     cross_borrowed = torch.zeros((), dtype=torch.float32, device=dev)
     lgrants = link_prices = None
@@ -781,12 +800,14 @@ def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
         l_want = torch.where(mem > WATERMARK, link_amt, 0.0)
         spare_tot = l_spare.sum(dim=-1)                # integer bytes: exact
         want_tot = l_want.sum(dim=-1)
+        lsummary = _across(ranks, torch.stack([spare_tot, want_tot], dim=-1))
         lgrants, lrecv = topo.hierarchical_exchange(
-            spare_tot, want_tot, shard_topo, link_ohs)
+            lsummary[:, 0], lsummary[:, 1], shard_topo, link_ohs)
         # per shard: its row over (level, borrower), its column over
         # levels, in the reference's order
-        lent_x = mgr.seq_sum(lgrants.permute(1, 0, 2).reshape(ns, -1))
-        recv_x = mgr.seq_sum(lrecv.T)
+        lent_x = mgr.seq_sum(lgrants.permute(1, 0, 2).reshape(n_all, -1))[rows]
+        recv_all = mgr.seq_sum(lrecv.T)
+        recv_x = recv_all[rows]
         lent_each = torch.where(
             spare_tot[:, None] > 0,
             l_spare * (lent_x / torch.clamp(spare_tot, min=1e-9))[:, None], 0.0)
@@ -794,21 +815,23 @@ def _exchange(cfg: EngineConfig, state: EngineState, util, mem, free, kept,
             want_tot[:, None] > 0,
             l_want * (recv_x / torch.clamp(want_tot, min=1e-9))[:, None], 0.0)
         budget_bytes = budget_bytes - lent_each
-        cross_borrowed = mgr.seq_sum(recv_x)
+        cross_borrowed = mgr.seq_sum(recv_all)
+        lgrants = lgrants[:, rows]
         link_prices = tuple(oh * page_b for oh in link_ohs)
     return _Exchange(kept, redirect_bytes, budget_bytes, extra_link, imports,
                      import_src, import_home, g_int.sum().to(torch.float32),
-                     cross_borrowed, g_int, cmd_x, lgrants, link_prices)
+                     cross_borrowed, g_int[:, rows], cmd_x, lgrants, link_prices)
 
 
-def _grant_rows(cfg: EngineConfig, xch: _Exchange, t: torch.Tensor):
+def _grant_rows(cfg: EngineConfig, xch: _Exchange, t: torch.Tensor, first: int):
     """The obs plane's rows of the exchange's grants, lender-side: each
     shard logs the rows where it is the granting host (shard ids in
-    lender and borrower), PROCESSOR levels then LINK_BW levels."""
-    ns = xch.grants.shape[-1]
+    lender and borrower), PROCESSOR levels then LINK_BW levels. The
+    grants hold the rows of shards ``first``, ``first + 1``, ..."""
+    ns = xch.grants.shape[1]
     shard_topo = shard_topology(cfg)
-    lender_base = torch.arange(ns, dtype=torch.int32,
-                               device=xch.grants.device)[:, None, None]
+    lender_base = first + torch.arange(ns, dtype=torch.int32,
+                                       device=xch.grants.device)[:, None, None]
     out = []
     for rtype, grants, prices in (
             (desc.PROCESSOR, xch.grants, xch.cmd_x),
@@ -824,12 +847,17 @@ def _grant_rows(cfg: EngineConfig, xch: _Exchange, t: torch.Tensor):
 
 
 def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
-                x: torch.Tensor):
-    """One engine step over every shard at once — the reference's
-    `_shard_step` under `jax.vmap`, with the shard axis leading every
-    per-replica tensor ([S, nl, ...]): round -> route -> LINK_BW account ->
-    exchange across shards -> admit -> decode -> stats."""
+                x: torch.Tensor, ranks: "_Ranks | None" = None):
+    """One engine step over the shards this process holds — the
+    reference's `_shard_step` under `jax.vmap`, with the shard axis
+    leading every per-replica tensor ([S, nl, ...]): round -> route ->
+    LINK_BW account -> exchange across shards -> admit -> decode -> stats.
+    Without ``ranks`` it holds every shard and returns per-shard stats;
+    on a rank of `make_sharded_step` it holds its own shard (S = 1), and
+    its exchange and stats gather every rank's (the stats come back with
+    every shard's rows, [n_shards, nl], and the global scalars)."""
     ns, n = state.queue.shape
+    first = 0 if ranks is None else ranks.sid   # this process's first shard
     dev = state.queue.device
     manager = _manager(cfg)
     util = utilization(cfg, state)
@@ -914,9 +942,9 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
         redirect_bytes = sent.sum(dim=-1).to(torch.float32) * cmd_b
     # the exchange across shards: post-local leftovers only
     xch = None
-    if cfg.cross_shard and ns > 1:
+    if cfg.cross_shard and cfg.n_shards > 1:
         xch = _exchange(cfg, state, util, mem, free, kept, sent, budget_bytes,
-                        redirect_bytes, link_amt, page_b)
+                        redirect_bytes, link_amt, page_b, ranks)
         kept, redirect_bytes = xch.kept, xch.redirect_bytes
         budget_bytes, extra_link = xch.budget_bytes, xch.extra_link
     migrated = mig_bytes = zeros
@@ -950,7 +978,8 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
         spill_budget = torch.floor(avail * mgr.recip32(page_b)).to(torch.int32)
         budget_bytes = budget_bytes + extra_link
 
-    home_base = (torch.arange(ns, dtype=torch.int32, device=dev) * n)[:, None, None]
+    home_base = ((first + torch.arange(ns, dtype=torch.int32, device=dev))
+                 * n)[:, None, None]
     state = _admit(cfg, state, kept, sent, home_base=home_base,
                    **({} if xch is None else dict(
                        imported=xch.imports, import_src=xch.import_src,
@@ -981,6 +1010,14 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
         # error over this step's token rows); zero for fp32 pages
         "quant_err_norm": quant_err,
     }
+    every = None
+    if ranks is not None:
+        # one gather of every stat; the reference's psums are the sums of
+        # the gathered scalars in shard order (the exchange's totals are
+        # global already)
+        every = ranks.gather_all(stats)
+        for k in ("attn_norm", "log_commits", "quant_err_norm"):
+            stats[k] = every[k] = mgr.seq_sum(every[k])
     if cfg.obs.enabled:
         with obs_x.scope("obs_record"):
             ring_vals = {k: v if v.dim() else v.expand(ns)
@@ -990,17 +1027,18 @@ def _shard_step(cfg: EngineConfig, state: EngineState, arrivals: torch.Tensor,
             ring_vals["migration_bytes"] = mig_bytes
             ring_vals["util_hist"] = stats["util"]
             ms = ENGINE_METRICS.record(state.obs.metrics, ring_vals)
-            base = torch.arange(ns, dtype=torch.int32, device=dev) * n
+            base = (first + torch.arange(ns, dtype=torch.int32, device=dev)) * n
             rows, mask = obs_s.table_event_rows(prev_table, state.table,
                                                 state.step_count, base=base)
             # ONE append a step: the table-diff rows and the exchange's
             # grant rows concatenated
-            xrows = [] if xch is None else _grant_rows(cfg, xch, state.step_count)
+            xrows = [] if xch is None else _grant_rows(cfg, xch, state.step_count,
+                                                       first)
             log = obs_s.append(state.obs.events,
                                torch.cat([rows] + [r for r, _ in xrows], dim=-2),
                                torch.cat([mask] + [m for _, m in xrows], dim=-1))
             state = state._replace(obs=EngineObs(metrics=ms, events=log))
-    return state, stats
+    return state, (stats if every is None else every)
 
 
 # the pool's fields with a replica axis, and the state's (each a tensor, a
@@ -1009,16 +1047,21 @@ _POOL_FIELDS = ("k_scale", "v_scale", "used", "owner_seq", "page_table",
                 "seq_len", "seq_active")
 _STATE_FIELDS = ("home_of", "remaining", "queue", "mrc", "obs", "dead",
                  "reclaim")
+# the fields a shard owns (each leaf leads with the replica or shard
+# axis); step_count and the decode weights are replicated
+SHARDED_FIELDS = ("pool", "table") + _STATE_FIELDS
 
 
-def _to_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
+def _to_shards(cfg: EngineConfig, state: EngineState,
+               s: int | None = None) -> EngineState:
     """Canonical [R, ...] layout -> [S, R/S, ...] for every field a shard
     owns: pool metadata, WAL (one log per shard, its counters [S]),
     descriptor table, home_of, remaining, queue, the SHARDS state, the
     obs rings and log (their [S] leaves become [S, 1], the shard's local
     view), the dead mask and the predictor's carry. The K/V planes stay
-    flat by global page id."""
-    s = cfg.n_shards
+    flat by global page id. ``s`` is the count of shards the state holds:
+    ``cfg.n_shards``, or 1 for a rank's block (`split_state`)."""
+    s = cfg.n_shards if s is None else s
 
     def split(x):
         return x.reshape(s, x.shape[0] // s, *x.shape[1:])
@@ -1036,6 +1079,7 @@ def _to_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
 
 
 def _from_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
+    """[S, R/S, ...] -> the canonical layout (or a rank's block)."""
     def merge(x):
         return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
 
@@ -1053,17 +1097,9 @@ def _from_shards(cfg: EngineConfig, state: EngineState) -> EngineState:
         **{f: _tree_map(merge, getattr(state, f)) for f in _STATE_FIELDS})
 
 
-def step(cfg: EngineConfig, state: EngineState, arrivals, *,
-         x: torch.Tensor | None = None,
-         generator: torch.Generator | None = None):
-    """One engine step: management round(s) -> route -> exchange -> admit
-    -> decode -> stats, every shard at once. ``arrivals`` int[R] new
-    requests per replica. ``x`` [R, St, d] float32 is the step's decode
-    activations; when None they are drawn N(0, 0.1^2) from ``generator``
-    (a generator on the state's device; the default generator when None).
-    Returns (state', stats); the input state must not be reused (its K/V
-    planes are updated in place)."""
-    dev = state.queue.device
+def _step_inputs(cfg: EngineConfig, dev, arrivals, x, generator):
+    """`step`'s arrivals int32[R] and activations float32 [R, St, d] on
+    ``dev`` (drawn N(0, 0.1^2) from ``generator`` when ``x`` is None)."""
     if isinstance(arrivals, torch.Tensor):
         arrivals = arrivals.to(device=dev, dtype=torch.int32)
     else:
@@ -1074,6 +1110,20 @@ def step(cfg: EngineConfig, state: EngineState, arrivals, *,
                         generator=generator, device=dev) * 0.1
     else:
         x = x.to(device=dev, dtype=torch.float32)
+    return arrivals, x
+
+
+def step(cfg: EngineConfig, state: EngineState, arrivals, *,
+         x: torch.Tensor | None = None,
+         generator: torch.Generator | None = None):
+    """One engine step: management round(s) -> route -> exchange -> admit
+    -> decode -> stats, every shard at once. ``arrivals`` int[R] new
+    requests per replica. ``x`` [R, St, d] float32 is the step's decode
+    activations; when None they are drawn N(0, 0.1^2) from ``generator``
+    (a generator on the state's device; the default generator when None).
+    Returns (state', stats); the input state must not be reused (its K/V
+    planes are updated in place)."""
+    arrivals, x = _step_inputs(cfg, state.queue.device, arrivals, x, generator)
     ns, nl = cfg.n_shards, local_replicas(cfg)
     out, stats = _shard_step(cfg, _to_shards(cfg, state),
                              arrivals.reshape(ns, nl),
@@ -1099,6 +1149,167 @@ def run_steps(cfg: EngineConfig, state: EngineState, arrivals_txr, k=None,
         log.append(stats)
     return state, {key: torch.stack([s[key] for s in log])
                    for key in (log[0] if log else {})}
+
+
+# ------------------------------------------------- the multi-rank step
+SHARD_AXIS = "shards"  # the serving mesh's axis (`launch.mesh.make_serving_mesh`)
+
+
+class _Ranks(NamedTuple):
+    """A rank's place on the serving mesh: the shard it owns (its
+    coordinate on the shard axis), the shard count and the axis's process
+    group. Its one collective is an all-reduce, which gloo (staging CUDA
+    tensors through the host) and NCCL both take: a gather is the SUM of
+    a zeroed [S, ...] buffer where each rank fills its row, in float64,
+    which holds every int32 and float32 exactly (a -0.0 comes back +0.0)."""
+
+    sid: int
+    n: int
+    group: object
+
+    def gather_all(self, tensors: dict) -> dict:
+        """{name: [ns, ...]} held here -> {name: [S * ns, ...]} of every
+        rank, in shard order; 0-dim tensors come back [S]. One all-reduce."""
+        import torch.distributed as dist
+        flat = [t.reshape(1, -1).to(torch.float64) for t in tensors.values()]
+        row = torch.cat(flat, dim=1)
+        buf = torch.zeros((self.n, row.shape[1]), dtype=torch.float64,
+                          device=row.device)
+        buf[self.sid] = row[0]
+        dist.all_reduce(buf, group=self.group)
+        out, at = {}, 0
+        for (k, t), f in zip(tensors.items(), flat):
+            part = buf[:, at:at + f.shape[1]].to(t.dtype)
+            at += f.shape[1]
+            out[k] = part.reshape(self.n * t.shape[0], *t.shape[1:]) if t.dim() \
+                else part.reshape(self.n)
+        return out
+
+
+def _across(ranks: _Ranks | None, x: torch.Tensor) -> torch.Tensor:
+    """[ns, ...] for the shards this process holds -> [S, ...] for every
+    shard (the reference's all_gather)."""
+    return x if ranks is None else ranks.gather_all({"x": x})["x"]
+
+
+def state_partition_specs(cfg: EngineConfig) -> EngineState:
+    """Per-leaf spec tree of an `EngineState` on the 1-D replica-shard
+    mesh: every leaf of a shard-owned field (SHARDED_FIELDS: the pool with
+    its K/V planes and [n_shards] WAL counters, the table, home_of,
+    remaining, queue, the SHARDS state, the obs plane, the dead mask, the
+    predictor's carry) shards its leading axis over SHARD_AXIS
+    (``("shards",)``); step_count and the decode weights replicate
+    (``()``); fields the config leaves out stay None. `split_state` and
+    `join_states` are the split and the merge these specs describe;
+    `launch.sharding.engine_state_shardings` gives their placements."""
+    z = torch.zeros(())
+    d, kvd = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    shapes = init(cfg, {n: z.expand(sh) for n, sh in
+                        (("wq", (d, d)), ("wk", (d, kvd)), ("wv", (d, kvd)),
+                         ("wo", (d, d)))}, device="meta")
+
+    def specs(field):
+        spec = (SHARD_AXIS,) if field in SHARDED_FIELDS else ()
+        return _tree_map(lambda _: spec, getattr(shapes, field))
+
+    return EngineState(**{f: specs(f) for f in EngineState._fields})
+
+
+def split_state(cfg: EngineConfig, state: EngineState, shard: int) -> EngineState:
+    """Shard ``shard``'s block of a canonical [R, ...] state, as the
+    reference's device_put by `state_partition_specs` places it: each
+    shard-owned leaf's block of its leading axis (R / S replicas, or one
+    of the pool's [S] WAL counters and of the obs plane's [S] lanes), the
+    K/V planes' pages of the shard's replicas with a scratch page of its
+    own; replicated fields shared. The block is a copy. Needs
+    ``n_shards >= 2``."""
+    s = cfg.n_shards
+    if s < 2 or not 0 <= shard < s:
+        raise ValueError(f"split_state needs n_shards >= 2 and 0 <= shard < "
+                         f"n_shards; got n_shards={s}, shard={shard}")
+    rows = local_replicas(cfg) * cfg.pages_per_replica
+
+    def block(x):
+        return x.reshape(s, x.shape[0] // s, *x.shape[1:])[shard].clone()
+
+    pool = state.pool
+    planes = {f: torch.cat([getattr(pool, f)[shard * rows:(shard + 1) * rows],
+                            getattr(pool, f)[-1:]]) for f in ("k", "v")}
+    pool = pool._replace(logs=_tree_map(block, pool.logs), **planes,
+                         **{f: block(getattr(pool, f)) for f in _POOL_FIELDS})
+    return state._replace(
+        pool=pool, table=_tree_map(block, state.table),
+        **{f: _tree_map(block, getattr(state, f)) for f in _STATE_FIELDS})
+
+
+def join_states(cfg: EngineConfig, blocks) -> EngineState:
+    """The canonical state from every shard's block, in shard order (the
+    inverse of `split_state`; the scratch page is shard 0's)."""
+    if len(blocks) != cfg.n_shards:
+        raise ValueError(f"join_states needs {cfg.n_shards} blocks, got "
+                         f"{len(blocks)}")
+    cat = lambda *xs: torch.cat(xs)
+    first, pools = blocks[0], [b.pool for b in blocks]
+    planes = {f: torch.cat([getattr(p, f)[:-1] for p in pools]
+                           + [getattr(pools[0], f)[-1:]]) for f in ("k", "v")}
+    pool = first.pool._replace(
+        logs=_tree_map(cat, *(p.logs for p in pools)), **planes,
+        **{f: cat(*(getattr(p, f) for p in pools)) for f in _POOL_FIELDS})
+    return first._replace(
+        pool=pool, table=_tree_map(cat, *(b.table for b in blocks)),
+        **{f: _tree_map(cat, *(getattr(b, f) for b in blocks))
+           for f in _STATE_FIELDS})
+
+
+def make_sharded_step(cfg: EngineConfig, mesh=None):
+    """The engine step of one rank of the serving mesh: each rank of its
+    SHARD_AXIS dim owns one shard's ``n_replicas / n_shards`` replicas
+    (its block of the state, `split_state`), runs the full local round on
+    them, and joins the exchange across shards through collectives of
+    the axis's process group (DESIGN.md §9): the reference's shard_map'ed
+    step on `torch.distributed`.
+
+    ``mesh`` defaults to `launch.mesh.make_serving_mesh(cfg.n_shards)`
+    (CUDA; the caller initialises the process group). Returns
+    ``step_fn(block, arrivals, *, x=None, generator=None) -> (block',
+    stats)``: ``arrivals`` int[R] and ``x`` [R, St, d] are what `step`
+    takes (each rank takes its replicas' rows; with ``x`` None every rank
+    draws the whole [R, St, d] from ``generator`` as `step` does, so ranks
+    seeded alike decode the activations one `step` would); ``stats`` are
+    `step`'s, the same on every rank: per-replica stats over every shard,
+    sums and the reference's psums over every shard. Integer stats and
+    state equal `step`'s; floats summed across ranks differ in their last
+    bits. The input block must not be reused."""
+    if cfg.n_shards < 2:
+        raise ValueError("make_sharded_step needs cfg.n_shards >= 2; "
+                         "single-shard serving is just `step`")
+    _validate(cfg)
+    if mesh is None:
+        from repro_torch.launch.mesh import make_serving_mesh
+        mesh = make_serving_mesh(cfg.n_shards)
+    names = tuple(mesh.mesh_dim_names or ())
+    if names != (SHARD_AXIS,) or mesh.size() != cfg.n_shards:
+        raise ValueError(f"make_sharded_step needs a 1-D mesh ({SHARD_AXIS!r},) "
+                         f"of n_shards={cfg.n_shards} ranks; got {names} of "
+                         f"{mesh.size()}")
+    ranks = _Ranks(sid=mesh.get_local_rank(SHARD_AXIS), n=cfg.n_shards,
+                   group=mesh.get_group(SHARD_AXIS))
+    nl = local_replicas(cfg)
+    mine = slice(ranks.sid * nl, (ranks.sid + 1) * nl)
+
+    def sharded_step(state: EngineState, arrivals, *, x: torch.Tensor | None = None,
+                     generator: torch.Generator | None = None):
+        if state.queue.shape != (nl,):
+            raise ValueError(f"a rank steps its block of {nl} replicas "
+                             f"(`split_state`); got {tuple(state.queue.shape)}")
+        arrivals, x = _step_inputs(cfg, state.queue.device, arrivals, x, generator)
+        out, stats = _shard_step(cfg, _to_shards(cfg, state, 1),
+                                 arrivals[mine].reshape(1, nl),
+                                 x[mine].reshape(1, nl, *x.shape[1:]), ranks)
+        out = _from_shards(cfg, out)._replace(step_count=state.step_count + 1)
+        return out, _finish_stats(stats)
+
+    return sharded_step
 
 
 def obs_history(state: EngineState) -> dict:

@@ -288,6 +288,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 
@@ -3984,6 +3985,328 @@ def mla_ranks_phase(dev) -> dict:
     return line
 
 
+# ------------------------------------------------------- the mesh trainer
+# `training.train_step` on DTensor state placed by `launch.sharding`
+# (`state_specs`, `batch_specs`, `place`), each rank a spawned process of
+# one gloo group on the one card (`run_ranks`). phase -> (arch, layers (None:
+# the smoke config), batch, seq, microbatches, [(mesh, fsdp)]).
+# `train_ranks_h2o`: h2o-danube-1.8b at full width, 4 of its 24 layers,
+# bf16 with remat, batch 4 x 4096 in 2 microbatches, on (2, 1) with FSDP
+# and on (2, 2) with FSDP and tensor parallelism. `train_ranks_moe`:
+# deepseek-v2's smoke config (fp32) with its experts over "model" on 2
+# ranks, batch 2 x 128 (full-width v2's experts with AdamW, ~90 GB a MoE
+# layer, cannot fit two ranks on one 80 GB card)
+TRAIN_RANKS = {
+    "train_ranks_h2o": ("h2o-danube-1.8b", 4, 4, 4096, 2, [((2, 1), True), ((2, 2), True)]),
+    "train_ranks_moe": ("deepseek-v2-236b", None, 2, 128, 1, [((1, 2), False)]),
+}
+# the dry run's predicted peak (`launch.dryrun.run_step`'s ``peak_bytes``,
+# rank 0's) against the card's `torch.cuda.max_memory_allocated` over the
+# same step: within DRYRUN_MEMORY_TOL of the measured peak
+DRYRUN_MEMORY_TOL = 0.15
+# one train_4k cell on the 16 x 16 fake mesh at its first probe depth
+# (`launch.specs.probe_variants`, one microbatch), traced with fake CUDA
+# tensors and with fake CPU tensors: the two records equal
+DRYRUN_DEVICE_CELL = ("whisper-tiny", "train_4k")
+
+
+class GlooCollectives(TorchDispatchMode):
+    """DTensor's functional collectives (``torch.ops._c10d_functional``)
+    on CUDA tensors hang in a gloo group (on an H100: a Shard-to-Replicate
+    redistribution of a [4, 4] tensor on 2 ranks gave no result in 150
+    s), while the c10d calls themselves run (`probe_collectives`). Around
+    the ranks' steps on the one card this dispatch mode
+    runs each functional collective through the c10d call
+    (`gloo_collective`), and `wait_tensor` returns its tensor: the same
+    values, each collective finished where it is issued."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        name = func.__name__.split(".")[0]
+        if func.namespace != "_c10d_functional" or name not in GLOO_COLLECTIVES:
+            return func(*args, **(kwargs or {}))
+        return gloo_collective(name, args)
+
+
+GLOO_COLLECTIVES = ("wait_tensor", "all_gather_into_tensor", "reduce_scatter_tensor",
+                    "all_reduce", "all_to_all_single")
+
+
+def gloo_collective(name, args):
+    """One functional collective through the c10d API (`GlooCollectives`)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.AVG, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+    if name == "wait_tensor":
+        return args[0]
+    x = args[0].contiguous()
+    if name == "all_gather_into_tensor":
+        g, pg = args[1], _resolve_process_group(args[2])
+        out = x.new_empty((x.shape[0] * g, *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=pg)
+        return out
+    if name == "reduce_scatter_tensor":
+        op, g, pg = ops[args[1].lower()], args[2], _resolve_process_group(args[3])
+        out = x.new_empty((x.shape[0] // g, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=op, group=pg)
+        return out
+    if name == "all_reduce":
+        op, pg = ops[args[1].lower()], _resolve_process_group(args[2])
+        out = x.clone()
+        dist.all_reduce(out, op=op, group=pg)
+        return out
+    if name == "all_to_all_single":
+        out_splits, in_splits, pg = args[1], args[2], _resolve_process_group(args[3])
+        g, me = pg.size(), dist.get_rank(pg)
+        in_splits = list(in_splits) if in_splits else [x.shape[0] // g] * g
+        out_splits = list(out_splits) if out_splits else [x.shape[0] // g] * g
+        splits = torch.tensor(in_splits, dtype=torch.int64, device=x.device)
+        every = splits.new_empty((g * g,))
+        dist.all_gather_into_tensor(every, splits, group=pg)
+        every = every.reshape(g, g).tolist()          # every[r]: rank r's in_splits
+        rows = max(sum(r) for r in every)
+        pad = x.new_zeros((rows, *x.shape[1:]))
+        pad[:x.shape[0]] = x
+        gathered = x.new_empty((g * rows, *x.shape[1:]))
+        dist.all_gather_into_tensor(gathered, pad, group=pg)
+        parts = [gathered[r * rows + sum(every[r][:me]):][:every[r][me]] for r in range(g)]
+        assert [p.shape[0] for p in parts] == out_splits
+        return torch.cat(parts)
+    raise AssertionError(name)
+
+
+def train_ranks_cfg(phase):
+    from repro_torch import configs
+    arch, layers, batch, seq, n_micro, _ = TRAIN_RANKS[phase]
+    cfg = (configs.smoke(arch) if layers is None else dataclasses.replace(
+        configs.get(arch), name=f"{arch}-{layers}-layers", n_layers=layers))
+    return cfg, batch, seq, n_micro
+
+
+def train_rank_worker(rank, world, payload) -> dict:
+    """One rank of a TRAIN_RANKS phase on one mesh: the seeded weights and
+    batch placed by the specs, one `train_step` at TRAIN_VS_CPU_LR with the
+    kernels' counts zeroed just before it and the card's peak memory
+    counted over it; then rank 0 runs the same step on the same batch in
+    one process and holds the whole new state against it (`rel_diffs`,
+    `update_close`)."""
+    from repro_torch.launch.mesh import make_mesh
+    phase, shape, fsdp, seed = payload
+    cfg, batch, seq, n_micro = train_ranks_cfg(phase)
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def progress(stage):   # on stderr: where a slow or stuck rank is
+        print(f"[{phase} {shape} rank {rank}] {stage} "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr, flush=True)
+
+    mesh = make_mesh(shape, ("data", "model"))
+    with GlooCollectives():
+        return placed_step(rank, phase, shape, fsdp, seed, cfg, batch, seq, n_micro, dev,
+                           mesh, progress)
+
+
+def placed_step(rank, phase, shape, fsdp, seed, cfg, batch, seq, n_micro, dev, mesh,
+                progress) -> dict:
+    """`train_rank_worker`'s step and checks, under `GlooCollectives`."""
+    import torch.distributed as dist
+    from repro_torch.data import pipeline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.training import train_step as TS
+    from repro_torch.training import tree as tr
+
+    def fresh():
+        params = T.init_params(cfg, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(seed))
+        return TS.init_state(cfg, params), pipeline.batch_for_step(cfg, 0, batch, seq, seed,
+                                                                    device=dev)
+
+    state, b = fresh()
+    placed = SH.place(state, SH.state_specs(cfg, state, mesh, fsdp), mesh)
+    pb = SH.place(b, SH.batch_specs(cfg, b, mesh), mesh)
+    del state, b
+    torch.cuda.empty_cache()
+    progress("placed")
+    kernels = train_kernels()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    new, m = TS.train_step(cfg, placed, pb, n_micro=n_micro, lr=TRAIN_VS_CPU_LR)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    progress("stepped")
+    launches = {name: k.launches for name, k in kernels.items()}
+    sizes = [(x.to_local().numel(), x.numel()) for x in tr.leaves(placed.params)]
+    del placed, pb
+    # every rank joins each leaf's gather and only rank 0 keeps the whole
+    # leaf: a whole state on each of 4 ranks does not fit beside the
+    # ranks' own on the one card
+    flat, treedef = tr.flatten(new)
+    del new
+    kept = []
+    while flat:
+        leaf = flat.pop(0).full_tensor()
+        kept.append(leaf if rank == 0 else None)
+        del leaf
+    whole = tr.unflatten(treedef, kept) if rank == 0 else None
+    del kept
+    torch.cuda.empty_cache()
+    progress("gathered")
+    out = dict(rank=rank, shape=list(shape), fsdp=fsdp, backend=dist.get_backend(),
+               peak_bytes=peak, seconds=seconds, launches=launches,
+               params_local=sum(s[0] for s in sizes), params_whole=sum(s[1] for s in sizes),
+               largest_leaf_local_over_whole=[(lo, wh) for lo, wh in sizes
+                                              if wh == max(s[1] for s in sizes)][0],
+               loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    if rank != 0:
+        return out
+    torch.cuda.empty_cache()
+    state, b = fresh()
+    ref, ref_m = TS.train_step(cfg, state, b, n_micro=n_micro, lr=TRAIN_VS_CPU_LR)
+    progress("one process")
+    form = "bf16" if cfg.param_dtype == torch.bfloat16 else "fp32"
+    tol = TRAIN_TOL[form]
+    errs = rel_diffs(m, whole, ref_m, ref)
+    excess, upd_err = -np.inf, 0.0
+    for leaf in zip(*(tr.leaves(t) for t in (
+            whole.params, state.params, ref.params, state.params, whole.opt.m,
+            whole.opt.v, ref.opt.m, ref.opt.v))):
+        flat = [x.reshape(-1) for x in leaf]
+        for lo in range(0, flat[0].numel(), 1 << 25):
+            e, d = update_close(*(x[lo:lo + (1 << 25)] for x in flat), step=1,
+                                lr=TRAIN_VS_CPU_LR, p_rel=tol["p_rel"])
+            excess, upd_err = max(excess, e), max(upd_err, d)
+    bad = [f"{key} differs by {errs[key]} (tol {tol[key]})"
+           for key in ("loss", "grad_norm", "m", "v") if not errs[key] <= tol[key]]
+    if excess > 0:
+        bad.append(f"a parameter's update differs by {excess} past its bound")
+    if int(whole.opt.step) != int(ref.opt.step):
+        bad.append(f"step {int(whole.opt.step)} != {int(ref.opt.step)}")
+    return dict(out, rel_err=errs, max_abs_update_err=upd_err, update_err_over_bound=excess,
+                tol=tol, loss_one_process=float(ref_m["loss"]), failures=bad)
+
+
+def train_ranks_phase(phase) -> dict:
+    """A TRAIN_RANKS phase: each of its meshes on its ranks
+    (`train_rank_worker`). Fails unless rank 0's whole new state passes
+    the gates against one process, every rank launched exactly
+    `train_expected`'s kernels in the step, and every rank's parameters
+    are split (rank 0's shard of the largest leaf smaller than the whole,
+    and at most 3/4 of all the elements)."""
+    arch, layers, batch, seq, n_micro, meshes = TRAIN_RANKS[phase]
+    cfg, *_ = train_ranks_cfg(phase)
+    expect = train_expected(cfg, n_micro)
+    line = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+                heads=[cfg.n_heads, cfg.n_kv_heads], dtype=cfg.dtype, remat=cfg.remat,
+                batch=batch, seq=seq, n_micro=n_micro, lr=TRAIN_VS_CPU_LR,
+                expected_per_rank=expect,
+                backend_note="gloo stages CUDA tensors through the host: a check of "
+                             "values, no figure for NCCL or several cards",
+                meshes={})
+    bad = []
+    for shape, fsdp in meshes:
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        res = run_ranks(train_rank_worker, world, (phase, shape, fsdp, 43))
+        label = f"{shape[0]}x{shape[1]}" + ("_fsdp" if fsdp else "")
+        for r in res:
+            if r["launches"] != expect:
+                bad.append(f"{label} rank {r['rank']}: launches {r['launches']} != {expect}")
+            lo, wh = r["largest_leaf_local_over_whole"]
+            if not (lo < wh and r["params_local"] <= 0.75 * r["params_whole"]):
+                bad.append(f"{label} rank {r['rank']}: parameters not split "
+                           f"({r['params_local']} of {r['params_whole']})")
+        bad += [f"{label}: {b}" for b in res[0]["failures"]]
+        line["meshes"][label] = dict(
+            world=world, seconds=time.perf_counter() - t0,
+            step_s_each_rank=[r["seconds"] for r in res],
+            peak_gb_each_rank=[r["peak_bytes"] / 1e9 for r in res],
+            peak_bytes_each_rank=[r["peak_bytes"] for r in res],
+            launches_each_rank=[r["launches"] for r in res],
+            params_local_over_whole=[r["params_local"] / r["params_whole"] for r in res],
+            **{k: res[0][k] for k in ("loss", "loss_one_process", "grad_norm", "rel_err",
+                                      "max_abs_update_err", "update_err_over_bound",
+                                      "tol", "backend")})
+    line["launches"] = {name: sum(sum(r[name] for r in m["launches_each_rank"])
+                                  for m in line["meshes"].values())
+                        for name in expect}
+    if bad:
+        print(json.dumps({phase: line}), flush=True)
+        fail(f"{phase}: " + "; ".join(bad))
+    return line
+
+
+def dryrun_memory_phase(dev, train_line, ranks_h2o) -> dict:
+    """The dry run's predicted peak for the steps the card just ran against
+    their measured peaks (within DRYRUN_MEMORY_TOL): `train_h2o_danube`'s
+    step (the whole model, its batch, mesh (1, 1); measured: its
+    `train_split`'s largest stage peak) and each mesh of `train_ranks_h2o`
+    (rank 0's prediction against every rank's peak). Then the
+    DRYRUN_DEVICE_CELL at its probe depth on the 16 x 16 mesh, traced
+    with fake CUDA and fake CPU tensors: the records must be equal. The
+    dry run's HBM constant must be this card's total memory."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    total = torch.cuda.get_device_properties(dev).total_memory
+    line = dict(total_memory=total, hbm_bytes_constant=DR.H100_HBM_BYTES,
+                tol=DRYRUN_MEMORY_TOL, steps={})
+    bad = []
+    if total != DR.H100_HBM_BYTES:
+        bad.append(f"launch.dryrun.H100_HBM_BYTES {DR.H100_HBM_BYTES} != this card's "
+                   f"{total}")
+    arch, batch, seq, n_micro, _ = TRAIN
+    cases = [("train_h2o_danube", configs.get(arch), batch, seq, n_micro, (1, 1), False,
+              [1e9 * max(train_line["split"]["peak_mem_gb"].values())])]
+    rcfg, rbatch, rseq, rmicro = train_ranks_cfg("train_ranks_h2o")
+    for (shape, fsdp), (label, m) in zip(TRAIN_RANKS["train_ranks_h2o"][5],
+                                         ranks_h2o["meshes"].items()):
+        cases.append((f"train_ranks_h2o_{label}", rcfg, rbatch, rseq, rmicro, shape, fsdp,
+                      m["peak_bytes_each_rank"]))
+    for name, cfg, b, s, nm, shape, fsdp, measured in cases:
+        t0 = time.perf_counter()
+        rec = DR.run_step(cfg, SP.Shape(name, s, b, "train"), mesh_shape=shape, fsdp=fsdp,
+                          n_micro=nm, device_type="cuda", replication=False)
+        pred = rec["memory"]["peak_bytes"]
+        rel = [(pred - x) / x for x in measured]
+        line["steps"][name] = dict(mesh=list(shape), fsdp=fsdp, batch=b, seq=s, n_micro=nm,
+                                   predicted_peak_bytes=pred, measured_peak_bytes=measured,
+                                   rel_err=rel, memory=rec["memory"],
+                                   trace_s=time.perf_counter() - t0)
+        if max(abs(r) for r in rel) > DRYRUN_MEMORY_TOL:
+            bad.append(f"{name}: predicted peak {pred} vs measured {measured} "
+                       f"(rel {rel}, tol {DRYRUN_MEMORY_TOL})")
+    arch, shape_name = DRYRUN_DEVICE_CELL
+    variant, _ = SP.probe_variants(configs.get(arch), SP.SHAPES[shape_name].kind)[0]
+    recs = {}
+    for device_type in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rec = DR.run_cell(arch, shape_name, False, cfg_override=variant, n_micro_override=1,
+                          quiet=True, device_type=device_type, replication=False)
+        recs[device_type] = {k: v for k, v in rec.items()
+                             if k not in ("trace_s", "trace_unsharded_s", "device_type")}
+        line[f"cell_{device_type}_s"] = time.perf_counter() - t0
+    line["cell"] = dict(arch=arch, shape=shape_name, layers=variant.n_layers,
+                        equal=recs["cuda"] == recs["cpu"],
+                        memory=recs["cuda"]["memory"], flops=recs["cuda"]["flops"],
+                        collectives=recs["cuda"]["collectives"]["counts"])
+    if recs["cuda"] != recs["cpu"]:
+        bad.append(f"{arch} {shape_name}: the fake-CUDA record differs from the fake-CPU "
+                   f"one: {recs}")
+    if bad:
+        print(json.dumps({"dryrun_memory": line}), flush=True)
+        fail("dryrun_memory: " + "; ".join(bad))
+    return line
+
+
 # ------------------------------------------------------ the JBOF simulator
 def sim_loop(S, prepared):
     """`sim.run_prepared` (the window loop) on the card with no host sync
@@ -4716,6 +5039,20 @@ def main() -> None:
                for seed, arch in ((35, "whisper-tiny"), (37, "qwen2-vl-2b"))]
     print(json.dumps({"train_gpu_vs_cpu": {"steps": vs_cpu}, "card": card}), flush=True)
     lap("train_gpu_vs_cpu")
+
+    # ---- 2d. the mesh trainer on gloo ranks on the card, against one
+    # process; then the dry run's predicted peaks against the measured ones
+    ranks_train = {}
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    for phase in TRAIN_RANKS:
+        ranks_train[phase] = train_ranks_phase(phase)
+        print(json.dumps({phase: ranks_train[phase], "card": card,
+                          "this_process_reserved_bytes": torch.cuda.memory_reserved()}),
+              flush=True)
+        lap(phase)
+    dry = dryrun_memory_phase(dev, train_line, ranks_train["train_ranks_h2o"])
+    print(json.dumps({"dryrun_memory": dry, "card": card}), flush=True)
+    lap("dryrun_memory")
     train_gpu_cpu_launches = {name: sum(c["launches"][name] for c in vs_cpu)
                               for name in train_kernels()}
 
@@ -4858,7 +5195,10 @@ def main() -> None:
         {"on_main_path": True, "phase": "model_window",
          # the same kernel at the same shapes on the trainer's path
          "launches_train_h2o_danube": train_line["launches"]["flash_attention"],
-         "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention"]}))
+         "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention"],
+         # the mesh trainer's ranks (h2o-danube at 4 layers, batch 4 x 4096)
+         "launches_train_ranks_h2o":
+             ranks_train["train_ranks_h2o"]["launches"]["flash_attention"]}))
     del window_in, q, k, v
     q, k, v, causal, window = flash_in(hybrid_in)
     kernels.append(flash_row(
@@ -4899,7 +5239,9 @@ def main() -> None:
         {"on_main_path": True, "phase": "train_h2o_danube",
          "launches_train_recurrentgemma_9b":
              family_lines["train_recurrentgemma_9b"]["launches"]["flash_attention_bwd"],
-         "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention_bwd"]}))
+         "launches_train_gpu_vs_cpu": train_gpu_cpu_launches["flash_attention_bwd"],
+         "launches_train_ranks_h2o":
+             ranks_train["train_ranks_h2o"]["launches"]["flash_attention_bwd"]}))
     # whisper-tiny's training cross-attention: one backward a decoder layer
     # and microbatch in each step of the uninterrupted run (the steps the
     # line's `launches` count), as the wrapper counted them at the shape
@@ -4990,14 +5332,19 @@ def main() -> None:
                                       if ranks_launches else {})},
              "scores": "sigmoid + aux-free bias" if kw.get("bias") is not None
              else "softmax",
-             "launches_gpu_vs_cpu_model": gpu_cpu_launches["topk_router"]}))
+             "launches_gpu_vs_cpu_model": gpu_cpu_launches["topk_router"],
+             # the mesh trainer's ranks (deepseek-v2's smoke config)
+             "launches_train_ranks_moe":
+                 ranks_train["train_ranks_moe"]["launches"]["topk_router"]}))
     del moe_v2_in, moe_v3_in
     # the router's backward kernel at DeepSeek's full widths (random
     # scores), launched by the DeepSeek smoke configs' train steps
     for form in ("v2", "v3"):
         kernels.append(router_bwd_row(
             form, train_gpu_cpu_launches["topk_router_bwd"], flush, rbchecks, floor_ms,
-            {"on_main_path": True, "phase": "train_gpu_vs_cpu (deepseek smoke configs)"}))
+            {"on_main_path": True, "phase": "train_gpu_vs_cpu (deepseek smoke configs)",
+             "launches_train_ranks_moe":
+                 ranks_train["train_ranks_moe"]["launches"]["topk_router_bwd"]}))
     kernels.append({**ftl_row, "on_main_path": True, "phase": "ftl"})
 
     # the script's own time, from the card line to here, the build included

@@ -153,6 +153,17 @@ def bwd_kernels_per_call(dtype: torch.dtype, head_dim: int, n_split: int) -> int
     return 2 + (2 if head_dim > 128 else 1) + (n_split > 1)
 
 
+def bwd_workspace_floats(b: int, s: int, t: int, h: int, kv: int, d: int,
+                         n_split: int) -> int:
+    """fp32 floats of `flash_attention_bwd`'s scratch: delta and the base-2
+    log-sum-exp of each row, S rounded up to 128 (the fp32 kernels use B *
+    H * S of it), then the split runs' fp32 sums of dk and dv when each
+    walk is cut into ``n_split`` > 1 runs (`bwd_split`). The dry run's
+    fake entry counts the same bytes."""
+    return (2 * b * h * (-(-s // 128) * 128)
+            + (2 * n_split * b * t * kv * d if n_split > 1 else 0))
+
+
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -233,12 +244,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or s == 0:
         return dq, dk.zero_(), dv.zero_()
-    # the kernels' scratch: delta and the base-2 log-sum-exp of each row,
-    # S rounded up to 128 (the fp32 kernels use B * H * S of it), then the
-    # split runs' fp32 sums of dk and dv
     n_split = bwd_split(q.dtype, b, t, kv, _sms(q.device))
-    work = torch.empty(2 * b * h * (-(-s // 128) * 128)
-                       + (2 * n_split * b * t * kv * d if n_split > 1 else 0),
+    work = torch.empty(bwd_workspace_floats(b, s, t, h, kv, d, n_split),
                        dtype=torch.float32, device=q.device)
     scale = d ** -0.5 if scale is None else scale
     stream = torch.cuda.current_stream(q.device).cuda_stream

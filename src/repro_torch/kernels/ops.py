@@ -2,12 +2,18 @@
 
 A CUDA tensor launches the hand-written kernel (it raises on what the
 kernel does not take — no fallback); a CPU tensor takes the plain PyTorch
-version in `ref`. There is no shape gate and no environment switch.
+version in `ref`. There is no shape gate and no environment switch. The
+four kernels of the training and prefill paths (`attention`, `rglru`,
+`rwkv6_wkv`, `topk_router`) also take a DTensor, which runs this same
+entry on its local shards, and a fake tensor, which takes the kernel's
+fake entry (`entries`).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.placement import is_dtensor
+from . import entries as _en
 from . import flash_attention as _fa
 from . import ftl_lookup as _ftl
 from . import moe_router as _mr
@@ -25,6 +31,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor goes through `FlashAttention`: the forward kernel, and under a
     gradient the backward kernel (when nothing needs one, as in serving,
     the forward kernel is all it launches)."""
+    if is_dtensor(q):
+        return _en.attention_placed(q, k, v, causal, window, scale)
+    if _en.is_fake(q):
+        return _en.attention_fake(q, k, v, causal, window, scale)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window, scale=scale)
     return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
@@ -34,7 +44,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """One-token attention against a KV cache. No TPU kernel backs it (the
     reference runs its jnp oracle on every backend), so it is the plain
-    version on every device."""
+    version on every device (on a DTensor, on each rank's shards)."""
+    if is_dtensor(q):
+        return _en.decode_attention_placed(q, k, v, valid)
     return ref.decode_attention(q, k, v, valid)
 
 
@@ -57,6 +69,11 @@ def rglru(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None = None):
     """RG-LRU recurrence over x, a [B, T, W] from h0 [B, W] (zeros when
     None) -> (out [B, T, W], h_T). A CUDA tensor goes through `RGLRU`: the
     forward kernel, and under a gradient the backward kernel."""
+    if is_dtensor(x):
+        return _en.rglru_placed(x, a, h0)
+    if _en.is_fake(x):
+        out = _en.rglru_op(x, a, h0)
+        return out, out[:, -1]
     if x.device.type == "cpu":
         return ref.rglru(x, a, h0=h0)
     out = _rg.RGLRU.apply(x, a, h0)
@@ -73,6 +90,11 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, return_state: bool = False):
     [H, K], from s0 [B, H, K, V] (zeros when None); with ``return_state``
     also the final state. A CUDA tensor goes through `RWKV6WKV`: the
     forward kernel, and under a gradient the backward kernel."""
+    if is_dtensor(r):
+        return _en.rwkv6_wkv_placed(r, k, v, w, u, s0, return_state)
+    if _en.is_fake(r):
+        out, s_fin = _en.rwkv6_wkv_op(r, k, v, w, u, s0)
+        return (out, s_fin) if return_state else out
     if r.device.type == "cpu":
         return ref.rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=return_state)
     out, s_fin = _wkv.RWKV6WKV.apply(r, k, v, w, u, s0)
@@ -89,6 +111,10 @@ def topk_router(scores: torch.Tensor, k: int, bias: torch.Tensor | None = None):
     int32). No shape gate: the reference's ``E >= 128`` is a TPU lane
     constraint. A CUDA tensor goes through `TopKRouter`: the forward
     kernel, and under a gradient the backward kernel (for the scores)."""
+    if is_dtensor(scores):
+        return _en.topk_router_placed(scores, k, bias)
+    if _en.is_fake(scores):
+        return _en.topk_router_op(scores, k, bias)
     if scores.device.type == "cpu":
         return ref.topk_router(scores, k, bias=bias)
     return _mr.TopKRouter.apply(scores, k, bias)

@@ -62,6 +62,18 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+# rows between two of the backward's fp32 state snapshots (csrc/rglru_scan_bwd.cu: kG)
+_BWD_GROUP = 8
+
+
+def bwd_workspace_floats(b: int, t: int, w: int) -> int:
+    """fp32 floats of `rglru_bwd`'s workspace for x [B, T, W]: the h and
+    cotangent snapshots at the start of every group of _BWD_GROUP rows
+    (the C entry's ``xbof_rglru_bwd_workspace``, which the launcher checks
+    it against). The dry run's fake entry counts the same bytes."""
+    return 2 * b * (-(-t // _BWD_GROUP)) * w
+
+
 def _check(x, a, h0):
     if x.device.type != "cuda":
         raise ValueError(
@@ -128,8 +140,11 @@ def rglru_bwd(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
     dx, da = torch.empty_like(x), torch.empty_like(a)
     h0f = None if h0 is None else h0.to(torch.float32).contiguous()
     dh0 = None if h0 is None else torch.empty((b, w), dtype=torch.float32, device=x.device)
-    ws = torch.empty(max(lib.xbof_rglru_bwd_workspace(b, t, w), 1), dtype=torch.float32,
-                     device=x.device)
+    n_ws = bwd_workspace_floats(b, t, w)
+    if n_ws != lib.xbof_rglru_bwd_workspace(b, t, w):
+        raise RuntimeError(f"bwd_workspace_floats({b}, {t}, {w}) = {n_ws} disagrees with "
+                           "csrc/rglru_scan_bwd.cu's xbof_rglru_bwd_workspace")
+    ws = torch.empty(max(n_ws, 1), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.xbof_rglru_bwd(_KIND[x.dtype], x.data_ptr(), a.data_ptr(),
                              None if h0f is None else h0f.data_ptr(), dout.data_ptr(),

@@ -69,6 +69,20 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def bwd_workspace_floats(b: int, t: int, h: int, k: int) -> int:
+    """fp32 floats of `rwkv6_wkv_bwd`'s workspace for r [B, T, H, K]: the S
+    and dS snapshots at the edges of every group of rows, and du's
+    partials (the C entry's ``xbof_rwkv6_wkv_bwd_workspace``, which the
+    launcher checks it against); -1 for a K the kernel does not take.
+    84.5 MB at [1, 4096, 40, 64]. The dry run's fake entry counts the same
+    bytes."""
+    if k not in (16, 32, 64, 128):
+        return -1
+    rows = 32 if k == 128 else 64     # csrc/rwkv6_scan_bwd.cu: group_rows<K>
+    groups = -(-t // rows)
+    return 2 * b * h * groups * k * k + b * h * groups * k
+
+
 def _check(r, k, v, w, u, s0):
     if r.device.type != "cuda":
         raise ValueError(
@@ -150,7 +164,10 @@ def rwkv6_wkv_bwd(r, k, v, w, u, s0, dout, ds_final=None):
         raise ValueError(f"ds_final must be [B, H, K, V] = {(b, h, dk, dv_)} on "
                          f"{r.device}; got {tuple(ds_final.shape)} on {ds_final.device}")
     lib = _bwd_lib()
-    n_ws = lib.xbof_rwkv6_wkv_bwd_workspace(b, t, h, dk)
+    n_ws = bwd_workspace_floats(b, t, h, dk)
+    if n_ws != lib.xbof_rwkv6_wkv_bwd_workspace(b, t, h, dk):
+        raise RuntimeError(f"bwd_workspace_floats({b}, {t}, {h}, {dk}) = {n_ws} disagrees "
+                           "with csrc/rwkv6_scan_bwd.cu's xbof_rwkv6_wkv_bwd_workspace")
     if n_ws < 0 or dk != dv_:
         raise ValueError(f"shape beyond the backward kernel's limits "
                          f"(csrc/rwkv6_scan_bwd.cu: K = V in 16, 32, 64, 128): "

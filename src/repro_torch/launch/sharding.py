@@ -16,13 +16,18 @@ Dims shard only when divisible by the mesh-axis product, otherwise the
 leaf replicates on that dim. The rules read the mesh only through
 `launch.mesh.axis_size` and `data_axes`, so a shape-only mesh will do.
 
-On the serve path the weights stay replicated on every rank: the engine's
-state is what `engine_state_shardings` splits. Placing weights by
-`param_specs` comes with the mesh trainer.
+`state_specs` gives a training state's specs (params and both moments
+by `param_specs`, the step replicated) and `place` puts a tree on a
+DeviceMesh as DTensors by them: the mesh trainer (`training.train_step`
+on DTensor leaves) and the dry run (`launch.dryrun`) place weights so.
+The serving engine keeps its weights replicated on every rank: its state
+is what `engine_state_shardings` splits.
 """
 from __future__ import annotations
 
 from typing import Any
+
+import torch
 
 from repro_torch.models.config import ArchConfig
 from .mesh import axis_size, data_axes, mesh_axes
@@ -137,12 +142,14 @@ def param_specs(cfg: ArchConfig, params_shape: Any, mesh, fsdp: bool,
 
 
 def _placements(spec: tuple, mesh) -> tuple:
+    """A spec's placement on each mesh dim; a dim of size 1 replicates
+    (the same layout, which DTensor handles more simply)."""
     from torch.distributed.tensor import Replicate, Shard
     out = []
     for name in mesh_axes(mesh):
         dims = [i for i, ax in enumerate(spec)
                 if ax == name or (isinstance(ax, tuple) and name in ax)]
-        out.append(Shard(dims[0]) if dims else Replicate())
+        out.append(Shard(dims[0]) if dims and axis_size(mesh, name) > 1 else Replicate())
     return tuple(out)
 
 
@@ -160,6 +167,65 @@ def shardings_of(specs, mesh):
             return [walk(v) for v in t]
         return _placements(t, mesh)
     return walk(specs)
+
+
+def state_specs(cfg: ArchConfig, state_shape: Any, mesh, fsdp: bool):
+    """Specs of a `training.train_step.TrainState`: params and both
+    moments by `param_specs`, the step replicated (the reference's
+    dry-run ``in_shardings``)."""
+    pspecs = param_specs(cfg, state_shape.params, mesh, fsdp)
+    opt = state_shape.opt
+    return type(state_shape)(pspecs, type(opt)((), pspecs, pspecs))
+
+
+def _place_leaf(x, spec, mesh):
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, mesh, _placements(spec, mesh), src_data_rank=None)
+
+
+def _place_walk(t, specs, mesh):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _place_walk(t[k], specs[k], mesh) for k in t}
+    if hasattr(t, "_fields"):
+        return type(t)(*(_place_walk(a, b, mesh) for a, b in zip(t, specs)))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_place_walk(a, b, mesh) for a, b in zip(t, specs))
+    return _place_leaf(t, specs, mesh)
+
+
+def place(tree, specs, mesh):
+    """Each tensor of ``tree`` as a DTensor on ``mesh`` with its spec's
+    placements (`shardings_of`): every rank passes the same whole tensor
+    and keeps its shard, with no collective (`distribute_tensor` with no
+    source rank). The tree keeps its structure,
+    so its leaves keep the reference's order (`training.tree`)."""
+    return _place_walk(tree, specs, mesh)
+
+
+def zeros_placed(tree, specs, mesh):
+    """Zeros of a tree of (meta) tensors' shapes and dtypes as DTensors on
+    ``mesh`` with their specs' placements, each rank allocating its shard
+    only (the prefill's cache)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.placement import shard_span
+
+    def leaf(x, spec):
+        pl = _placements(spec, mesh)
+        shape = [shard_span(n, mesh, pl, d)[1] for d, n in enumerate(x.shape)]
+        loc = torch.zeros(shape, dtype=x.dtype, device=mesh.device_type)
+        stride, n = [], 1
+        for d in reversed(x.shape):
+            stride.insert(0, n)
+            n *= d
+        return DTensor.from_local(loc, mesh, pl, shape=x.shape, stride=tuple(stride))
+
+    def walk(t, sp):
+        if isinstance(t, dict):
+            return {k: walk(t[k], sp[k]) for k in t}
+        return leaf(t, sp)
+    return walk(tree, specs)
 
 
 def engine_state_shardings(cfg, mesh):

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import CHUNK, CHUNKED_THRESHOLD, NEG_INF
-from .common import apply_mrope, apply_rope, rmsnorm
+from .common import apply_mrope, apply_rope, reshape_heads, rmsnorm, settle
 from .config import ArchConfig
 
 
@@ -76,16 +76,16 @@ def gqa_train(cfg: ArchConfig, p: dict, x: torch.Tensor, *, window: int = 0,
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_source is None else kv_source
     t = src.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, h, dh)
-    k = (src @ p["wk"]).reshape(b, t, kv, dh)
-    v = (src @ p["wv"]).reshape(b, t, kv, dh)
+    q = reshape_heads(x @ p["wq"], b, s, h, dh)
+    k = reshape_heads(src @ p["wk"], b, t, kv, dh)
+    v = reshape_heads(src @ p["wv"], b, t, kv, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if use_rope and kv_source is None:
         q, k = _rope_q_k(cfg, q, k, _positions(s, device=x.device))
     out = kops.attention(q, k, v, causal=causal and kv_source is None, window=window)
-    y = out.reshape(b, s, h * dh) @ p["wo"]
+    y = reshape_heads(out, b, s, h * dh) @ p["wo"]
     if return_kv:
         return y, (k, v)
     return y
@@ -104,9 +104,9 @@ def gqa_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: KVCache, *,
     b = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     length = cache.length
-    q = (x @ p["wq"]).reshape(b, 1, h, dh)
-    k_new = (x @ p["wk"]).reshape(b, 1, kv, dh)
-    v_new = (x @ p["wv"]).reshape(b, 1, kv, dh)
+    q = reshape_heads(x @ p["wq"], b, 1, h, dh)
+    k_new = reshape_heads(x @ p["wk"], b, 1, kv, dh)
+    v_new = reshape_heads(x @ p["wv"], b, 1, kv, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k_new = rmsnorm(k_new, p["k_norm"], cfg.norm_eps)
@@ -141,14 +141,17 @@ def _mla_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions):
     m = cfg.mla
     b, s, _ = x.shape
     qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    # on DTensors the down-projections stay in x's placement (`settle`:
+    # DTensor would split their replicated rows over "model" by the
+    # sequence, which its backward cannot take)
     if m.q_lora_rank:
-        q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(b, s, cfg.n_heads, qd)
+        q = reshape_heads(settle(x @ p["wq_a"], x) @ p["wq_b"], b, s, cfg.n_heads, qd)
     else:
-        q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, qd)
+        q = reshape_heads(x @ p["wq"], b, s, cfg.n_heads, qd)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv = x @ p["wkv_a"]
-    k_rope = apply_rope((x @ p["wk_rope"])[..., None, :], positions,
+    c_kv = settle(x @ p["wkv_a"], x)
+    k_rope = apply_rope(settle(x @ p["wk_rope"], x)[..., None, :], positions,
                         cfg.rope_theta)[..., 0, :]   # one shared head
     return q_nope, q_rope, c_kv, k_rope
 
@@ -156,9 +159,11 @@ def _mla_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions):
 def _mla_scale(cfg: ArchConfig, dtype: torch.dtype) -> float:
     """1 / sqrt(nope + rope) as the reference's weakly typed scalar meets
     the scores: computed in fp32, then rounded to the scores' dtype."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     m = cfg.mla
-    s32 = 1.0 / torch.sqrt(torch.tensor(float(m.qk_nope_head_dim + m.qk_rope_head_dim)))
-    return float(s32.to(dtype))
+    with unset_fake_temporarily():   # a constant: real even in the dry run
+        s32 = 1.0 / torch.sqrt(torch.tensor(float(m.qk_nope_head_dim + m.qk_rope_head_dim)))
+        return float(s32.to(dtype))
 
 
 def _mla_scores(q_c, q_rope, c_kv, k_rope, scale):
@@ -175,9 +180,49 @@ def _mla_attend(cfg: ArchConfig, p: dict, q_nope, q_rope, c_kv, k_rope,
     k_rope, the context is a mix of c_kv, and W_uv brings it up per head;
     no per-head K or V is ever made. ``valid`` [T] masks cache slots;
     ``causal`` places query i at key position i + T - S."""
+    from repro_torch.launch.placement import is_dtensor
     m = cfg.mla
-    h = cfg.n_heads
-    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    if is_dtensor(q_nope):
+        out = _mla_context_placed(cfg, p["wkv_b"], q_nope, q_rope, c_kv, k_rope, valid,
+                                  causal)
+    else:
+        out = _mla_context(cfg, p["wkv_b"], q_nope, q_rope, c_kv, k_rope, valid, causal)
+    b, s, h = out.shape[:3]
+    return reshape_heads(out, b, s, h * m.v_head_dim) @ p["wo"]
+
+
+def _mla_context_placed(cfg, wkv_b, q_nope, q_rope, c_kv, k_rope, valid, causal):
+    """`_mla_context` on DTensors, each rank on its shards: batch kept,
+    the query heads kept on the dims that shard them (and ``wkv_b``'s
+    columns, whole heads, on the same dims), everything else replicated;
+    the latent cache's gradient is a partial sum over the head dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.placement import keep_dims, partial_on, sharding_dims
+    tq = keep_dims(q_nope.placements, (0, 2), q_nope, 2)
+    hdims = sharding_dims(tq, 2)
+    tc = tuple(Replicate() if i in hdims else p for i, p in enumerate(tq))
+    gc = partial_on(tc, hdims)
+    tw = tuple(Shard(1) if i in hdims else Replicate() for i in range(len(tq)))
+    gw = partial_on(tw, [i for i, p in enumerate(tq) if isinstance(p, Shard)
+                             and p.dim == 0])
+
+    def body(wl, qn, qr, cl, kl):
+        return _mla_context(cfg, wl, qn, qr, cl, kl, valid, causal)
+
+    return local_map(body, out_placements=(tq,), in_placements=(tw, tq, tq, tc, tc),
+                     in_grad_placements=(gw, tq, tq, gc, gc),
+                     device_mesh=q_nope.device_mesh,
+                     redistribute_inputs=True)(wkv_b, q_nope, q_rope, c_kv, k_rope)
+
+
+def _mla_context(cfg: ArchConfig, wkv_b, q_nope, q_rope, c_kv, k_rope, valid=None,
+                 causal: bool = False):
+    """The per-head context [B, S, H, v] of `_mla_attend` before the output
+    projection, for the H heads in q_nope (and ``wkv_b``'s columns)."""
+    m = cfg.mla
+    h = q_nope.shape[2]
+    wkv_b = wkv_b.reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
     w_uk = wkv_b[..., :m.qk_nope_head_dim]        # [kv_lora, h, nope]
     w_uv = wkv_b[..., m.qk_nope_head_dim:]        # [kv_lora, h, v]
     q_c = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)
@@ -221,8 +266,7 @@ def _mla_attend(cfg: ArchConfig, p: dict, q_nope, q_rope, c_kv, k_rope,
         w = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
         del scores
         ctx = torch.einsum("bhst,btl->bshl", w, c_kv)     # latent context
-    out = torch.einsum("bshl,lhv->bshv", ctx, w_uv)       # up-project per head
-    return out.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+    return torch.einsum("bshl,lhv->bshv", ctx, w_uv)      # up-project per head
 
 
 def mla_train(cfg: ArchConfig, p: dict, x: torch.Tensor, return_latent: bool = False):
@@ -247,6 +291,9 @@ def mla_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: MLACache):
     from repro_torch.launch.mesh import mesh_axes
     mesh = runtime.get_serve_mesh()
     if mesh is not None and "model" in mesh_axes(mesh):
+        from repro_torch.launch.placement import is_dtensor
+        if is_dtensor(x):
+            return _mla_decode_placed(cfg, p, x, cache, mesh)
         return mla_decode_seq_sharded(cfg, p, x, cache, mesh)
     b = x.shape[0]
     length = cache.length
@@ -258,6 +305,32 @@ def mla_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: MLACache):
     valid = torch.arange(t, device=x.device) < length + 1
     y = _mla_attend(cfg, p, q_nope, q_rope, cache.c_kv, cache.k_rope, valid=valid)
     return y, MLACache(cache.c_kv, cache.k_rope, length + 1)
+
+
+def _mla_decode_placed(cfg: ArchConfig, p: dict, x, cache: MLACache, mesh):
+    """`mla_decode_seq_sharded` on DTensors: each rank runs it on its
+    block of the batch, its span of the latent cache (the cache's own
+    shards) and the layer's weights gathered whole (the serve layout
+    shards their heads over "model"; the sequence-sharded decode holds
+    every head). Writes the token into the caches' local spans in place."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.placement import keep_dims
+    tx = keep_dims(x.placements, (0,))
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    keys = sorted(p)
+
+    def body(xl, cl, kl, ln, *pl):
+        y, _ = mla_decode_seq_sharded(cfg, dict(zip(keys, pl)), xl, MLACache(cl, kl, ln),
+                                      mesh)
+        return y
+
+    y = local_map(body, out_placements=(tx,),
+                  in_placements=(tx, tuple(cache.c_kv.placements),
+                                 tuple(cache.k_rope.placements), rep) + (rep,) * len(keys),
+                  device_mesh=mesh, redistribute_inputs=True)(
+        x, cache.c_kv, cache.k_rope, cache.length, *(p[k] for k in keys))
+    return y, MLACache(cache.c_kv, cache.k_rope, cache.length + 1)
 
 
 def mla_decode_seq_sharded(cfg: ArchConfig, p: dict, x: torch.Tensor,

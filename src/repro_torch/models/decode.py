@@ -39,10 +39,11 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.placement import is_dtensor
 from . import attention as attn
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
-from .common import mlp, norm, rmsnorm, unembed
+from .common import mlp, norm, reshape_heads, rmsnorm, settle, unembed
 from .config import ArchConfig, require_in_slice
 from .transformer import (Params, _rec_block, deepseek_layers, dec_positions,
                           embed_tokens, encode, ffn, kind_layers, layer_params)
@@ -96,6 +97,29 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     return cache
 
 
+def _assign(buf, src):
+    """buf <- src in place; on DTensors src is placed as buf first and each
+    rank writes its own shard."""
+    if is_dtensor(buf):
+        if is_dtensor(src):
+            src = src.redistribute(buf.device_mesh, buf.placements)
+        buf.to_local().copy_(src.to_local() if is_dtensor(src) else src)
+        return buf
+    return buf.copy_(src)
+
+
+def _index_copy(buf, dim, idx, src):
+    """``buf.index_copy_(dim, idx, src)``; on DTensors (``dim`` not a
+    sharded dim of buf) src is placed as buf first and each rank writes
+    its own shard."""
+    if is_dtensor(buf):
+        src = src.redistribute(buf.device_mesh, buf.placements)
+        buf.to_local().index_copy_(dim, idx.to_local() if is_dtensor(idx) else idx,
+                                   src.to_local())
+        return buf
+    return buf.index_copy_(dim, idx, src)
+
+
 # ========================================================== decode blocks
 def _ring_update(buf: torch.Tensor, new: torch.Tensor, length: torch.Tensor):
     """buf [B, S, ...] <- new [B, 1, ...] at slot length % S, in place."""
@@ -108,9 +132,9 @@ def _decode_gqa(cfg, lp, x, k_buf, v_buf, length, use_rope=True):
     buffers [B, S, KV, Dh] in place. The window is the buffer's size."""
     b = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ lp["wq"]).reshape(b, 1, h, dh)
-    k_new = (x @ lp["wk"]).reshape(b, 1, kv, dh)
-    v_new = (x @ lp["wv"]).reshape(b, 1, kv, dh)
+    q = reshape_heads(x @ lp["wq"], b, 1, h, dh)
+    k_new = reshape_heads(x @ lp["wk"], b, 1, kv, dh)
+    v_new = reshape_heads(x @ lp["wv"], b, 1, kv, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, lp["q_norm"], cfg.norm_eps)
         k_new = rmsnorm(k_new, lp["k_norm"], cfg.norm_eps)
@@ -121,7 +145,7 @@ def _decode_gqa(cfg, lp, x, k_buf, v_buf, length, use_rope=True):
     s = k_buf.shape[1]
     valid = torch.arange(s, device=x.device) < torch.clamp(length + 1, max=s)
     out = kops.decode_attention(q, k_buf, v_buf, valid)
-    return out.reshape(b, 1, h * dh) @ lp["wo"]
+    return reshape_heads(out, b, 1, h * dh) @ lp["wo"]
 
 
 def _decode_attn_layer(cfg, lp, x, kb, vb, length, cross=None, use_rope=True):
@@ -129,16 +153,16 @@ def _decode_attn_layer(cfg, lp, x, kb, vb, length, cross=None, use_rope=True):
     layer's cross_k, cross_v [B, T, KV, Dh]), cross-attention over every
     one of those keys between the two."""
     nf = _nf(cfg)
-    x = x + _decode_gqa(cfg, lp["attn"], nf(x, lp["ln1"]), kb, vb, length, use_rope)
+    x = settle(x + _decode_gqa(cfg, lp["attn"], nf(x, lp["ln1"]), kb, vb, length, use_rope), x)
     if cross is not None:
         ck, cv = cross
         b = x.shape[0]
         h, dh = cfg.n_heads, cfg.head_dim
-        q = (nf(x, lp["lnx"]) @ lp["xattn"]["wq"]).reshape(b, 1, h, dh)
+        q = reshape_heads(nf(x, lp["lnx"]) @ lp["xattn"]["wq"], b, 1, h, dh)
         valid = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
         out = kops.decode_attention(q, ck, cv, valid)
-        x = x + out.reshape(b, 1, h * dh) @ lp["xattn"]["wo"]
-    return x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+        x = settle(x + reshape_heads(out, b, 1, h * dh) @ lp["xattn"]["wo"], x)
+    return settle(x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act), x)
 
 
 def _decode_encdec(cfg, params, cache, x, length):
@@ -180,9 +204,9 @@ def _decode_mla(cfg, params, cache, x, length):
     for i, lp in enumerate(deepseek_layers(cfg, params)):
         y, _ = attn.mla_decode(cfg, lp["attn"], nf(x, lp["ln1"]),
                                attn.MLACache(cache["c_kv"][i], cache["k_rope"][i], length))
-        x = x + y
+        x = settle(x + y, x)
         y, _ = ffn(cfg, lp, nf(x, lp["ln2"]))
-        x = x + y
+        x = settle(x + y, x)
     return x
 
 
@@ -222,15 +246,15 @@ def _write_kv(buf: torch.Tensor, kv_seq: torch.Tensor, window: int):
     else:
         idx = torch.arange(min(s, dst), device=buf.device)
         kv_seq = kv_seq[:, :dst]
-    return buf.index_copy_(1, idx, kv_seq.to(buf.dtype))
+    return _index_copy(buf, 1, idx, kv_seq.to(buf.dtype))
 
 
 def _prefill_attn_layer(cfg, lp, x, k_buf, v_buf, window):
     nf = _nf(cfg)
     y, (k, v) = attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]),
                                window=window, return_kv=True)
-    x = x + y
-    x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+    x = settle(x + y, x)
+    x = settle(x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act), x)
     _write_kv(k_buf, k, window)
     _write_kv(v_buf, v, window)
     return x
@@ -247,15 +271,15 @@ def _prefill_encdec(cfg, params, cache, x, enc_embeds):
         lp = layer_params(params["dec_layers"], i)
         y, (k, v) = attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), use_rope=False,
                                    return_kv=True)
-        x = x + y
+        x = settle(x + y, x)
         _write_kv(cache["self_k"][i], k, 0)
         _write_kv(cache["self_v"][i], v, 0)
         y, (ck, cv) = attn.gqa_train(cfg, lp["xattn"], nf(x, lp["lnx"]), kv_source=e,
                                      return_kv=True)
-        x = x + y
-        cache["cross_k"][i].copy_(ck)
-        cache["cross_v"][i].copy_(cv)
-        x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+        x = settle(x + y, x)
+        _assign(cache["cross_k"][i], ck)
+        _assign(cache["cross_v"][i], cv)
+        x = settle(x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act), x)
     return x
 
 
@@ -265,11 +289,15 @@ def _prefill_mla(cfg, params, cache, x):
     for i, lp in enumerate(deepseek_layers(cfg, params)):
         y, (c_kv, k_rope) = attn.mla_train(cfg, lp["attn"], nf(x, lp["ln1"]),
                                            return_latent=True)
-        x = x + y
+        x = settle(x + y, x)
         y, _ = ffn(cfg, lp, nf(x, lp["ln2"]))
-        x = x + y
-        cache["c_kv"][i, :, :s].copy_(c_kv)
-        cache["k_rope"][i, :, :s].copy_(k_rope)
+        x = settle(x + y, x)
+        if s == cache["c_kv"].shape[2]:
+            _assign(cache["c_kv"][i], c_kv)
+            _assign(cache["k_rope"][i], k_rope)
+        else:
+            cache["c_kv"][i, :, :s].copy_(c_kv)
+            cache["k_rope"][i, :, :s].copy_(k_rope)
     return x
 
 
@@ -281,8 +309,8 @@ def _prefill_hybrid(cfg, params, cache, x):
                                     cfg.local_window)
         else:
             x, st = _rec_block(cfg, layer_params(params["rec_layers"], i), x)
-            cache["rec_h"][i].copy_(st.h)
-            cache["rec_conv"][i].copy_(st.conv)
+            _assign(cache["rec_h"][i], st.h)
+            _assign(cache["rec_conv"][i], st.conv)
     return x
 
 
@@ -291,9 +319,9 @@ def _prefill_rwkv(cfg, params, cache, x):
     # `_rwkv_time_mix_prefill` calls its oracle for it)
     for i in range(cfg.n_layers):
         x, st = _rec_block(cfg, layer_params(params["layers"], i), x)
-        cache["wkv"][i].copy_(st.wkv)
-        cache["shift_t"][i].copy_(st.shift_t)
-        cache["shift_c"][i].copy_(st.shift_c)
+        _assign(cache["wkv"][i], st.wkv)
+        _assign(cache["shift_t"][i], st.shift_t)
+        _assign(cache["shift_c"][i], st.shift_c)
     return x
 
 
@@ -317,7 +345,13 @@ def prefill(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None = None,
         raise ValueError(
             f"{cfg.name}: a prompt of {s} tokens is shorter than the temporal "
             f"conv's tail of conv_width - 1 = {cfg.conv_width - 1}")
-    cache = init_cache(cfg, b, max_len or s, device=x.device)
+    if is_dtensor(x):   # the dry run's prefill: the cache placed by cache_specs
+        from repro_torch.launch import sharding as SH
+        meta = init_cache(cfg, b, max_len or s, device="meta")
+        cache = SH.zeros_placed(meta, SH.cache_specs(cfg, meta, x.device_mesh),
+                                x.device_mesh)
+    else:
+        cache = init_cache(cfg, b, max_len or s, device=x.device)
     if cfg.is_encdec:
         x = _prefill_encdec(cfg, params, cache, x, enc_embeds)
     elif cfg.mla is not None:

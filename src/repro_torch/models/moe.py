@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.placement import is_dtensor
+from .common import mean, settle
 from .config import ArchConfig
 
 # below this many tokens the dispatch uses dense one-hot products (the
@@ -34,7 +36,7 @@ def route(cfg: ArchConfig, p: dict, x: torch.Tensor):
     logits [T, E] fp32). Softmax scores, or (DeepSeek-v3) sigmoid scores
     whose selection adds the aux-free bias."""
     e = cfg.moe
-    logits = x.float() @ p["router"].float()
+    logits = settle(x.float() @ p["router"].float(), x)
     if e.aux_free_bias:
         w, idx = kops.topk_router(torch.sigmoid(logits), e.top_k,
                                   bias=p["router_bias"])
@@ -51,8 +53,8 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def aux_loss(logits: torch.Tensor, idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss (used when aux_free_bias is off)."""
-    me = torch.softmax(logits, dim=-1).mean(0)
-    ce = _one_hot(idx, n_experts).sum(1).mean(0)
+    me = mean(torch.softmax(logits, dim=-1), 0)
+    ce = mean(_one_hot(idx, n_experts).sum(1), 0)
     return n_experts * torch.sum(me * ce)
 
 
@@ -76,19 +78,21 @@ def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor):
     t = b * s
     xf = x.reshape(t, d)
     w, idx, logits = route(cfg, p, xf)
-    if t <= SMALL_BATCH_TOKENS:
+    if is_dtensor(x):
+        y = _moe_placed(cfg, p, x, w, idx)
+    elif t <= SMALL_BATCH_TOKENS:
         y = _moe_small_batch(cfg, p, xf, w, idx)
     else:
         y = _moe_sorted(cfg, p, x, w, idx)
     if e.n_shared:  # always-on shared experts
         sp = p["shared"]
-        y = y + _gated(xf @ sp["wi_gate"], xf @ sp["wi_up"], cfg.act) @ sp["wo"]
+        y = y + settle(_gated(xf @ sp["wi_gate"], xf @ sp["wi_up"], cfg.act) @ sp["wo"], y)
     laux = (torch.zeros((), dtype=torch.float32, device=x.device)
             if e.aux_free_bias else aux_loss(logits, idx, e.n_routed))
     return y.reshape(b, s, d), laux
 
 
-def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, w, idx):
+def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, w, idx, experts=None):
     """Sorted-capacity dispatch, per sequence: x [B, S, D], w and idx [B *
     S, k] -> y [B * S, D]. Each sequence's S * k (token, expert) pairs are
     sorted stably by expert; a pair's rank among its expert's is its slot,
@@ -96,10 +100,13 @@ def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, w, idx):
     slot capacity - 1 (the reference's clipped scatter; x + 0 = x, so the
     dispatch's adds are exact in any order). The combine gathers each
     token's k weighted expert outputs and adds them in a fixed order, so
-    one seed gives one result."""
+    one seed gives one result. With ``experts`` = (lo, n), ``p`` holds
+    experts lo .. lo + n - 1 only, and only the pairs routed to them are
+    dispatched and combined (the mesh trainer's expert shards)."""
     e = cfg.moe
     b, s, d = x.shape
     k, n_e = e.top_k, e.n_routed
+    lo, n_l = experts or (0, n_e)
     cap = max(int(s * k / n_e * e.capacity_factor), 4)
     dev = x.device
     flat_e = idx.reshape(b, s * k).long()
@@ -109,14 +116,17 @@ def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, w, idx):
     sw = torch.gather(w.reshape(b, s * k), 1, order)
     pos = torch.arange(s * k, device=dev) - torch.searchsorted(se, se, side="left")
     keep = pos < cap                                          # overflow drops
+    if experts is not None:
+        keep = keep & (se >= lo) & (se < lo + n_l)
+        se = (se - lo).clamp(0, n_l - 1)
     slot = pos.clamp(0, cap - 1)
     row = torch.arange(b, device=dev)[:, None]
     # dispatch: [B, E, cap, D] flattened to rows
-    dst = ((row * n_e + se) * cap + slot).reshape(-1)
+    dst = ((row * n_l + se) * cap + slot).reshape(-1)
     src = torch.where(keep[..., None], x[row, st], 0).reshape(-1, d)
-    xg = torch.zeros((b * n_e * cap, d), dtype=x.dtype, device=dev)
+    xg = torch.zeros((b * n_l * cap, d), dtype=x.dtype, device=dev)
     xg.index_add_(0, dst, src)
-    yg = _expert_ffn(xg.reshape(b, n_e, cap, d), p["experts"], cfg.act)
+    yg = _expert_ffn(xg.reshape(b, n_l, cap, d), p["experts"], cfg.act)
     # combine: a gather, no atomics. A token's k contributions are added
     # in the order of their places in the sorted pairs, the order in
     # which the reference's scatter applies them
@@ -130,24 +140,100 @@ def _moe_sorted(cfg: ArchConfig, p: dict, x: torch.Tensor, w, idx):
     return y
 
 
-def _moe_small_batch(cfg: ArchConfig, p: dict, xf: torch.Tensor, w, idx):
+def _moe_small_batch(cfg: ArchConfig, p: dict, xf: torch.Tensor, w, idx, experts=None,
+                     prior=None, t_all=None):
     """Decode-path MoE: dense one-hot dispatch and combine products. A
     (token, expert) pair's slot is its rank among the expert's earlier
     pairs (a cumulative sum, no sort); every expert's FFN runs on its
-    ``capacity`` slots."""
+    ``capacity`` slots. On one block of a batch split across ranks,
+    ``prior`` [E] counts each expert's pairs in the blocks before it and
+    ``t_all`` is the whole batch's token count (the capacity's); with
+    ``experts`` = (lo, n), ``p`` holds experts lo .. lo + n - 1 only."""
     e = cfg.moe
     t, d = xf.shape
     k, n_e = e.top_k, e.n_routed
-    capacity = max(int(t * k / n_e * e.capacity_factor), 4)
+    lo, n_l = experts or (0, n_e)
+    capacity = max(int((t_all or t) * k / n_e * e.capacity_factor), 4)
     oh_e = _one_hot(idx.reshape(t * k), n_e)                   # [Tk, E]
     rank = torch.cumsum(oh_e, dim=0) - oh_e                   # prior same-expert
+    if prior is not None:
+        rank = rank + prior.float()
     slot = torch.sum(rank * oh_e, dim=1).to(torch.int32)      # [Tk]
     keep = slot < capacity
     oh_c = _one_hot(slot, capacity)                           # [Tk, C]
+    oh_e = oh_e[:, lo:lo + n_l]
     disp_k = ((oh_e[:, :, None] * oh_c[:, None, :]) * keep[:, None, None]
-              ).reshape(t, k, n_e, capacity)
+              ).reshape(t, k, n_l, capacity)
     xg = torch.einsum("tec,td->ecd", disp_k.sum(1).to(xf.dtype), xf)
     yg = _expert_ffn(xg, p["experts"], cfg.act)               # [E, C, D]
     # combine weights: per (t, e, c) the routing weight of the matching pick
     comb = torch.einsum("tkec,tk->tec", disp_k, w.float())
     return torch.einsum("tec,ecd->td", comb.to(xf.dtype), yg)
+
+
+def _moe_placed(cfg: ArchConfig, p: dict, x, w, idx):
+    """The routed experts on DTensors: x [B, S, D], w and idx [B * S, k]
+    -> y [B * S, D] placed as the tokens (batch kept, replicated
+    elsewhere). Each rank runs `_expert_ffn` on its own experts (the
+    experts' leading dim keeps its shards: over "model" in training, over
+    the data axes in serving; the expert-FFN dim keeps its shards too;
+    an FSDP-sharded model dim is gathered) for the tokens routed to them,
+    the tokens gathered over the mesh dims that shard the experts. The
+    ranks' outputs are partial sums over those dims, reduced by one
+    collective into the tokens' placement: no all-to-all, no gather of
+    expert weights. The dispatch keeps one process's semantics: per
+    sequence above `SMALL_BATCH_TOKENS` tokens in all, and below it each
+    expert's slots counted across the token blocks of every rank (their
+    per-expert counts gathered) with the whole batch's capacity."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.placement import shard_span
+    e = cfg.moe
+    mesh = x.device_mesh
+    ex = p["experts"]
+    nd = mesh.ndim
+    shards = lambda t, dim: {i for i, q in enumerate(t.placements)
+                             if isinstance(q, Shard) and q.dim == dim}
+    edims = shards(ex["wi_gate"], 0)
+    fdims = shards(ex["wi_gate"], 2) & shards(ex["wo"], 1)
+    busy = edims | fdims
+    tok = {i for i in shards(x, 0) if i not in busy}
+    tw = tuple(Shard(0) if i in edims else Shard(2) if i in fdims else Replicate()
+               for i in range(nd))
+    to = tuple(Shard(0) if i in edims else Shard(1) if i in fdims else Replicate()
+               for i in range(nd))
+    tx = tuple(Shard(0) if i in tok else Replicate() for i in range(nd))
+    gx = tuple(Partial() if i in busy else q for i, q in enumerate(tx))
+    gww = tuple(Partial() if i in tok else q for i, q in enumerate(tw))
+    gwo = tuple(Partial() if i in tok else q for i, q in enumerate(to))
+    yp = tuple(Partial() if i in busy else q for i, q in enumerate(tx))
+    lo, n_l = shard_span(e.n_routed, mesh, tw, 0)
+    b, s, d = x.shape
+    t_all = b * s
+    tok_dims = sorted(tok)
+
+    def prior_counts(idx_l):
+        """Each expert's pairs in the token blocks before this rank's."""
+        import torch.distributed._functional_collectives as fc
+        counts = _one_hot(idx_l.reshape(-1), e.n_routed).sum(0)      # [E]
+        blocks = counts[None]
+        for i in reversed(tok_dims):    # row-major over the token dims
+            blocks = fc.all_gather_single(blocks, gather_dim=0, group=(mesh, i))
+        coord = mesh.get_coordinate()
+        mine = 0
+        for i in tok_dims:
+            mine = mine * mesh.size(i) + coord[i]
+        return blocks.reshape(-1, e.n_routed)[:mine].sum(0)
+
+    def body(xl, wl, il, wg, wu, wo):
+        pl = {"experts": {"wi_gate": wg, "wi_up": wu, "wo": wo}}
+        if t_all > SMALL_BATCH_TOKENS:
+            return _moe_sorted(cfg, pl, xl, wl, il, experts=(lo, n_l))
+        prior = prior_counts(il) if tok_dims else None
+        return _moe_small_batch(cfg, pl, xl.reshape(-1, d), wl, il, experts=(lo, n_l),
+                                prior=prior, t_all=t_all)
+
+    y = local_map(body, out_placements=(yp,), in_placements=(tx, tx, tx, tw, tw, to),
+                  in_grad_placements=(gx, gx, tx, gww, gww, gwo), device_mesh=mesh,
+                  redistribute_inputs=True)(x, w, idx, ex["wi_gate"], ex["wi_up"], ex["wo"])
+    return y.redistribute(mesh, tx)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from .common import reshape_heads, settle
 from .config import ArchConfig
 
 
@@ -31,9 +32,12 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor | None) -> torch.Tensor:
 
 
 def _ddlerp(x, x_prev, mu, lora_a, lora_b):
-    """RWKV6 data-dependent interpolation between x_t and x_{t-1}."""
+    """RWKV6 data-dependent interpolation between x_t and x_{t-1}. On
+    DTensors the low-rank products stay in x's placement (`settle`):
+    DTensor would split their replicated rows over "model" by the
+    sequence, which its backward cannot take."""
     base = x + (x_prev - x) * mu
-    dd = torch.tanh(base @ lora_a) @ lora_b
+    dd = settle(settle(torch.tanh(base @ lora_a), x) @ lora_b, x)
     return x + (x_prev - x) * (mu + dd)
 
 
@@ -53,13 +57,13 @@ def time_mix(cfg: ArchConfig, p: dict, x: torch.Tensor,
     g_in = _ddlerp(x, xp, p["mu_g"], p["lora_a"], p["lora_b_g"])
     w_in = _ddlerp(x, xp, p["mu_w"], p["lora_a"], p["lora_b_w"])
 
-    r = (r_in @ p["wr"]).reshape(b, t, h, dk)
-    k = (k_in @ p["wk"]).reshape(b, t, h, dk)
-    v = (v_in @ p["wv"]).reshape(b, t, h, dk)
+    r = reshape_heads(r_in @ p["wr"], b, t, h, dk)
+    k = reshape_heads(k_in @ p["wk"], b, t, h, dk)
+    v = reshape_heads(v_in @ p["wv"], b, t, h, dk)
     g = F.silu(g_in @ p["wg"])
     # data-dependent decay (0, 1): w = exp(-exp(decay))
-    decay = (p["w_base"] + (torch.tanh(w_in @ p["w_lora_a"]) @ p["w_lora_b"])
-             ).reshape(b, t, h, dk)
+    decay = reshape_heads(p["w_base"] + settle(settle(torch.tanh(w_in @ p["w_lora_a"]), x)
+                                             @ p["w_lora_b"], x), b, t, h, dk)
     w = torch.exp(-torch.exp(decay.float())).to(x.dtype)
     u = p["u"].reshape(h, dk)
 
@@ -69,18 +73,18 @@ def time_mix(cfg: ArchConfig, p: dict, x: torch.Tensor,
         S, o = kops.rwkv6_wkv_step(state.wkv, r[:, 0], k[:, 0], v[:, 0], w[:, 0], u)
         out = o[:, None]
 
-    out = out.reshape(b, t, h * dk)
+    out = reshape_heads(out, b, t, h * dk)
     out = _group_norm(out, p["ln_x_scale"], p["ln_x_bias"], h)
     return (out * g) @ p["wo"], S
 
 
 def _group_norm(x, scale, bias, groups: int, eps: float = 64e-5):
     b, t, d = x.shape
-    xg = x.reshape(b, t, groups, d // groups).float()
+    xg = reshape_heads(x, b, t, groups, d // groups).float()
     mu = xg.mean(-1, keepdim=True)
     var = xg.var(-1, keepdim=True, unbiased=False)
     xg = (xg - mu) * torch.rsqrt(var + eps)
-    return (xg.reshape(b, t, d) * scale + bias).to(x.dtype)
+    return (reshape_heads(xg, b, t, d) * scale + bias).to(x.dtype)
 
 
 def channel_mix(cfg: ArchConfig, p: dict, x: torch.Tensor, state: RWKVState | None):
@@ -98,7 +102,7 @@ def rwkv_block(cfg: ArchConfig, p: dict, x: torch.Tensor,
     last token of each mix's input, what the cache keeps."""
     xn = norm_fn(x, p["ln1"])
     h, S = time_mix(cfg, p["time"], xn, state)
-    x = x + h
+    x = settle(x + h, x)
     cn = norm_fn(x, p["ln2"])
-    x = x + channel_mix(cfg, p["chan"], cn, state)
+    x = settle(x + channel_mix(cfg, p["chan"], cn, state), x)
     return x, RWKVState(S, xn[:, -1], cn[:, -1])

@@ -44,7 +44,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
-from .common import dense_init, embed, mlp, norm, unembed
+from .common import dense_init, embed, mean, mlp, norm, settle, unembed
 from .config import ArchConfig, require_in_slice
 
 Params = Any
@@ -343,7 +343,10 @@ def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None,
         x = input_embeds.to(cfg.param_dtype)
     if cfg.recurrent != "rglru":
         return x
-    return x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():   # a constant: real even in the dry run
+        scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+    return x * scale
 
 
 def kind_layers(cfg: ArchConfig):
@@ -380,15 +383,15 @@ def _attn_block(cfg: ArchConfig, lp: dict, x, *, window: int, use_rope: bool = T
     or None)."""
     nf = lambda y, pp: norm(y, pp, cfg.norm, cfg.norm_eps)
     if cfg.mla is not None:
-        x = x + attn.mla_train(cfg, lp["attn"], nf(x, lp["ln1"]))
+        x = settle(x + attn.mla_train(cfg, lp["attn"], nf(x, lp["ln1"])), x)
     else:
-        x = x + attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), window=window,
-                               use_rope=use_rope)
+        x = settle(x + attn.gqa_train(cfg, lp["attn"], nf(x, lp["ln1"]), window=window,
+                                      use_rope=use_rope), x)
     if enc_out is not None:
-        x = x + attn.gqa_train(cfg, lp["xattn"], nf(x, lp["lnx"]), use_rope=False,
-                               kv_source=enc_out)
+        x = settle(x + attn.gqa_train(cfg, lp["xattn"], nf(x, lp["lnx"]), use_rope=False,
+                                      kv_source=enc_out), x)
     h, laux = ffn(cfg, lp, nf(x, lp["ln2"]))
-    return x + h, laux
+    return settle(x + h, x), laux
 
 
 def _rec_block(cfg: ArchConfig, lp: dict, x, state=None):
@@ -399,8 +402,8 @@ def _rec_block(cfg: ArchConfig, lp: dict, x, state=None):
     if cfg.recurrent == "rwkv6":
         return rwkv_mod.rwkv_block(cfg, lp, x, state, nf)
     h, st = rglru_mod.rglru_block(cfg, lp["rec"], nf(x, lp["ln1"]), state)
-    x = x + h
-    x = x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act)
+    x = settle(x + h, x)
+    x = settle(x + mlp(nf(x, lp["ln2"]), lp["mlp"], cfg.act), x)
     return x, st
 
 
@@ -494,9 +497,69 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None = None,
 
 # ============================================================= loss
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-token cross-entropy: fp32 log-softmax, the target's entry."""
+    """Per-token cross-entropy: fp32 log-softmax, the target's entry. On
+    DTensors it is vocab-parallel (`_xent_placed`)."""
+    from repro_torch.launch.placement import is_dtensor
+    if is_dtensor(logits):
+        return _xent_placed(logits, targets)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+
+
+class _VocabXent(torch.autograd.Function):
+    """Cross-entropy over a vocab split across the ranks of ``groups``:
+    logits [..., V_local] (vocab rows v0 ..), the max and the sum of
+    exponentials all-reduced over the groups, the target's logit summed
+    from its owner. The same formula as `_xent` in fp32; its gradient is
+    (softmax - one-hot) on each rank's own columns."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0, groups):
+        import torch.distributed as dist
+        lf = logits.float()
+        m = lf.amax(-1)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(lf - m[..., None])
+        s = e.sum(-1)
+        tl = (targets.long() - v0)
+        mine = (tl >= 0) & (tl < lf.shape[-1])
+        pick = torch.gather(lf, -1, tl.clamp(0, lf.shape[-1] - 1)[..., None])[..., 0]
+        pick = torch.where(mine, pick, torch.zeros_like(pick))
+        for g in groups:
+            dist.all_reduce(s, group=g)
+            dist.all_reduce(pick, group=g)
+        ctx.save_for_backward(e, s, tl, mine)
+        ctx.dtype = logits.dtype
+        return m + torch.log(s) - pick
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, tl, mine = ctx.saved_tensors
+        grad = e / s[..., None]
+        hot = torch.zeros_like(grad)
+        hot.scatter_(-1, tl.clamp(0, grad.shape[-1] - 1)[..., None], mine[..., None].float())
+        return ((grad - hot) * g[..., None]).to(ctx.dtype), None, None, None
+
+
+def _xent_placed(logits, targets):
+    """`_xent` on DTensors logits [B, S, V] and targets [B, S]: tokens keep
+    their batch shards, the vocab its shards (`_VocabXent`), nothing of
+    the logits gathered. Returns [B, S] placed as the targets."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.placement import shard_span
+    mesh = logits.device_mesh
+    vdims = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == logits.ndim - 1]
+    tt = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 and i not in vdims
+               else Replicate() for i, p in enumerate(targets.placements))
+    tl = tuple(Shard(logits.ndim - 1) if i in vdims else p for i, p in enumerate(tt))
+    v0, _ = shard_span(logits.shape[-1], mesh, tl, logits.ndim - 1)
+    groups = [mesh.get_group(i) for i in vdims]
+    return local_map(lambda lg, tg: _VocabXent.apply(lg, tg, v0, groups),
+                     out_placements=(tt,), in_placements=(tl, tt),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, targets)
 
 
 def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None,
@@ -511,17 +574,18 @@ def lm_loss(cfg: ArchConfig, params: Params, tokens: torch.Tensor | None,
     encoder-decoder takes ``enc_embeds`` (`forward`)."""
     logits, aux, h = forward(cfg, params, tokens, input_embeds=input_embeds,
                              enc_embeds=enc_embeds, return_hidden=True)
-    loss = torch.mean(_xent(logits, targets))
+    loss = mean(_xent(logits, targets))
     if cfg.mtp_depth and "mtp" in params:
         mp = params["mtp"]
         emb_next = embed(targets, params["embed"])     # t+1 embeddings
         hn = norm(h, mp["norm"], cfg.norm, cfg.norm_eps)
-        x_in = torch.cat([hn, emb_next], dim=-1) @ mp["proj"]
+        x_in = settle(torch.cat([hn, emb_next], dim=-1) @ mp["proj"], hn)
         x_mtp, _ = _attn_block(cfg, mp["layer"], x_in, window=0)
         logits_mtp = unembed(norm(x_mtp, params["final_norm"], cfg.norm, cfg.norm_eps),
                              params.get("lm_head", params["embed"]),
                              tied="lm_head" not in params)
         targets_mtp = torch.roll(targets, -1, dims=-1)
-        loss = loss + mtp_weight * torch.mean(_xent(logits_mtp, targets_mtp))
-    coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
-    return loss + coef * aux, (loss, aux)
+        loss = loss + mtp_weight * mean(_xent(logits_mtp, targets_mtp))
+    if cfg.moe is None:      # no aux term (loss + 0 * 0 is loss)
+        return loss, (loss, aux)
+    return loss + cfg.moe.router_aux_coef * aux, (loss, aux)

@@ -38,8 +38,33 @@ def init(params) -> AdamWState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves, in the reference's leaf order, of each
-    leaf's fp32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tr.leaves(tree)))
+    leaf's fp32 sum of squares. On DTensor leaves each leaf's sum becomes
+    a partial sum over the whole mesh, the partial sums add on each rank,
+    and one all-reduce gives the total (another order than the
+    reference's)."""
+    leaves = tr.leaves(tree)
+    from repro_torch.launch.placement import is_dtensor
+    if leaves and is_dtensor(leaves[0]):
+        return torch.sqrt(_placed_sum(
+            [torch.sum(torch.square(x.to_local().float())) for x in leaves], leaves))
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
+def _placed_sum(local_sums, leaves):
+    """The sum over a mesh of each DTensor leaf's local ``local_sums``,
+    each leaf counted once: a rank adds a leaf's local sum only where its
+    coordinate is 0 on every mesh dim that replicates the leaf, so the
+    partial sums over the whole mesh add up to the total, which one
+    all-reduce gives every rank (a replicated 0-d DTensor)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = torch.zeros((), dtype=torch.float32, device=local_sums[0].device)
+    for part, x in zip(local_sums, leaves):
+        if all(c == 0 or type(p).__name__ == "Shard" for c, p in zip(coord, x.placements)):
+            total = total + part
+    return DTensor.from_local(total, mesh, [Partial()] * mesh.ndim).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
 
 
 def update(params, grads, state: AdamWState, lr: float = 3e-4, b1: float = 0.9,

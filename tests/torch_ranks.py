@@ -132,3 +132,34 @@ def mla_worker(rank, world, payload):
     finally:
         runtime.set_serve_mesh(None)
     return np.stack(logits), {k: v.numpy() for k, v in local.items()}
+
+
+def train_worker(rank, world, cases):
+    """Each case ``(cfg, mesh shape, fsdp, state, batch, n_micro, lr)``: the
+    reference's numpy TrainState and batch placed on a ("data", "model")
+    mesh of that shape (`launch.sharding.state_specs`, `batch_specs`,
+    `place`) and one `train_step` on the DTensors. Returns, per case, on
+    rank 0 the whole new state and the metrics as numpy (None elsewhere),
+    and on every rank the local and whole element counts of each parameter
+    leaf."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import train_step as TS
+    from repro_torch.training import tree as tr
+
+    out = []
+    for cfg, shape, fsdp, state, batch, n_micro, lr in cases:
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        st = TS.train_state_from_numpy(cfg, state, "cpu")
+        placed = SH.place(st, SH.state_specs(cfg, st, mesh, fsdp), mesh)
+        b = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+        pb = SH.place(b, SH.batch_specs(cfg, b, mesh), mesh)
+        new, m = TS.train_step(cfg, placed, pb, n_micro=n_micro, lr=lr)
+        sizes = [(x.to_local().numel(), x.numel()) for x in tr.leaves(placed.params)]
+        whole = tr.tree_map(lambda x: x.full_tensor(), new)
+        res = None
+        if rank == 0:
+            res = (tr.tree_map(lambda t: t.numpy().copy(), whole),
+                   {k: v.numpy().copy() for k, v in m.items()})
+        out.append((res, sizes))
+    return out
